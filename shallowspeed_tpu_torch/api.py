@@ -1,18 +1,30 @@
-"""High-level API: the serving subset of ``shallowspeed_tpu.api.TrainingSession``.
+"""High-level API: the sequential subset of ``shallowspeed_tpu.api.TrainingSession``.
 
     from shallowspeed_tpu_torch.api import TrainingSession
 
-    run = TrainingSession()                     # flagship MLP on the GPU
+    run = TrainingSession(data_dir="data/mnist_784")   # flagship MLP on the GPU
+    for _ in range(20):
+        loss = run.train_epoch()
+        print(run.epoch, loss, run.accuracy())
     probs = run.predict(x)                      # (n, 784) numpy -> (n, 10)
 
-The sequential layout only (dp = pp = tp = 1): weights from the
-deterministic init or a checkpoint (``resume=``, any layout's snapshot),
-and ``predict`` exactly as the JAX session's sequential branch — rows
-packed into fixed ``slot_rows``-row slots, one slot-shaped forward per
-OCCUPIED slot. A fixed slot shape is what makes a request's rows give the
-same bits whatever rides beside them, which the serving engine's
-"response == direct predict()" contract needs. Training (and loading a
-training split) comes with the next slice.
+The sequential layout only (dp = pp = tp = 1). Training: the reference's
+recipe (global batch 128 in 4 microbatches, SGD at lr 0.006) or momentum /
+Adam, with decoupled weight decay, global-norm clipping and fused
+microbatches, driven per step (``train_steps``), per epoch
+(``train_epoch``) or per run (``train_run``), with the JAX session's
+epoch/step cursor and loss definitions. A session built without
+``data_dir`` serves only: weights from the deterministic init or a
+checkpoint (``resume=``, any layout's snapshot), and ``predict`` exactly as
+the JAX session's sequential branch — rows packed into fixed
+``slot_rows``-row slots, one slot-shaped forward per OCCUPIED slot. A fixed
+slot shape is what makes a request's rows give the same bits whatever
+rides beside them, which the serving engine's "response == direct
+predict()" contract needs.
+
+Not in this slice, and refused with a pointer to their ROADMAP.md item:
+mesh layouts, the pipeline executor's kernel backend, the fused train
+kernels, metrics/health/digests, fault injection and checkpoint writing.
 """
 
 import numpy as np
@@ -21,31 +33,93 @@ import torch
 from shallowspeed_tpu_torch import convert, resolve_device, trainer
 from shallowspeed_tpu_torch import model as Mo
 from shallowspeed_tpu_torch.checkpoint import load_checkpoint
+from shallowspeed_tpu_torch.data import Dataset
+from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.serving import slots as serving_slots
 
-# The reference's canonical configuration.
+# The reference's canonical training configuration.
 FLAGSHIP_SIZES = (784, 128, 127, 126, 125, 124, 123, 10)
 FLAGSHIP_BATCH = 128
+FLAGSHIP_MUBATCHES = 4
+FLAGSHIP_LR = 0.006
+
+
+def _refuse_unported(dp, pp, tp, kernel_backend, metrics, health, digests,
+                     faults, checkpoint_dir):
+    if (dp, pp, tp) != (1, 1, 1):
+        raise NotImplementedError(
+            f"dp={dp}, pp={pp}, tp={tp}: the port runs the sequential layout "
+            "only; mesh layouts come with the parallel runtime (ROADMAP.md "
+            "§A item 6)"
+        )
+    if kernel_backend not in ("xla", "pallas"):
+        raise ValueError(
+            f"kernel_backend must be 'xla' or 'pallas', got {kernel_backend!r}"
+        )
+    if kernel_backend == "pallas":
+        raise NotImplementedError(
+            "kernel_backend='pallas' selects the pipeline executor's flag "
+            "kernels (TPU kernels B5-B8), not ported yet (ROADMAP.md §A item 6)"
+        )
+    if metrics is not None or health is not None or digests:
+        raise NotImplementedError(
+            "metrics, health and digests come with the port's observability "
+            "(ROADMAP.md §A item 7)"
+        )
+    if faults is not None or checkpoint_dir is not None:
+        raise NotImplementedError(
+            "fault injection and checkpoint writing come with the port's "
+            "checkpoint/faults slice (ROADMAP.md §A item 3)"
+        )
 
 
 class TrainingSession:
-    """A model's weights on one device, served through slot-shaped forwards.
+    """A model's weights on one device: trained from a data split, served
+    through slot-shaped forwards.
 
     ``sizes``/``model``: the layer sizes, or a ``MODEL_ZOO`` name that
-    overrides them. ``global_batch_size`` scales the (future) loss and is
-    kept in the spec, as in the JAX package. ``precision``: only
-    ``"highest"`` (IEEE fp32) exists on this port. ``resume``: a checkpoint
-    path to serve. ``predict_slot_rows``/``predict_slot_ladder``: the slot
-    geometry (``serving/slots.py``). ``device``: ``"cuda"`` (default) or
-    ``"cpu"``; a missing GPU raises, it never falls back."""
+    overrides them. ``global_batch_size``/``mubatches``: the batch and its
+    microbatch count (the loss is scaled by the global batch).
+    ``precision``: only ``"highest"`` (IEEE fp32) exists on this port.
+    ``data_dir``: the split to train on (``x_train.npy``, ``y_train.npy``,
+    ``x_val.npy``, ``y_val.npy``); without it the session serves only and
+    the ``train_*``/``accuracy`` methods raise. ``lr``, ``optimizer``
+    (sgd|momentum|adam), ``momentum``, ``weight_decay`` (decoupled),
+    ``clip_norm`` (global norm, None = off), ``fuse_mubatches`` (one
+    forward/backward per batch): the training recipe. ``resume``: a
+    checkpoint path whose params, optimizer state and epoch/step cursor
+    this session continues from. ``predict_slot_rows``/
+    ``predict_slot_ladder``: the slot geometry (``serving/slots.py``).
+    ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
+    never falls back."""
 
     def __init__(
         self,
         sizes=FLAGSHIP_SIZES,
         model=None,
         global_batch_size=FLAGSHIP_BATCH,
+        mubatches=FLAGSHIP_MUBATCHES,
+        lr=FLAGSHIP_LR,
         precision="highest",
+        data_dir=None,
         resume=None,
+        fuse_mubatches=False,
+        optimizer="sgd",
+        momentum=0.9,
+        weight_decay=0.0,
+        clip_norm=None,
+        megakernel=False,
+        epoch_kernel=False,
+        run_kernel=False,
+        dp=1,
+        pp=1,
+        tp=1,
+        kernel_backend="xla",
+        metrics=None,
+        health=None,
+        digests=False,
+        faults=None,
+        checkpoint_dir=None,
         predict_slot_rows=None,
         predict_slot_ladder=None,
         device=None,
@@ -59,19 +133,65 @@ class TrainingSession:
             )
         if precision != "highest":
             raise ValueError(f"precision must be 'highest', got {precision!r}")
+        _refuse_unported(
+            dp, pp, tp, kernel_backend, metrics, health, digests, faults,
+            checkpoint_dir,
+        )
+        trainer.refuse_kernel_paths(megakernel, epoch_kernel, run_kernel)
         if model is not None:
             sizes, act = Mo.resolve_model(model)
         else:
             act = "relu"
-        self.B = int(global_batch_size)
+        self.B, self.M = int(global_batch_size), int(mubatches)
+        if self.M < 1 or self.B % self.M != 0:
+            raise ValueError("mubatches must divide the global batch")
+        if clip_norm is not None and clip_norm <= 0:
+            raise ValueError("clip_norm must be positive (or None to disable)")
         self.spec = Mo.make_model_spec(sizes, 1, self.B, act=act)
+        self._opt = make_optimizer(optimizer, lr, momentum, weight_decay)
+        self._opt_config = {
+            "name": optimizer,
+            "lr": lr,
+            "momentum": momentum,
+            "weight_decay": weight_decay,
+        }
+        self._data_dir = data_dir
+        self.epoch = 0
+        # step cursor within the current epoch: 0 except after a mid-epoch
+        # resume or between train_steps() chunks
+        self.step_in_epoch = 0
+        self._epoch_loss_sum = 0.0
+        self._epoch_steps_counted = 0
+        self.batches_per_epoch = 0
+        self._X = self._Y = None  # (nb, M, mubatch, dim) on the device
+        self._vx = self._vy = None  # the validation split, loaded lazily
+        if data_dir is not None:
+            self._load_train(data_dir)
+
+        host_opt_state = None
         if resume is not None:
-            host_params, loaded_spec, _ = load_checkpoint(resume, 1, self.B)
+            host_params, loaded_spec, meta, host_opt_state = load_checkpoint(
+                resume, 1, self.B, with_opt_state=True
+            )
             self._check_compatible(loaded_spec, "the requested model")
             self.spec = loaded_spec
+            if data_dir is not None:
+                self._restore_cursor(meta)
         else:
             host_params = Mo.init_model(self.spec)
         self._params = convert.params_from_numpy(host_params, self.device)
+        if host_opt_state is not None and not is_stateless(self._opt):
+            self._opt_state = convert.opt_state_from_numpy(
+                self._opt, host_opt_state, self.device
+            )
+        else:
+            self._opt_state = self._opt.init(Mo.param_tree(self._params))
+        self._epoch_fn = trainer.make_train_epoch(
+            self.spec, self._opt, fuse_mubatches=fuse_mubatches, clip_norm=clip_norm
+        )
+        self._run_kwargs = dict(fuse_mubatches=fuse_mubatches, clip_norm=clip_norm)
+        self._run_fns = {}  # whole-run functions, keyed by with_eval
+
         if predict_slot_rows is None:
             self._slot_rows = serving_slots.default_slot_rows(1)
         else:
@@ -87,6 +207,68 @@ class TrainingSession:
         )
         self._predict = trainer.make_predict(self.spec)
 
+    def _load_train(self, data_dir):
+        ds = Dataset(data_dir, self.B, mubatch_size=self.B // self.M)
+        ds.load(0, 1)
+        nb = ds.get_num_batches()
+        if nb == 0:
+            raise ValueError(
+                f"training split has {ds.raw_len} samples — fewer than one "
+                f"global batch of {self.B}"
+            )
+        Xb, Yb = ds.epoch_arrays()
+        self._X = torch.from_numpy(Xb).to(self.device)
+        self._Y = torch.from_numpy(Yb).to(self.device)
+        self.batches_per_epoch = nb
+
+    def _restore_cursor(self, meta):
+        """The JAX session's resume rules: the saved optimizer's name and
+        state-shaping coefficients must match, and the epoch/step cursor
+        continues where the snapshot stopped."""
+        saved_opt = meta.get("extra", {}).get("optimizer")
+        opt = self._opt_config
+        if saved_opt is not None:
+            if saved_opt["name"] != opt["name"]:
+                raise ValueError(
+                    f"checkpoint was trained with optimizer "
+                    f"{saved_opt['name']!r}; resuming with {opt['name']!r} would "
+                    f"silently change the trajectory — pass "
+                    f"optimizer={saved_opt['name']!r} to continue it"
+                )
+            if opt["name"] == "momentum" and saved_opt.get("momentum") != opt["momentum"]:
+                raise ValueError(
+                    f"checkpoint velocity was accumulated with momentum="
+                    f"{saved_opt.get('momentum')}; resuming with momentum="
+                    f"{opt['momentum']} would reinterpret it"
+                )
+            if saved_opt.get("weight_decay", 0.0) != opt["weight_decay"]:
+                raise ValueError(
+                    f"checkpoint was trained with weight_decay="
+                    f"{saved_opt.get('weight_decay', 0.0)}; resuming with "
+                    f"weight_decay={opt['weight_decay']} would silently change "
+                    f"the trajectory"
+                )
+        if meta.get("step_in_epoch") is not None:
+            # a step snapshot: ``epoch`` is the epoch IN PROGRESS, and the
+            # identical data order needs the saved global batch size
+            if meta["global_batch_size"] != self.B:
+                raise ValueError(
+                    f"mid-epoch resume needs the saved data order: checkpoint "
+                    f"was taken at global_batch_size={meta['global_batch_size']}, "
+                    f"this run uses {self.B}"
+                )
+            if not 0 <= meta["step_in_epoch"] < self.batches_per_epoch:
+                raise ValueError(
+                    f"checkpoint step_in_epoch {meta['step_in_epoch']} out of "
+                    f"range for {self.batches_per_epoch} batches/epoch — "
+                    f"different dataset?"
+                )
+            self.epoch = int(meta["epoch"])
+            self.step_in_epoch = int(meta["step_in_epoch"])
+        else:
+            # an epoch-boundary snapshot: ``epoch`` is the last COMPLETED one
+            self.epoch = int(meta["epoch"]) + 1
+
     def _check_compatible(self, loaded_spec, what):
         if tuple(loaded_spec.sizes) != tuple(self.spec.sizes):
             raise ValueError(
@@ -98,6 +280,116 @@ class TrainingSession:
                 f"checkpoint activation family {loaded_spec.act!r} does not "
                 f"match {what}'s {self.spec.act!r}"
             )
+
+    def _require_data(self, what):
+        if self._X is None:
+            raise RuntimeError(
+                f"{what}: this session was built without data_dir and serves "
+                "only; pass data_dir= to train or evaluate"
+            )
+
+    # -- training -----------------------------------------------------------
+
+    @property
+    def global_step(self):
+        """Run-lifetime optimizer-step count."""
+        return self.epoch * self.batches_per_epoch + self.step_in_epoch
+
+    def train_steps(self, n):
+        """Train up to ``n`` optimizer steps of the CURRENT epoch (clipped at
+        the epoch boundary): the epoch function over a slice of the batch
+        axis, so chunked training applies the same per-batch updates in the
+        same order as one whole epoch (bitwise-identical weights).
+
+        Returns ``(steps_trained, epoch_mean_loss_or_None)``: the mean loss
+        is reported on the call that completes the epoch, the chunks' means
+        recombined sample-weighted (over the steps this session trained)."""
+        self._require_data("train_steps")
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        nb = self.batches_per_epoch
+        k0 = self.step_in_epoch
+        k1 = min(k0 + n, nb)
+        self._params, self._opt_state, mean_loss = self._epoch_fn(
+            self._params, self._opt_state, self._X[k0:k1], self._Y[k0:k1]
+        )
+        loss = float(mean_loss)  # waits for the device
+        steps = k1 - k0
+        self.step_in_epoch = k1
+        self._epoch_loss_sum += loss * steps
+        self._epoch_steps_counted += steps
+        epoch_loss = None
+        if k1 == nb:
+            epoch_loss = self._epoch_loss_sum / self._epoch_steps_counted
+            self.epoch += 1
+            self.step_in_epoch = 0
+            self._epoch_loss_sum = 0.0
+            self._epoch_steps_counted = 0
+        return steps, epoch_loss
+
+    def train_epoch(self) -> float:
+        """One epoch over the training split; returns the mean batch
+        training loss (the global-batch-scaled MSE of each batch under its
+        pre-update params, averaged over the epoch)."""
+        self._require_data("train_epoch")
+        if self.step_in_epoch != 0:
+            raise ValueError(
+                f"epoch {self.epoch} is mid-flight at step {self.step_in_epoch} "
+                "(resumed or chunked) — use train_steps() to finish it"
+            )
+        self._params, self._opt_state, mean_loss = self._epoch_fn(
+            self._params, self._opt_state, self._X, self._Y
+        )
+        loss = float(mean_loss)  # waits for the device
+        self.epoch += 1
+        return loss
+
+    def train_run(self, epochs: int, with_eval: bool = True):
+        """Train ``epochs`` epochs; returns ``(losses, accuracies)`` as lists
+        of floats (``accuracies`` None when ``with_eval=False``). The loss
+        and accuracy stay on the device until the run ends; each epoch's
+        accuracy is one forward over the whole validation split."""
+        self._require_data("train_run")
+        if epochs <= 0:
+            raise ValueError("epochs must be positive")
+        if self.step_in_epoch != 0:
+            raise ValueError(
+                f"epoch {self.epoch} is mid-flight at step {self.step_in_epoch} "
+                "(resumed or chunked) — finish it with train_steps() before "
+                "train_run()"
+            )
+        if with_eval not in self._run_fns:
+            self._run_fns[with_eval] = trainer.make_train_run(
+                self.spec, self._opt, with_eval=with_eval, **self._run_kwargs
+            )
+        args = (self._params, self._opt_state, self._X, self._Y)
+        if with_eval:
+            self._load_val()
+            args += (self._vx, self._vy)
+        out = self._run_fns[with_eval](*args, epochs)
+        self._params, self._opt_state = out[0], out[1]
+        losses = [float(v) for v in out[2].cpu()]
+        accs = [float(v) for v in out[3].cpu()] if with_eval else None
+        self.epoch += epochs
+        return losses, accs
+
+    # -- evaluation ---------------------------------------------------------
+
+    def _load_val(self):
+        if self._vx is None:
+            # global_batch_size=1 keeps EVERY validation sample
+            val = Dataset(self._data_dir, 1, mubatch_size=1, validation=True)
+            val.load(0, 1)
+            self._vx = torch.from_numpy(val.input_X).to(self.device)
+            self._vy = torch.from_numpy(val.target_y).to(self.device)
+
+    def accuracy(self) -> float:
+        """Argmax accuracy over the full validation split."""
+        self._require_data("accuracy")
+        self._load_val()
+        return trainer.accuracy(self._predict, self._params, self._vx, self._vy)
+
+    # -- serving ------------------------------------------------------------
 
     @property
     def slot_rows(self):
@@ -147,13 +439,22 @@ class TrainingSession:
         over, so ``seconds`` is None with source ``"unmeasured"``."""
         return {"seconds": None, "ticks": None, "peak_source": "unmeasured"}
 
+    # -- state --------------------------------------------------------------
+
     def params(self):
         """Logical per-stage params (host numpy), the JAX pytree layout."""
         return convert.params_to_numpy(self._params)
 
+    def opt_state_logical(self):
+        """Stateful-optimizer state in the JAX package's logical form:
+        ``{"parts": {key: per-stage list mirroring params()}, "scalars":
+        {key: float}}``; None for a stateless optimizer."""
+        return convert.opt_state_to_numpy(self._opt, self._opt_state)
+
     def load_weights(self, path):
         """Swap this session's weights from a checkpoint between dispatches.
         The checkpoint must have this session's sizes and activation family.
+        Weights only: the optimizer state and the cursor are untouched.
         Returns the metadata; unreadable or corrupt files raise
         ``CheckpointError`` before any state changes."""
         host_params, loaded_spec, meta = load_checkpoint(path, 1, self.B)

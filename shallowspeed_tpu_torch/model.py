@@ -6,11 +6,11 @@ The counterpart of ``shallowspeed_tpu/model.py``. The specs
 and the host init are the reference's arithmetic, kept field for field so
 the tests can compare them. Parameters live in one ``Stage`` module per
 pipeline stage, holding each Linear's ``W`` as ``(out, in)`` and ``b`` as
-``(1, out)`` exactly as the JAX pytree does; the forward functions are
-plain functions over those modules and return the same residual structure
-(``(layer_caches, z)`` per stage) the JAX forward returns.
-
-Forward only: the hand-written backward comes with the training slice.
+``(1, out)`` exactly as the JAX pytree does; the forward and backward are
+plain functions over those modules. The forward returns the same residual
+structure (``(layer_caches, z)`` per stage) the JAX forward returns, and the
+backward consumes it with hand-written VJPs (no autograd) and returns the
+gradients in the JAX pytree layout, ``[{"W", "b"}, ...]`` per stage.
 
 Faithful reference quirk: when the last stage owns ZERO Linears (e.g. 8
 sizes at PP=8), the no-relu-on-final-Linear rule never fires — the global
@@ -264,3 +264,72 @@ def model_forward(params_list, spec: ModelSpec, x, head_group_rows=None):
         x, res = stage_forward(params, sspec, x, head_group_rows=head_group_rows)
         residuals.append(res)
     return x, residuals
+
+
+def param_tree(stages):
+    """The JAX pytree view of ``Stage`` modules: per stage a list of
+    ``{"W", "b"}`` dicts holding the modules' own tensors (no copy), the
+    layout the gradients and the optimizer state share."""
+    return [
+        [{"W": w, "b": b} for w, b in zip(stage.W, stage.b)] for stage in stages
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Backward: hand-written VJPs, the JAX package's expressions in its order
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def stage_backward(params: Stage, spec: StageSpec, residuals, dout, head_group_rows=None):
+    """Backward through one stage; returns (dx, grads) with grads the
+    stage's ``[{"W", "b"}, ...]`` (``b`` as ``(1, out)``).
+
+    For the head stage ``dout`` is the TARGET microbatch (the softmax-MSE
+    head's backward consumes it); for other stages it is the gradient with
+    respect to this stage's output. The relu family's hidden Linears run
+    ``ops.linear_relu_grad_fused`` (the kernel on the card); the last
+    Linear and the gelu family run the plain VJPs."""
+    caches, z = residuals
+    if spec.has_head:
+        g = ops.softmax_mse_head_grad(
+            z, dout, spec.global_batch_size, group_rows=head_group_rows
+        )
+    else:
+        g = dout
+    grads = [None] * spec.n_linears
+    if spec.act == "gelu":
+        res = spec.res_flags
+        g_prev = None  # incoming grad at the previously-processed Linear l+1
+        for l in reversed(range(spec.n_linears)):
+            x_in, dact = caches[l]
+            g_in = g
+            g_pre = g_in * dact if spec.relu_flags[l] else g_in
+            g, dw, db = ops.linear_grad(g_pre, x_in, params.W[l])
+            if l + 1 < spec.n_linears and res[l + 1]:
+                # the residual at l+1 adds this Linear's INPUT to y_{l+1}:
+                # the incoming grad there flows straight into dx here
+                g = g + g_prev
+            grads[l] = {"W": dw, "b": db.reshape(1, -1)}
+            g_prev = g_in
+    else:
+        for l in reversed(range(spec.n_linears)):
+            x_in, bitmask = caches[l]
+            if spec.relu_flags[l]:
+                g, dw, db = ops.linear_relu_grad_fused(g, bitmask, x_in, params.W[l])
+            else:
+                g, dw, db = ops.linear_grad(g, x_in, params.W[l])
+            grads[l] = {"W": dw, "b": db.reshape(1, -1)}
+    return g, grads
+
+
+def model_backward(params_list, spec: ModelSpec, residuals, target, head_group_rows=None):
+    """Chain all stages backward; ``target`` feeds the head stage."""
+    g = target
+    grads_list = [None] * spec.n_stages
+    for i in reversed(range(spec.n_stages)):
+        g, grads_list[i] = stage_backward(
+            params_list[i], spec.stages[i], residuals[i], g,
+            head_group_rows=head_group_rows,
+        )
+    return g, grads_list

@@ -48,7 +48,13 @@ def _imported_names(path):
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "shallowspeed_tpu_torch.serving.__main__" in mods
+    assert {
+        "shallowspeed_tpu_torch.serving.__main__",
+        "shallowspeed_tpu_torch.optimizer",
+        "shallowspeed_tpu_torch.data",
+        "shallowspeed_tpu_torch.train",
+        "shallowspeed_tpu_torch.trainer",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -70,12 +76,24 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_training_profile.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):
     names = _imported_names(path)
     assert not [n for n in names if _is_jax_package(n) or _is_jax(n)], names
+
+
+def test_kernel_sources_name_no_jax_import():
+    """The CUDA sources of the port stand alone: plain C entry points, no
+    Python and no JAX (each names the TPU kernel it replaces in a comment)."""
+    sources = sorted((PKG / "csrc").glob("*.cu"))
+    assert [p.stem for p in sources] == ["linear_act_bwd", "linear_act_fwd"]
+    for p in sources:
+        text = p.read_text()
+        assert f'extern "C" int {p.stem}(' in text
+        assert "pallas_ops.py:" in text and "#include <torch" not in text
 
 
 def test_exact_name_comparison():
