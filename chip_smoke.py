@@ -54,7 +54,29 @@ in phases:
    Adam steps, each against its CPU run and each moving some leaf 10
    allowed differences; samples/s of the steady (second) epoch;
 7. wide training: two mlp-deep steps (22 x 4 launches each) against the
-   CPU path, with the same least move.
+   CPU path, with the same least move;
+8a. the fused train kernel (``csrc/fused_train.cu``, TPU kernels B9-B11)
+   against its plain version on the card: one flagship step (B=128, head
+   groups of 32) for SGD, momentum, Adam, Adam with a binding clip and SGD
+   with a weight decay that shrinks every param 1.2% a step, from seeded
+   nonzero biases and optimizer state, and for SGD also the 16-batch epoch
+   and the 2-epoch run: each param and mirror leaf's change from where it
+   started within 1e-3 (a step) or 5e-2 (an epoch, a run) of the plain
+   version's largest change in that leaf, plus one float32 rounding, t
+   equal, the loss within ``rtol=1e-4``, two launches bitwise equal; the
+   kernel's time, the plain version's, the bound (operations over 67
+   TFLOP/s fp32 against bytes over 3.35 TB/s), and the device time of the
+   fused-microbatch step without the fused kernel (the B1/B3 kernels and
+   torch ops) as the "before";
+8b. the kernel paths of the training main path, phase 6's split for 2
+   epochs with ``fuse_mubatches=True``: ``megakernel`` (exactly 16 launches
+   an epoch), ``epoch_kernel`` (1 an epoch) and ``run_kernel`` with
+   ``train_run(2, with_eval=False)`` (1 for the run), none of the B1-B4
+   kernels but eval's forwards; each against the CPU path with phase 6's
+   checks and a bitwise second card run; the epoch kernel bitwise 16 step
+   kernels, the run kernel bitwise 2 epoch kernels, ``train_steps`` in two
+   chunks bitwise one epoch; momentum and Adam 4 steps through the epoch
+   kernel against the CPU; mlp-deep refused before any launch; samples/s.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -62,12 +84,15 @@ operands warm in L2 (a slot's weights are re-read by every request).
 
 The last two lines are JSON: the kernels (for each: ``launches`` over its
 path's drive — the serving drive of phase 4 for the forward, the training
-drive of phase 6 for the backward; ``ms``/``plain_ms``/``library_ms``/
-``bound_ms`` summed over one flagship slot's six relu layers at 8 rows for
-the forward and one flagship microbatch's at 32 rows for the backward;
-``max_abs_err`` over every shape of phase 3 or 3b), then ``{"ok": true,
-"device": {...}}``. Any failure exits non-zero before either; so does a
-machine without CUDA, or a directory without the package.
+drive of phase 6 for the backward, phase 8b's drives for the fused train
+kernel's three modes; ``ms``/``plain_ms``/``library_ms``/``bound_ms`` summed
+over one flagship slot's six relu layers at 8 rows for the forward, one
+flagship microbatch's at 32 rows for the backward, and for the fused kernel
+one launch of its mode: a step, a 16-batch epoch, a 2-epoch run, with no
+library call; ``max_abs_err`` over every shape or recipe of phase 3, 3b or
+8a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before either; so does a machine without CUDA, or a directory without the
+package.
 """
 
 import json
@@ -92,6 +117,7 @@ VAL_ROWS = 1000  # rows of its validation split
 TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-6  # cross-engine class (tests/test_torch_oracle.py)
 MIN_MOVE = 10.0  # least move from init, in allowed card-vs-CPU differences
 LOSS_DROP_RTOL = 0.05  # card's loss drop vs the CPU's, relative
+STATEFUL_RECIPES = (("momentum", 0.006), ("adam", 2e-4))  # 4-step runs
 
 KERNELS = {
     "linear_act_fwd": dict(
@@ -104,7 +130,38 @@ KERNELS = {
         source="shallowspeed_tpu_torch/csrc/linear_act_bwd.cu",
         replaces="shallowspeed_tpu/pallas_ops.py:184",
     ),
+    "fused_train": dict(
+        route="cuda",
+        source="shallowspeed_tpu_torch/csrc/fused_train.cu",
+        replaces="shallowspeed_tpu/pallas_ops.py:862",
+    ),
 }
+# the fused train kernel's modes: its step, epoch and run (TPU kernels B9-B11)
+FUSED_MODES = ("step", "epoch", "run")
+RUN_EPOCHS = 2
+# The fused train kernel vs its plain version on the card is held on what a
+# call changes, since one step moves a param by ~1e-6 of its value: each
+# param and mirror leaf's change from where it started within
+# FUSED_UPD_RTOL of the plain version's largest change in that leaf, plus
+# one float32 rounding at the leaf's largest value (both round p - step).
+# The two differ by summation order only (~1e-6 of a gradient). An epoch or
+# a run compounds that over 16-32 steps, and a relu that flips on one side
+# only moves a few elements by a whole gradient term (~1e-2 of the largest
+# change on an H100). The loss within FUSED_LOSS_RTOL, Adam's t equal.
+FUSED_UPD_RTOL = {"step": 1e-3, "epoch": 5e-2, "run": 5e-2}
+FUSED_LOSS_RTOL = 1e-4
+FLT_EPS = 2.0**-23
+FUSED_CASES = (
+    ("sgd", dict(optimizer="sgd", lr=0.006)),
+    ("momentum", dict(optimizer="momentum", lr=0.006)),
+    ("adam", dict(optimizer="adam", lr=2e-4)),
+    # the flagship's gradient norm at init is ~0.048 on the split below:
+    # a clip of 0.01 binds on every batch
+    ("adam+clip", dict(optimizer="adam", lr=2e-4, clip_norm=0.01)),
+    # lr * wd = 0.012: a step shrinks every param by 1.2%, far more than
+    # the step's own change, so a kernel that skipped the decay fails
+    ("sgd+decay", dict(optimizer="sgd", lr=0.006, weight_decay=2.0)),
+)
 
 
 def fail(msg):
@@ -534,28 +591,75 @@ def _bitwise_equal(a, b):
     )
 
 
+def _train_2_epochs(TrainingSession, device, with_eval=True, **kw):
+    """A session from init trained 2 epochs, ``accuracy()`` after each when
+    ``with_eval``. Returns (session, init params, losses, accuracies, epoch
+    walls)."""
+    session = TrainingSession(device=device, **kw)
+    init = session.params()
+    losses, accs, walls = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(session.train_epoch())  # returns after the device
+        walls.append(time.perf_counter() - t0)
+        if with_eval:
+            accs.append(session.accuracy())
+    return session, init, losses, accs, walls
+
+
+def _check_card_run(label, card, cpu, again):
+    """A card run against the CPU's, both ``_train_2_epochs`` results:
+    losses within the cross-engine class, the loss's fall within
+    ``LOSS_DROP_RTOL`` of the CPU's (the run moves the loss by less than
+    that class), accuracies within one sample, params within the class,
+    every leaf moved from init >= ``MIN_MOVE`` allowed differences, and a
+    second card run ``again`` bitwise equal. Returns (the largest param
+    difference, the moves)."""
+    gpu, init, losses, accs, _ = card
+    cpu_session, _, closs, caccs, _ = cpu
+    for e, (a, b) in enumerate(zip(losses, closs)):
+        if not (math.isfinite(a) and abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(b)):
+            fail(f"{label}: epoch {e} loss {a} on the card, {b} on the CPU")
+    drop, cdrop = losses[0] - losses[1], closs[0] - closs[1]
+    if not (cdrop > 0 and abs(drop - cdrop) <= LOSS_DROP_RTOL * cdrop):
+        fail(f"{label}: the loss fell {drop} on the card, {cdrop} on the CPU")
+    if any(abs(a - b) * VAL_ROWS > 1.0 + 1e-9 for a, b in zip(accs, caccs)):
+        fail(f"{label}: accuracies {accs} on the card, {caccs} on the CPU")
+    worst = _params_close(gpu, cpu_session, label)
+    moved = _moved(init, gpu, cpu_session)
+    if min(moved) < MIN_MOVE:
+        fail(
+            f"{label}: a leaf moved at most {min(moved):.2f} x its allowed "
+            f"card-vs-CPU difference, want >= {MIN_MOVE}"
+        )
+    if again[2] != losses or not _bitwise_equal(gpu, again[0]):
+        fail(f"{label}: a second card run is not bitwise equal to the first")
+    return worst, moved
+
+
+def _side_run(TrainingSession, label, steps, **opts):
+    """A card and a CPU session from init, ``steps`` steps each: params
+    within tolerance, and the run moved some leaf >= MIN_MOVE units."""
+    pair = [TrainingSession(device=d, **opts) for d in ("cuda", "cpu")]
+    init = pair[0].params()
+    for s in pair:
+        s.train_steps(steps)
+    diff = _params_close(*pair, label)
+    most = max(_moved(init, *pair))
+    if most < MIN_MOVE:
+        fail(f"{label}: moved at most {most:.2f} x its allowed difference")
+    return f"{label} {diff:.3e} (moved {most:.2f})"
+
+
 def phase_training(torch, cuda_ops, TrainingSession, data_dir):
     """The training main path. Returns the launch counts of the drive alone."""
     B, M = 128, 4
     relu_layers = len(FLAGSHIP) - 2
     steps = 2 * TRAIN_BATCHES
-    kw = dict(data_dir=data_dir)
-
-    def drive(device, with_eval=True):
-        session = TrainingSession(device=device, **kw)
-        init = session.params()
-        losses, accs, walls = [], [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            losses.append(session.train_epoch())  # returns after the device
-            walls.append(time.perf_counter() - t0)
-            if with_eval:
-                accs.append(session.accuracy())
-        return session, init, losses, accs, walls
 
     torch.cuda.synchronize()
     cuda_ops.reset_launches()
-    gpu, init, losses, accs, walls = drive("cuda")
+    card = _train_2_epochs(TrainingSession, "cuda", data_dir=data_dir)
     launches = dict(cuda_ops.LAUNCHES)
     n_val = VAL_ROWS
     want_bwd = relu_layers * M * steps
@@ -567,27 +671,12 @@ def phase_training(torch, cuda_ops, TrainingSession, data_dir):
         )
     if launches["linear_act_fwd"] != want_fwd:
         fail(f"training: {launches['linear_act_fwd']} forward launches, want {want_fwd}")
-    cpu, _, closs, caccs, _ = drive("cpu")
-    for e, (a, b) in enumerate(zip(losses, closs)):
-        if not (math.isfinite(a) and abs(a - b) <= TRAIN_ATOL + TRAIN_RTOL * abs(b)):
-            fail(f"training: epoch {e} loss {a} on the card, {b} on the CPU")
-    # the whole run moves the loss by less than the tolerance above, so
-    # the drop itself is held to the CPU's
+    cpu = _train_2_epochs(TrainingSession, "cpu", data_dir=data_dir)
+    again = _train_2_epochs(TrainingSession, "cuda", with_eval=False, data_dir=data_dir)
+    worst, moved = _check_card_run("training", card, cpu, again)
+    _, _, losses, accs, walls = card
+    closs = cpu[2]
     drop, cdrop = losses[0] - losses[1], closs[0] - closs[1]
-    if not (cdrop > 0 and abs(drop - cdrop) <= LOSS_DROP_RTOL * cdrop):
-        fail(f"training: the loss fell {drop} on the card, {cdrop} on the CPU")
-    if any(abs(a - b) * n_val > 1.0 + 1e-9 for a, b in zip(accs, caccs)):
-        fail(f"training: accuracies {accs} on the card, {caccs} on the CPU")
-    worst = _params_close(gpu, cpu, "training")
-    moved = _moved(init, gpu, cpu)
-    if min(moved) < MIN_MOVE:
-        fail(
-            f"training: a leaf moved at most {min(moved):.2f} x its allowed "
-            f"card-vs-CPU difference, want >= {MIN_MOVE}"
-        )
-    again, _, losses2, _, _ = drive("cuda", with_eval=False)
-    if losses2 != losses or not _bitwise_equal(gpu, again):
-        fail("training: a second card run is not bitwise equal to the first")
     sps = TRAIN_BATCHES * B / walls[1]
     say(
         f"phase 6 training: ok: flagship B={B} M={M} SGD lr 0.006, 2 epochs x "
@@ -602,28 +691,17 @@ def phase_training(torch, cuda_ops, TrainingSession, data_dir):
         f"samples/s (first {walls[0] * 1e3:.2f} ms)"
     )
 
-    def side_run(label, steps, **opts):
-        """A card and a CPU session from init, ``steps`` steps each: params
-        within tolerance, and the run moved some leaf >= MIN_MOVE units."""
-        pair = [TrainingSession(device=d, **opts, **kw) for d in ("cuda", "cpu")]
-        init = pair[0].params()
-        for s in pair:
-            s.train_steps(steps)
-        diff = _params_close(*pair, label)
-        most = max(_moved(init, *pair))
-        if most < MIN_MOVE:
-            fail(f"{label}: moved at most {most:.2f} x its allowed difference")
-        return f"{label} {diff:.3e} (moved {most:.2f})"
-
     torch.cuda.synchronize()
     before = cuda_ops.LAUNCHES["linear_act_bwd"]
-    fused = side_run("fused epoch", TRAIN_BATCHES, fuse_mubatches=True)
+    fused = _side_run(
+        TrainingSession, "fused epoch", TRAIN_BATCHES, fuse_mubatches=True, data_dir=data_dir
+    )
     n_fused = cuda_ops.LAUNCHES["linear_act_bwd"] - before
     if n_fused != relu_layers * TRAIN_BATCHES:
         fail(f"fused: {n_fused} backward launches, want {relu_layers} x {TRAIN_BATCHES}")
     stateful = [
-        side_run(opt, 4, optimizer=opt, lr=lr)
-        for opt, lr in (("momentum", 0.006), ("adam", 2e-4))
+        _side_run(TrainingSession, opt, 4, optimizer=opt, lr=lr, data_dir=data_dir)
+        for opt, lr in STATEFUL_RECIPES
     ]
     say(
         f"  {n_fused} fused backward launches = {relu_layers} x {TRAIN_BATCHES} "
@@ -659,6 +737,305 @@ def phase_wide_training(torch, cuda_ops, TrainingSession, data_dir):
     )
 
 
+def fused_bound_ms(widths, rows, batches, n_mirrors):
+    """Least time for the fused train kernel over ``batches`` batches of
+    ``rows``: per batch the forward (2 rows K N per layer), dW (the same)
+    and dx of every layer but the first, on the fp32 pipes; bytes: each
+    batch read once, the params and every optimizer mirror read once and
+    written once, the loss written. Returns (ms, bound_by)."""
+    kn = [k * n for k, n in zip(widths[:-1], widths[1:])]
+    flops = batches * 2.0 * rows * (2 * sum(kn) + sum(kn[1:]))
+    params = sum(kn) + sum(widths[1:])
+    nbytes = 4 * (batches * rows * (widths[0] + widths[-1]) + 2 * params * (1 + n_mirrors) + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fused_operands(torch, trainer, model, convert, recipe, seed):
+    """Flagship params from the port's init on the card with seeded nonzero
+    biases (the init's are 0, where a decay has nothing to shrink), the
+    recipe's optimizer state seeded nonzero (so the update reads it), and
+    the kernel's keyword arguments. Returns (stage, mirrors, scalars, kw,
+    n_mirrors)."""
+    from shallowspeed_tpu_torch.optimizer import make_optimizer
+
+    spec = model.make_model_spec(FLAGSHIP, 1, 128)
+    stages = convert.params_from_numpy(model.init_model(spec), "cuda")
+    opt = make_optimizer(
+        recipe["optimizer"], recipe["lr"], weight_decay=recipe.get("weight_decay", 0.0)
+    )
+    desc = trainer._kernel_opt_descriptor(opt)
+    stage = model.param_tree(stages)[0]
+    # seeded nonzero state, so the update reads it: momentum's velocity and
+    # Adam's m ~ 1e-3 N(0, 1), Adam's v ~ 1e-6 |N(0, 1)| (a second moment)
+    gen = torch.Generator().manual_seed(seed)
+    for layer in stage:
+        layer["b"] = (0.01 * torch.randn(layer["b"].shape, generator=gen)).cuda()
+    scales = {"sgd": (), "momentum": (1e-3,), "adam": (1e-3, 1e-6)}[desc["kind"]]
+    mirrors = [
+        [
+            {k: (scale * torch.randn(v.shape, generator=gen)).cuda() for k, v in layer.items()}
+            for layer in stage
+        ]
+        for scale in scales
+    ]
+    if desc["kind"] == "adam":
+        for layer in mirrors[1]:
+            for v in layer.values():
+                v.abs_()
+    n_mirrors = len(mirrors)
+    scalars = [torch.full((), 3.0, device="cuda")] if desc["kind"] == "adam" else []
+    kw = dict(
+        relu_flags=spec.stages[0].relu_flags, group_rows=MUBATCH_ROWS, batch_size=128,
+        lr=opt.lr, weight_decay=opt.weight_decay, opt=desc,
+        clip_norm=recipe.get("clip_norm"),
+    )
+    return stage, mirrors, scalars, kw, n_mirrors
+
+
+def _clone(stage, mirrors, scalars):
+    cp = lambda group: [{k: v.clone() for k, v in layer.items()} for layer in group]  # noqa: E731
+    return cp(stage), [cp(m) for m in mirrors], [t.clone() for t in scalars]
+
+
+def _state_leaves(stage, mirrors, scalars):
+    """The params, the optimizer mirrors and the scalar slots, in a fixed
+    order."""
+    leaves = [layer[k] for layer in stage for k in ("W", "b")]
+    leaves += [layer[k] for m in mirrors for layer in m for k in ("W", "b")]
+    return leaves + list(scalars)
+
+
+def _fused_close(torch, got, want, init, label, rtol):
+    """Kernel vs plain version on what the call changed (see
+    ``FUSED_UPD_RTOL``): every leaf's change from ``init`` (stage, mirrors,
+    scalars) within ``rtol`` of the plain change's largest magnitude plus
+    one float32 rounding at the leaf's largest value, the scalar slots
+    equal, the loss within ``FUSED_LOSS_RTOL``. Returns (the largest
+    difference, the largest difference over its leaf's largest change)."""
+    worst = ratio = 0.0
+    leaves = zip(_state_leaves(*got[:3]), _state_leaves(*want[:3]), _state_leaves(*init))
+    for i, (a, b, a0) in enumerate(leaves):
+        if not torch.isfinite(a).all():
+            fail(f"{label}: leaf {i} of the kernel's result is not finite")
+        if a.dim() == 0 and not torch.equal(a, b):
+            fail(f"{label}: scalar slot {a.item()}, plain version {b.item()}")
+        got_change, want_change = a.double() - a0.double(), b.double() - a0.double()
+        err = (got_change - want_change).abs().max().item()
+        scale = want_change.abs().max().item()
+        tol = rtol * scale + FLT_EPS * b.abs().max().item()
+        if err > tol:
+            fail(
+                f"{label}: leaf {i}'s change differs from the plain version's by "
+                f"{err}, over {tol} ({rtol} of its largest change {scale})"
+            )
+        worst = max(worst, err)
+        ratio = max(ratio, err / scale if scale else 0.0)
+    if not torch.allclose(got[3], want[3], rtol=FUSED_LOSS_RTOL, atol=0.0):
+        fail(f"{label}: loss {got[3].tolist()}, plain version {want[3].tolist()}")
+    return worst, ratio
+
+
+def phase_fused_kernels(torch, cuda_ops, data_dir):
+    """The fused train kernel against its plain version on the card: one
+    flagship step for every recipe, then the SGD recipe's whole epoch and
+    2-epoch run; two launches bitwise equal; the times, and the device time
+    of the fused-microbatch step without the fused kernel. Returns {mode: {"max_abs_err", "ms", "plain_ms",
+    "bound_ms", "bound_by"}}."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch import convert, trainer
+    from shallowspeed_tpu_torch import model as model_mod
+
+    X = torch.from_numpy(np.load(Path(data_dir) / "x_train.npy")).cuda()
+    Y = torch.from_numpy(np.load(Path(data_dir) / "y_train.npy")).cuda()
+    nb = X.shape[0] // 128
+    X = X[: nb * 128].reshape(nb, 128, -1)
+    Y = Y[: nb * 128].reshape(nb, 128, -1)
+    inputs = {"step": (X[0], Y[0]), "epoch": (X, Y), "run": (X, Y)}
+    extra = {"step": dict(epoch_mode=False), "epoch": dict(epoch_mode=True),
+             "run": dict(epoch_mode=True, n_epochs=RUN_EPOCHS)}
+    batches = {"step": 1, "epoch": nb, "run": nb * RUN_EPOCHS}
+    out = {}
+    lines = []
+    for case_i, (label, recipe) in enumerate(FUSED_CASES):
+        modes = FUSED_MODES if label == "sgd" else ("step",)
+        for mode in modes:
+            stage, mirrors, scalars, kw, n_mirrors = _fused_operands(
+                torch, trainer, model_mod, convert, recipe, seed=case_i
+            )
+            kw.update(extra[mode])
+            x, y = inputs[mode]
+            a = _clone(stage, mirrors, scalars)
+            b = _clone(stage, mirrors, scalars)
+            p = _clone(stage, mirrors, scalars)
+            got = cuda_ops.fused_train_call(a[0], x, y, mirrors=a[1], scalars=a[2], **kw)
+            again = cuda_ops.fused_train_call(b[0], x, y, mirrors=b[1], scalars=b[2], **kw)
+            torch.cuda.synchronize()
+            want = cuda_ops.fused_train_reference(p[0], x, y, mirrors=p[1], scalars=p[2], **kw)
+            tag = f"fused {mode} {label}"
+            err, ratio = _fused_close(
+                torch, got, want, (stage, mirrors, scalars), tag, FUSED_UPD_RTOL[mode]
+            )
+            if not torch.equal(got[3], again[3]) or not all(
+                torch.equal(u, v)
+                for u, v in zip(_state_leaves(*got[:3]), _state_leaves(*again[:3]))
+            ):
+                fail(f"{tag}: two launches differ")
+            diff = f"max |kernel - plain| {err:.3e} = {ratio:.3e} of the largest change"
+            if label != "sgd":
+                lines.append(f"  {tag}: {diff}")
+                continue
+            reps, iters = (20, 15) if mode == "step" else (2, 5)
+            t = _clone(stage, mirrors, scalars)
+            ms = device_ms(
+                torch,
+                lambda: cuda_ops.fused_train_call(t[0], x, y, mirrors=t[1], scalars=t[2], **kw),
+                reps=reps, iters=iters,
+            )
+            q = _clone(stage, mirrors, scalars)
+            plain = device_ms(
+                torch,
+                lambda: cuda_ops.fused_train_reference(q[0], x, y, mirrors=q[1], scalars=q[2], **kw),
+                reps=reps, iters=iters,
+            )
+            bnd, by = fused_bound_ms(FLAGSHIP, 128, batches[mode], n_mirrors)
+            out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+            lines.append(
+                f"  {tag}: {batches[mode]} batch(es): {diff}; kernel "
+                f"{ms:.5f} ms ({ms / batches[mode]:.5f} per step), plain {plain:.5f} ms, "
+                f"bound {bnd:.5f} ms ({by})"
+            )
+    # the "before": the fused-microbatch step without the fused kernel
+    spec = model_mod.make_model_spec(FLAGSHIP, 1, 128)
+    stages = convert.params_from_numpy(model_mod.init_model(spec), "cuda")
+    from shallowspeed_tpu_torch.optimizer import SGD
+
+    opt = SGD(0.006)
+    step = trainer._make_batch_step(spec, opt, fuse_mubatches=True)
+    xb, yb = X[0].reshape(4, MUBATCH_ROWS, -1), Y[0].reshape(4, MUBATCH_ROWS, -1)
+    before = device_ms(torch, lambda: step(stages, (), xb, yb))
+    for line in lines:
+        say(line)
+    say(
+        f"phase 8a fused train kernel: ok: {len(FUSED_CASES)} recipes x one flagship "
+        f"step (B=128, groups of {MUBATCH_ROWS}) and the SGD recipe's {nb}-batch epoch "
+        f"and {RUN_EPOCHS}-epoch run within tolerance of the plain version (each "
+        f"leaf's change within {FUSED_UPD_RTOL['step']} of its largest change after "
+        f"a step, {FUSED_UPD_RTOL['epoch']} after an epoch or run), two launches "
+        f"bitwise equal; per step: "
+        f"kernel {out['step']['ms']:.5f} ms (in the epoch kernel "
+        f"{out['epoch']['ms'] / nb:.5f}), plain {out['step']['plain_ms']:.5f} ms, the "
+        f"fused-microbatch step without the kernel (B1/B3 kernels + torch ops) "
+        f"{before:.5f} ms, bound "
+        f"{out['step']['bound_ms']:.5f} ms ({out['step']['bound_by']})"
+    )
+    return out
+
+
+def phase_fused_training(torch, cuda_ops, TrainingSession, data_dir):
+    """The kernel paths of the training main path: the phase 6 split, 2
+    epochs, through the megakernel (16 launches an epoch), the epoch kernel
+    (1 an epoch) and the run kernel (1 for the run), each against the CPU
+    path. Returns {mode: fused_train launches over its drive}."""
+    relu_layers = len(FLAGSHIP) - 2
+    kw = dict(data_dir=data_dir, fuse_mubatches=True)
+    evals = 2 * relu_layers * math.ceil(VAL_ROWS / 1024)
+
+    cpu = _train_2_epochs(TrainingSession, "cpu", epoch_kernel=True, **kw)
+    launches, sessions, report = {}, {}, []
+    for mode, flags, per_epoch in (
+        ("step", dict(megakernel=True), TRAIN_BATCHES),
+        ("epoch", dict(epoch_kernel=True), 1),
+    ):
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        card = _train_2_epochs(TrainingSession, "cuda", **flags, **kw)
+        counts = dict(cuda_ops.LAUNCHES)
+        launches[mode] = counts["fused_train"]
+        if counts["fused_train"] != 2 * per_epoch:
+            fail(f"fused {mode}: {counts['fused_train']} launches, want 2 x {per_epoch}")
+        if counts["linear_act_bwd"] != 0 or counts["linear_act_fwd"] != evals:
+            fail(f"fused {mode}: B1-B4 launches {counts}, want only eval's {evals} forwards")
+        again = _train_2_epochs(TrainingSession, "cuda", with_eval=False, **flags, **kw)
+        worst, moved = _check_card_run(f"fused {mode}", card, cpu, again)
+        gpu, _, losses, _, walls = card
+        sessions[mode] = gpu
+        sps = TRAIN_BATCHES * 128 / min(walls[1], again[4][1])
+        report.append(
+            f"{mode}: {counts['fused_train']} launches, losses {losses[0]:.7f} -> "
+            f"{losses[1]:.7f} (drop {losses[0] - losses[1]:.7e}, CPU "
+            f"{cpu[2][0] - cpu[2][1]:.7e}), card vs CPU params {worst:.3e}, every "
+            f"leaf moved >= {min(moved):.2f}, steady epoch {sps:.1f} samples/s"
+        )
+    if not _bitwise_equal(sessions["step"], sessions["epoch"]):
+        fail("fused: the epoch kernel is not bitwise 16 step kernels")
+
+    # the whole run in one launch, twice (the second timed warm)
+    def whole_run():
+        session = TrainingSession(device="cuda", run_kernel=True, **kw)
+        init = session.params()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, accs = session.train_run(2, with_eval=False)
+        if accs is not None:
+            fail(f"fused run: train_run(with_eval=False) gave accuracies {accs}")
+        return session, init, losses, [], time.perf_counter() - t0
+
+    cuda_ops.reset_launches()
+    run = whole_run()
+    counts = dict(cuda_ops.LAUNCHES)
+    launches["run"] = counts["fused_train"]
+    if counts != {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 1}:
+        fail(f"fused run: launches {counts}, want one fused_train")
+    if not _bitwise_equal(run[0], sessions["epoch"]):
+        fail("fused run: not bitwise two epoch-kernel epochs")
+    again = whole_run()
+    worst, _ = _check_card_run("fused run", run, cpu, again)
+    report.append(
+        f"run: 1 launch for 2 epochs, losses {run[2]}, card vs CPU params {worst:.3e}, "
+        f"{2 * TRAIN_BATCHES * 128 / again[4]:.1f} samples/s (second session)"
+    )
+
+    # train_steps in two chunks is one epoch, bitwise
+    chunked = TrainingSession(device="cuda", epoch_kernel=True, **kw)
+    whole = TrainingSession(device="cuda", epoch_kernel=True, **kw)
+    whole.train_epoch()
+    chunked.train_steps(5)
+    steps, _ = chunked.train_steps(TRAIN_BATCHES)
+    if steps != TRAIN_BATCHES - 5 or not _bitwise_equal(chunked, whole):
+        fail("fused: train_steps in two chunks is not bitwise one epoch")
+
+    # momentum and Adam, 4 steps each through the epoch kernel
+    stateful = [
+        _side_run(TrainingSession, f"fused {opt}", 4, epoch_kernel=True, optimizer=opt, lr=lr, **kw)
+        for opt, lr in STATEFUL_RECIPES
+    ]
+
+    # a configuration over the budget is refused before any launch
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    try:
+        TrainingSession(device="cuda", model="mlp-deep", epoch_kernel=True, **kw)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("fused: mlp-deep with epoch_kernel=True was not refused")
+    if any(cuda_ops.LAUNCHES.values()):
+        fail(f"fused: the refused session launched {cuda_ops.LAUNCHES}")
+    for line in report:
+        say(f"  {line}")
+    say(
+        f"phase 8b fused training: ok: 16 / 1 / 1 fused launches per epoch / epoch / "
+        f"run, no B1-B4 launch but eval's; the epoch kernel bitwise 16 step kernels, "
+        f"the run kernel bitwise 2 epoch kernels, 2 train_steps chunks bitwise one "
+        f"epoch; 4 epoch-kernel steps card vs CPU: {', '.join(stateful)}; mlp-deep "
+        f"refused ({refusal!r})"
+    )
+    return launches
+
+
 def main():
     import torch
 
@@ -682,17 +1059,22 @@ def main():
         write_split(Path(tmp), TRAIN_BATCHES * 128, VAL_ROWS)
         training = phase_training(torch, cuda_ops, TrainingSession, tmp)
         phase_wide_training(torch, cuda_ops, TrainingSession, tmp)
-    per_kernel = {
-        "linear_act_fwd": (serving["linear_act_fwd"], fwd_err, slot),
-        "linear_act_bwd": (training["linear_act_bwd"], bwd_err, mub),
-    }
+        fused = phase_fused_kernels(torch, cuda_ops, tmp)
+        fused_launches = phase_fused_training(torch, cuda_ops, TrainingSession, tmp)
+    entries = [
+        ("linear_act_fwd", "linear_act_fwd", serving["linear_act_fwd"], fwd_err, slot),
+        ("linear_act_bwd", "linear_act_bwd", training["linear_act_bwd"], bwd_err, mub),
+    ]
+    for mode in FUSED_MODES:
+        # no single PyTorch call computes a training step
+        t = dict(fused[mode], library_ms=None)
+        entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
     kernels = []
-    for name, meta in KERNELS.items():
-        launches, err, t = per_kernel[name]
+    for name, source_name, launches, err, t in entries:
         kernels.append(
             dict(
                 name=name,
-                **meta,
+                **KERNELS[source_name],
                 launches=launches,
                 max_abs_err=err,
                 ms=t["ms"],

@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on the GPU: a torch.profiler trace of
-one steady-state epoch of the flagship recipe.
+one steady-state epoch of the flagship recipe, for each training path.
 
-    python3 scripts/torch_training_profile.py [--fuse-mubatches]
+    python3 scripts/torch_training_profile.py
 
 Writes the seeded synthetic split of ``chip_smoke.py``'s phase 6
 (``chip_smoke.TRAIN_BATCHES`` batches of 128 rows) into a temporary
-directory, builds ``TrainingSession(device="cuda", data_dir=...)`` for the
-flagship (B=128,
-M=4, SGD at lr 0.006), trains one epoch to warm up, times one unprofiled
-epoch (samples/s, host clock around ``train_epoch``, which returns after
-the device), then traces one more epoch with CPU and CUDA activity and
-reports over that epoch's window: the wall time, the device's busy time
-(the union of every GPU activity interval) and idle share, and the GPU time
-by kernel name per training step. The profiler adds host overhead, so the
-traced epoch's wall is longer than the unprofiled one; the device times
-are the GPU's own.
+directory. For each path it builds ``TrainingSession(device="cuda",
+data_dir=...)`` for the flagship (B=128, M=4, SGD at lr 0.006): ``scanned``
+the 4-microbatch loop, ``fused`` ``fuse_mubatches=True`` (both through the
+B1/B3 kernels and torch ops), ``megakernel`` the fused train kernel once per
+batch, ``epoch_kernel`` once per epoch. It trains one epoch to warm up,
+times one unprofiled epoch (samples/s, host clock around ``train_epoch``,
+which returns after the device), then traces one more epoch with CPU and
+CUDA activity and reports over that epoch's window: the wall time, the
+device's busy time (the union of every GPU activity interval) and idle
+share, and the GPU time by kernel name per training step. The profiler adds
+host overhead, so the traced epoch's wall is longer than the unprofiled
+one; the device times are the GPU's own.
 
-Prints a readable table and, as its last line, one JSON object. Needs a
-CUDA device; exits non-zero without one.
+Then the fused train kernel's floor: the device ms per step of one
+epoch-mode launch (16 batches of 128 rows, CUDA graph, CUDA events) for the
+flagship and for a model of the flagship's depth whose every width is 16
+(784 in, so the same input, then 16 wide: ``FLOOR_SIZES``). The narrow
+model does almost no arithmetic but crosses the same 2L + 2 grid-wide
+barriers a batch, so its time is the kernel's cost of phases and barriers.
+
+Prints a readable table per path and, as its last line, one JSON object
+with every path. Needs a CUDA device; exits non-zero without one.
 """
 
-import argparse
 import collections
 import json
 import subprocess
@@ -30,42 +38,30 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 EPOCH = "training_epoch"  # the record_function label around the traced epoch
+FLOOR_SIZES = (784, 16, 16, 16, 16, 16, 16, 10)  # the flagship's depth, 16 wide
+PATHS = {
+    "scanned": {},
+    "fused": dict(fuse_mubatches=True),
+    "megakernel": dict(fuse_mubatches=True, megakernel=True),
+    "epoch_kernel": dict(fuse_mubatches=True, epoch_kernel=True),
+}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--fuse-mubatches", action="store_true")
-    args = ap.parse_args(argv)
-
-    import torch
+def profile_path(torch, session, steps):
+    """One warm-up epoch, one timed, one traced; returns the path's record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    if not torch.cuda.is_available():
-        print("torch_training_profile: no CUDA device", file=sys.stderr)
-        return 1
-    from chip_smoke import TRAIN_BATCHES, write_split
+    from shallowspeed_tpu_torch import cuda_ops
     from torch_serving_profile import _union_us
 
-    from shallowspeed_tpu_torch import cuda_ops
-    from shallowspeed_tpu_torch.api import TrainingSession
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    print(card)
-    with tempfile.TemporaryDirectory() as tmp:
-        write_split(Path(tmp), TRAIN_BATCHES * 128, 128)
-        session = TrainingSession(
-            device="cuda", data_dir=tmp, fuse_mubatches=args.fuse_mubatches
-        )
-    steps = session.batches_per_epoch
     session.train_epoch()  # warm-up: kernel load, allocator, cuBLAS handles
     t0 = time.perf_counter()
     session.train_epoch()
@@ -90,47 +86,92 @@ def main(argv=None):
         if e > s:
             gpu.append((ev.name, s, e))
     if not gpu:
-        print("torch_training_profile: the trace holds no GPU activity", file=sys.stderr)
-        return 1
+        raise RuntimeError("the trace holds no GPU activity")
     busy_us = _union_us([(s, e) for _, s, e in gpu])
     window_us = window[1] - window[0]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for name, s, e in gpu:
         by_name[name][0] += 1
         by_name[name][1] += e - s
-    sps = steps * 128 / epoch_s
-    print(
-        f"training epoch: {steps} steps of 128 rows "
-        f"({'fused' if args.fuse_mubatches else '4 microbatches'}); unprofiled "
-        f"{epoch_s * 1e3:.3f} ms = {sps:.1f} samples/s ({epoch_s / steps * 1e3:.4f} "
-        f"ms per step); traced window {window_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / window_us:.4f}; "
-        f"kernel launches {launches}"
-    )
-    print("  count  gpu_ms     per_step_us  name")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    for name, (count, us) in top[:16]:
-        print(f"  {count:5d} {us / 1e3:9.4f} {us / steps:13.3f}  {name[:90]}")
-    print(
-        json.dumps(
-            {
-                "card": card,
-                "steps": steps,
-                "fuse_mubatches": args.fuse_mubatches,
-                "epoch_ms": epoch_s * 1e3,
-                "samples_per_s": sps,
-                "traced_epoch_ms": traced_s * 1e3,
-                "window_ms": window_us / 1e3,
-                "device_busy_ms": busy_us / 1e3,
-                "idle_share": 1 - busy_us / window_us,
-                "launches": launches,
-                "gpu_us_per_step_by_name": {
-                    n[:100]: v[1] / steps for n, v in top
-                },
-                "gpu_count_by_name": {n[:100]: v[0] for n, v in top},
-            }
-        )
+    return {
+        "steps": steps,
+        "epoch_ms": epoch_s * 1e3,
+        "samples_per_s": steps * 128 / epoch_s,
+        "traced_epoch_ms": traced_s * 1e3,
+        "window_ms": window_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / window_us,
+        "gpu_ops_per_step": len(gpu) / steps,
+        "launches": launches,
+        "gpu_us_per_step_by_name": {n[:100]: v[1] / steps for n, v in top},
+        "gpu_count_by_name": {n[:100]: v[0] for n, v in top},
+    }
+
+
+def fused_kernel_ms(torch, sizes, X, Y):
+    """Device ms per step of the fused train kernel in epoch mode over the
+    batches of X (nb, 128, in) for an SGD-trained MLP of ``sizes``."""
+    from chip_smoke import MUBATCH_ROWS, device_ms
+
+    from shallowspeed_tpu_torch import convert, cuda_ops
+    from shallowspeed_tpu_torch import model as model_mod
+
+    spec = model_mod.make_model_spec(sizes, 1, 128)
+    stage = model_mod.param_tree(convert.params_from_numpy(model_mod.init_model(spec), "cuda"))[0]
+    kw = dict(
+        epoch_mode=True, relu_flags=spec.stages[0].relu_flags, group_rows=MUBATCH_ROWS,
+        batch_size=128, lr=0.006, weight_decay=0.0,
     )
+    ms = device_ms(torch, lambda: cuda_ops.fused_train_call(stage, X, Y, **kw), reps=2, iters=7)
+    return ms / X.shape[0]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_training_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import TRAIN_BATCHES, write_split
+
+    from shallowspeed_tpu_torch.api import FLAGSHIP_SIZES, TrainingSession
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(card)
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_split(Path(tmp), TRAIN_BATCHES * 128, 128)
+        for path in PATHS:
+            session = TrainingSession(device="cuda", data_dir=tmp, **PATHS[path])
+            rec = records[path] = profile_path(torch, session, session.batches_per_epoch)
+            print(
+                f"{path}: {rec['steps']} steps of 128 rows; unprofiled "
+                f"{rec['epoch_ms']:.3f} ms = {rec['samples_per_s']:.1f} samples/s "
+                f"({rec['epoch_ms'] / rec['steps']:.4f} ms per step); traced window "
+                f"{rec['window_ms']:.3f} ms, device busy {rec['device_busy_ms']:.3f} ms, "
+                f"idle share {rec['idle_share']:.4f}, {rec['gpu_ops_per_step']:.1f} GPU "
+                f"operations per step; kernel launches {rec['launches']}"
+            )
+            print("  count  gpu_ms     per_step_us  name")
+            for name, us in list(rec["gpu_us_per_step_by_name"].items())[:12]:
+                count = rec["gpu_count_by_name"][name]
+                print(f"  {count:5d} {us * rec['steps'] / 1e3:9.4f} {us:13.3f}  {name[:90]}")
+        X = torch.from_numpy(np.load(Path(tmp) / "x_train.npy")).cuda().reshape(TRAIN_BATCHES, 128, -1)
+        Y = torch.from_numpy(np.load(Path(tmp) / "y_train.npy")).cuda().reshape(TRAIN_BATCHES, 128, -1)
+        floor = {
+            "flagship_ms_per_step": fused_kernel_ms(torch, FLAGSHIP_SIZES, X, Y),
+            "narrow_ms_per_step": fused_kernel_ms(torch, FLOOR_SIZES, X, Y),
+        }
+    print(
+        f"fused train kernel, epoch mode, device ms per step: flagship "
+        f"{floor['flagship_ms_per_step']:.5f}, the same depth 16 wide "
+        f"{floor['narrow_ms_per_step']:.5f} (phases and barriers)"
+    )
+    print(json.dumps({"card": card, "paths": records, "fused_kernel": floor}))
     return 0
 
 

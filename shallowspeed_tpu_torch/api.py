@@ -13,7 +13,12 @@ recipe (global batch 128 in 4 microbatches, SGD at lr 0.006) or momentum /
 Adam, with decoupled weight decay, global-norm clipping and fused
 microbatches, driven per step (``train_steps``), per epoch
 (``train_epoch``) or per run (``train_run``), with the JAX session's
-epoch/step cursor and loss definitions. A session built without
+epoch/step cursor and loss definitions. With ``fuse_mubatches`` the fused
+train kernel can carry the training (TPU kernels B9-B11):
+``megakernel=True`` one launch per batch, ``epoch_kernel=True`` one per
+epoch (``train_steps`` runs it over the batches of the chunk), and
+``run_kernel=True`` one for a whole ``train_run(with_eval=False)`` (its
+other calls take the epoch kernel). A session built without
 ``data_dir`` serves only: weights from the deterministic init or a
 checkpoint (``resume=``, any layout's snapshot), and ``predict`` exactly as
 the JAX session's sequential branch — rows packed into fixed
@@ -23,8 +28,8 @@ rides beside them, which the serving engine's "response == direct
 predict()" contract needs.
 
 Not in this slice, and refused with a pointer to their ROADMAP.md item:
-mesh layouts, the pipeline executor's kernel backend, the fused train
-kernels, metrics/health/digests, fault injection and checkpoint writing.
+mesh layouts, the pipeline executor's kernel backend, metrics/health/
+digests, fault injection and checkpoint writing.
 """
 
 import numpy as np
@@ -86,7 +91,10 @@ class TrainingSession:
     the ``train_*``/``accuracy`` methods raise. ``lr``, ``optimizer``
     (sgd|momentum|adam), ``momentum``, ``weight_decay`` (decoupled),
     ``clip_norm`` (global norm, None = off), ``fuse_mubatches`` (one
-    forward/backward per batch): the training recipe. ``resume``: a
+    forward/backward per batch): the training recipe. ``megakernel``,
+    ``epoch_kernel``, ``run_kernel`` (each needs ``fuse_mubatches``;
+    ``run_kernel`` excludes the other two): the fused train kernel per
+    batch, per epoch, or per whole eval-free run. ``resume``: a
     checkpoint path whose params, optimizer state and epoch/step cursor
     this session continues from. ``predict_slot_rows``/
     ``predict_slot_ladder``: the slot geometry (``serving/slots.py``).
@@ -137,7 +145,27 @@ class TrainingSession:
             dp, pp, tp, kernel_backend, metrics, health, digests, faults,
             checkpoint_dir,
         )
-        trainer.refuse_kernel_paths(megakernel, epoch_kernel, run_kernel)
+        if megakernel and not fuse_mubatches:
+            raise ValueError(
+                "megakernel runs the whole fused batch as one CUDA kernel; "
+                "it requires fuse_mubatches=True (sequential path)"
+            )
+        if epoch_kernel and not fuse_mubatches:
+            raise ValueError(
+                "epoch_kernel runs the whole epoch as one CUDA kernel; "
+                "it requires fuse_mubatches=True (sequential path)"
+            )
+        if run_kernel and not fuse_mubatches:
+            raise ValueError(
+                "run_kernel runs the whole multi-epoch run as one CUDA "
+                "kernel; it requires fuse_mubatches=True (sequential path)"
+            )
+        if run_kernel and (megakernel or epoch_kernel):
+            raise ValueError(
+                "run_kernel subsumes the mega/epoch kernels; pass only "
+                "run_kernel=True"
+            )
+        self._run_kernel = bool(run_kernel)
         if model is not None:
             sizes, act = Mo.resolve_model(model)
         else:
@@ -186,10 +214,12 @@ class TrainingSession:
             )
         else:
             self._opt_state = self._opt.init(Mo.param_tree(self._params))
+        kernels = dict(megakernel=megakernel, epoch_kernel=epoch_kernel or run_kernel)
         self._epoch_fn = trainer.make_train_epoch(
-            self.spec, self._opt, fuse_mubatches=fuse_mubatches, clip_norm=clip_norm
+            self.spec, self._opt, fuse_mubatches=fuse_mubatches, clip_norm=clip_norm,
+            **kernels,
         )
-        self._run_kwargs = dict(fuse_mubatches=fuse_mubatches, clip_norm=clip_norm)
+        self._run_kwargs = dict(fuse_mubatches=fuse_mubatches, clip_norm=clip_norm, **kernels)
         self._run_fns = {}  # whole-run functions, keyed by with_eval
 
         if predict_slot_rows is None:
@@ -348,7 +378,8 @@ class TrainingSession:
         """Train ``epochs`` epochs; returns ``(losses, accuracies)`` as lists
         of floats (``accuracies`` None when ``with_eval=False``). The loss
         and accuracy stay on the device until the run ends; each epoch's
-        accuracy is one forward over the whole validation split."""
+        accuracy is one forward over the whole validation split. Under
+        ``run_kernel`` the eval-free run is one kernel launch."""
         self._require_data("train_run")
         if epochs <= 0:
             raise ValueError("epochs must be positive")
@@ -359,8 +390,14 @@ class TrainingSession:
                 "train_run()"
             )
         if with_eval not in self._run_fns:
+            kwargs = dict(self._run_kwargs)
+            if not with_eval and self._run_kernel:
+                # the eval-free run is one launch of the whole-run kernel;
+                # per-epoch eval needs per-epoch params, so the evaluated
+                # run loops the epoch kernel
+                kwargs.update(epoch_kernel=False, run_kernel=True)
             self._run_fns[with_eval] = trainer.make_train_run(
-                self.spec, self._opt, with_eval=with_eval, **self._run_kwargs
+                self.spec, self._opt, with_eval=with_eval, **kwargs
             )
         args = (self._params, self._opt_state, self._X, self._Y)
         if with_eval:

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
-The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Two kernels:
+The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Three kernels:
 
 - ``linear_act_fwd(x, W, b, apply_relu) -> (y, mask)``, built from
   ``csrc/linear_act_fwd.cu``: ``z = x @ W.T + b``, ``y = relu(z)`` when
@@ -14,6 +14,12 @@ The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Two kernels:
   in one launch. It replaces both regimes of the TPU backward
   (``linear_relu_bwd``, single-block and grid-tiled). ``linear_relu_bwd``
   keeps the JAX name and pins ``apply_relu=1``.
+- ``fused_train_call(stage_params, x, y, ...)``, built from
+  ``csrc/fused_train.cu``: a whole training batch (forward, softmax-MSE
+  head, backward, optional global-norm clip, SGD / momentum / Adam update),
+  a whole epoch or a whole run of epochs in one cooperative launch — the
+  TPU's fused train kernels (``pallas_ops.fused_train_call``) in their step,
+  epoch and run modes. ``fused_train_reference`` is its plain version.
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 run the plain version (``*_reference``), CUDA tensors launch the kernel or
@@ -27,11 +33,13 @@ import functools
 
 import torch
 
-LAUNCHES = {"linear_act_fwd": 0, "linear_act_bwd": 0}
+from shallowspeed_tpu_torch.optimizer import _decay_factor, clip_tree
+
+LAUNCHES = {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 0}
 
 # each kernel's C entry point: (pointer arguments, int arguments), then the
 # stream; tests/test_torch_kernels.py holds this to the sources' signatures
-SIGNATURES = {"linear_act_fwd": (5, 4), "linear_act_bwd": (7, 4)}
+SIGNATURES = {"linear_act_fwd": (5, 4), "linear_act_bwd": (7, 4), "fused_train": (6, 3)}
 
 
 def reset_launches():
@@ -187,3 +195,362 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True):
 def linear_relu_bwd(g, mask, x, w):
     """The TPU kernel's name and contract: ``(dx, dw, db)`` of ``g * mask``."""
     return linear_act_bwd(g, mask, x, w, apply_relu=True)
+
+
+# ---------------------------------------------------------------------------
+# the fused train kernel: fused_train (B9 step, B10 epoch, B11 run)
+# ---------------------------------------------------------------------------
+
+# per-optimizer operand geometry: (param-mirror state groups, scalar slots)
+_OPT_GEOMETRY = {"sgd": (0, 0), "momentum": (1, 0), "adam": (2, 1)}
+_OPT_CODES = {"sgd": 0, "momentum": 1, "adam": 2}
+
+# The JAX package's single-block budget (pallas_ops.SINGLE_BLOCK_BUDGET_BYTES,
+# one TPU core's VMEM less headroom). The port applies it as the JAX package
+# does off the TPU, so both accept the same configurations; the kernel itself
+# keeps its working set in device memory.
+SINGLE_BLOCK_BUDGET_BYTES = 8 * 1024 * 1024
+
+# csrc/fused_train.cu's output tile edge (T) and its operand table: a header
+# of HEADER_LEN int64 fields, then one record of LAYER_LEN per layer, for at
+# most MAX_LAYERS layers; the names are the source's enums without their
+# H_ / R_ prefix, in order.
+FUSED_TILE = 16
+FUSED_MAX_LAYERS = 24
+TABLE_HEADER_LEN = 16
+TABLE_HEADER = (
+    "L", "OPT", "ROWS", "GROUP_ROWS", "N_GROUPS", "LOSS_PART", "T", "HAS_CLIP",
+    "HAS_DECAY",
+)
+TABLE_LAYER = (
+    "K", "N", "RELU", "W", "B", "S1W", "S1B", "S2W", "S2B", "ACT_IN", "ACT_OUT",
+    "G", "DW", "DB", "SQW", "SQB",
+)
+# the float hyperparameters, in the order of the source's struct Hyper
+HYPER = ("lr", "decay", "mu", "b1", "b2", "omb1", "omb2", "eps", "clip", "batch_size")
+
+
+def _kernel_bytes(batch_rows, sizes, state_mirrors=0):
+    """The JAX package's byte model of the fused train kernel's working set
+    (``pallas_ops._kernel_bytes``): params twice (in and out), an in+out
+    pair per optimizer state mirror, activations and masks at
+    ``batch_rows``, and the batch."""
+    widths = list(sizes)
+    params = sum(widths[i] * widths[i + 1] + widths[i + 1] for i in range(len(widths) - 1))
+    state = 2 * params * state_mirrors
+    acts = batch_rows * sum(widths)
+    masks = batch_rows * sum(widths[1:-1])
+    io = batch_rows * (widths[0] + widths[-1])
+    return 4 * (2 * params + state + acts + masks + io)
+
+
+def train_step_kernel_fits(batch_rows, sizes, state_mirrors=0):
+    """True when a batch of ``batch_rows`` fits the step kernel's budget
+    (``pallas_ops.train_step_kernel_fits``)."""
+    return _kernel_bytes(batch_rows, sizes, state_mirrors) <= SINGLE_BLOCK_BUDGET_BYTES
+
+
+def train_epoch_kernel_fits(batch_rows, sizes, state_mirrors=0):
+    """True when the epoch (and run) kernel fits: the step kernel's bytes
+    plus a second copy of the streamed x/y blocks, against the full budget
+    (``pallas_ops.train_epoch_kernel_fits`` as it runs off the TPU, where
+    it holds back no margin)."""
+    widths = list(sizes)
+    stream_extra = 4 * batch_rows * (widths[0] + widths[-1])
+    return (
+        _kernel_bytes(batch_rows, sizes, state_mirrors) + stream_extra
+        <= SINGLE_BLOCK_BUDGET_BYTES
+    )
+
+
+def _check_geometry(opt, mirrors, scalars):
+    if _OPT_GEOMETRY[opt["kind"]] != (len(mirrors), len(scalars)):
+        raise ValueError(
+            f"optimizer kind {opt['kind']!r} expects "
+            f"{_OPT_GEOMETRY[opt['kind']]} (mirror, scalar) operand groups, "
+            f"got ({len(mirrors)}, {len(scalars)})"
+        )
+
+
+def _batch_grads_reference(x, y, ws, bs, relu_flags, group_rows, batch_size, clip_norm):
+    """``pallas_ops._batch_grads`` in torch: the forward with live
+    activations and masks, the softmax-MSE head with the stability max per
+    ``group_rows``-row group and ``+ 1e-7``, the backward from the given
+    (pre-update) weights, the optional global-norm clip. Returns ``(dws,
+    dbs, loss)``, gradient sums over the batch with ``b`` as ``(1, out)``.
+    The same torch ops as the port's fused-microbatch model path
+    (``model.model_forward``/``model_backward``, ``ops``, ``clip_tree``), so
+    on one device the two give the same bits."""
+    L = len(ws)
+    a = x
+    acts, masks = [], [None] * L
+    for l in range(L):
+        acts.append(a)
+        z = torch.matmul(a, ws[l].T) + bs[l].reshape(1, -1)
+        if relu_flags[l]:
+            masks[l] = z > 0
+            a = torch.relu(z)
+        else:
+            a = z
+    groups = a.reshape(-1, group_rows, a.shape[-1])
+    m = torch.amax(groups, dim=(1, 2), keepdim=True).expand(groups.shape).reshape(a.shape)
+    ze = torch.exp(a - m)
+    p = ze / (ze.sum(dim=1, keepdim=True) + 1e-7)
+    loss = ((y - p) ** 2).sum() / batch_size
+    gl = -2.0 * (y - p) / batch_size
+    gz = p * gl
+    g = gz - p * gz.sum(dim=-1, keepdim=True)
+    dws, dbs = [None] * L, [None] * L
+    for l in reversed(range(L)):
+        ge = g * masks[l].to(g.dtype) if relu_flags[l] else g
+        dws[l] = torch.matmul(ge.T, acts[l])
+        dbs[l] = ge.sum(dim=0).reshape(1, -1)
+        if l > 0:
+            g = torch.matmul(ge, ws[l])
+    if clip_norm is not None:
+        clipped = clip_tree([{"W": dws[l], "b": dbs[l]} for l in range(L)], clip_norm)
+        dws = [layer["W"] for layer in clipped]
+        dbs = [layer["b"] for layer in clipped]
+    return dws, dbs, loss
+
+
+def _update_reference(kind, opt, params, grads, mirrors, t, lr, weight_decay):
+    """One optimizer step in place, the port's optimizer expressions op by
+    op (``optimizer.SGD``/``MomentumSGD``/``Adam``.apply)."""
+    decay = _decay_factor(lr, weight_decay) if weight_decay else None
+    if kind == "adam":
+        t_new = t + 1.0
+        c1 = 1.0 - opt["b1"] ** t_new
+        c2 = 1.0 - opt["b2"] ** t_new
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if kind == "sgd":
+            step = lr * g
+        elif kind == "momentum":
+            v = mirrors[0][i]
+            v.mul_(opt["mu"]).add_(g)
+            step = lr * v
+        else:
+            m, v = mirrors[0][i], mirrors[1][i]
+            m.mul_(opt["b1"]).add_((1 - opt["b1"]) * g)
+            v.mul_(opt["b2"]).add_((1 - opt["b2"]) * g * g)
+            step = lr * (m / c1) / (torch.sqrt(v / c2) + opt["eps"])
+        if decay is not None:
+            p.mul_(decay)
+        p.sub_(step)
+    if kind == "adam":
+        t.copy_(t_new)
+
+
+def _flat_group(group):
+    """A stage's ``[{"W", "b"}, ...]`` as ``[W_0, b_0, W_1, b_1, ...]``."""
+    return [leaf for layer in group for leaf in (layer["W"], layer["b"])]
+
+
+def fused_train_reference(
+    stage_params, x, y, *, epoch_mode, relu_flags, group_rows, batch_size,
+    lr, weight_decay, opt=None, mirrors=(), scalars=(), clip_norm=None,
+    n_epochs=None,
+):
+    """Plain PyTorch version of the fused train kernel: the CPU path and the
+    kernel's oracle, with ``fused_train_call``'s contract (see there).
+    Per batch ``_batch_grads_reference`` then the update; an epoch's loss
+    is ``(0 + l_0 + ... + l_{nb-1}) / nb``, the order of the port's epoch
+    loop. Params, mirrors and the scalar slot are updated in place."""
+    opt = opt or {"kind": "sgd"}
+    _check_geometry(opt, mirrors, scalars)
+    kind = opt["kind"]
+    L = len(stage_params)
+    ws = [layer["W"] for layer in stage_params]
+    bs = [layer["b"] for layer in stage_params]
+    params = _flat_group(stage_params)
+    flat_mirrors = [_flat_group(mirror) for mirror in mirrors]
+    t = scalars[0] if scalars else None
+    X, Y = (x, y) if epoch_mode else (x.unsqueeze(0), y.unsqueeze(0))
+    losses = []
+    for _ in range(1 if n_epochs is None else n_epochs):
+        loss_sum = torch.zeros((), dtype=torch.float32, device=X.device)
+        for xb, yb in zip(X, Y):
+            dws, dbs, loss = _batch_grads_reference(
+                xb, yb, ws, bs, relu_flags, group_rows, batch_size, clip_norm
+            )
+            grads = [g for l in range(L) for g in (dws[l], dbs[l])]
+            _update_reference(kind, opt, params, grads, flat_mirrors, t, lr, weight_decay)
+            loss_sum = loss_sum + loss
+        losses.append(loss_sum / X.shape[0] if epoch_mode else loss)
+    loss = losses[0] if n_epochs is None else torch.stack(losses)
+    return stage_params, list(mirrors), list(scalars), loss
+
+
+def fused_train_layout(widths, rows, group_rows):
+    """The kernel's workspace, in float32 elements: per layer ``l`` (``K``
+    inputs, ``N`` outputs) its activation ``ACT_OUT`` (rows x N), the head
+    or backward gradient ``G`` (rows x N), ``DW`` (N x K), ``DB`` (N), and
+    the clip's sums of squares per dW tile ``SQW`` and per db slice ``SQB``;
+    then one loss partial per head group. Returns ``(layers, loss_part,
+    total, max_items)``: ``layers`` one dict of offsets per layer (``ACT_IN``
+    is -1 for the first, whose input is the batch), ``max_items`` the most
+    work items any phase has."""
+    tiles = lambda n: -(-n // FUSED_TILE)  # noqa: E731
+    L = len(widths) - 1
+    layers = [dict(K=widths[l], N=widths[l + 1]) for l in range(L)]
+    off = 0
+    for rec in layers:
+        rec["ACT_OUT"] = off
+        off += rows * rec["N"]
+    for l, rec in enumerate(layers):
+        K, N = rec["K"], rec["N"]
+        rec["ACT_IN"] = layers[l - 1]["ACT_OUT"] if l else -1
+        for name, size in (
+            ("G", rows * N), ("DW", N * K), ("DB", N),
+            ("SQW", tiles(N) * tiles(K)), ("SQB", tiles(N)),
+        ):
+            rec[name] = off
+            off += size
+    n_groups = rows // group_rows
+    loss_part = off
+    off += n_groups
+    max_items = n_groups
+    for l, rec in enumerate(layers):
+        tk = tiles(rec["K"])
+        fwd = tiles(rows) * tiles(rec["N"])
+        bwd = tiles(rec["N"]) * tk + (tiles(rows) * tk if l else 0)
+        max_items = max(max_items, fwd, bwd)
+    return layers, loss_part, off, max_items
+
+
+def _fused_train_table(stage_params, mirrors, scalars, kind, rows, group_rows,
+                       relu_flags, clip_norm, weight_decay):
+    """The kernel's int64 operand table, a host tensor the C entry point
+    copies into the launch's parameters, and the workspace size and launch
+    width."""
+    widths = [layer["W"].shape[1] for layer in stage_params]
+    widths.append(stage_params[-1]["W"].shape[0])
+    layers, loss_part, total, max_items = fused_train_layout(widths, rows, group_rows)
+    header = dict(
+        L=len(layers), OPT=_OPT_CODES[kind], ROWS=rows, GROUP_ROWS=group_rows,
+        N_GROUPS=rows // group_rows, LOSS_PART=loss_part,
+        T=scalars[0].data_ptr() if scalars else 0,
+        HAS_CLIP=int(clip_norm is not None), HAS_DECAY=int(bool(weight_decay)),
+    )
+    content = [header[k] for k in TABLE_HEADER]
+    content += [0] * (TABLE_HEADER_LEN - len(content))
+    for l, rec in enumerate(layers):
+        rec.update(W=stage_params[l]["W"].data_ptr(), B=stage_params[l]["b"].data_ptr(),
+                   RELU=int(bool(relu_flags[l])))
+        for i, name in enumerate(("S1", "S2")):
+            has = i < len(mirrors)
+            rec[name + "W"] = mirrors[i][l]["W"].data_ptr() if has else 0
+            rec[name + "B"] = mirrors[i][l]["b"].data_ptr() if has else 0
+        content += [rec[k] for k in TABLE_LAYER]
+    return torch.tensor(content, dtype=torch.int64), total, max_items
+
+
+def fused_train_call(
+    stage_params, x, y, *, epoch_mode, relu_flags, group_rows, batch_size,
+    lr, weight_decay, opt=None, mirrors=(), scalars=(), clip_norm=None,
+    n_epochs=None,
+):
+    """The fused train kernel (``pallas_ops.fused_train_call``'s name and
+    contract): one launch trains a whole batch, epoch or run of a relu MLP.
+
+    ``stage_params``: the stage's ``[{"W": (out, in), "b": (1, out)}, ...]``.
+    ``opt``: ``{"kind": "sgd"}`` (default), ``{"kind": "momentum", "mu"}`` or
+    ``{"kind": "adam", "b1", "b2", "eps"}``; ``mirrors`` one params-shaped
+    group per optimizer state mirror (momentum: the velocity; Adam: m then
+    v) and ``scalars`` one 0-d float32 tensor per scalar slot (Adam's step
+    count t), as ``_OPT_GEOMETRY`` says. ``epoch_mode=False``: x ``(B, in)``,
+    y ``(B, out)``, one batch, loss a 0-d tensor. ``epoch_mode=True``: X
+    ``(nb, B, in)``, Y ``(nb, B, out)``, the whole epoch, loss the mean of
+    the batch losses; with ``n_epochs`` also the whole run, loss the
+    ``(n_epochs,)`` per-epoch means. ``relu_flags``: per layer, relu on its
+    output; ``group_rows``: rows per stability-max group of the head;
+    ``batch_size``: the global batch that scales the loss; ``lr``,
+    ``weight_decay`` (decoupled), ``clip_norm`` (global norm, None = off).
+
+    Returns ``(new_stage_params, new_mirrors, new_scalars, loss)``. The
+    params, mirrors and scalar slot are UPDATED IN PLACE (as the port's
+    optimizers update), so the returned trees are the tensors passed in.
+    CUDA tensors launch the kernel (or raise: a stage of more than
+    ``FUSED_MAX_LAYERS`` layers is refused before any launch); CPU tensors
+    run ``fused_train_reference``."""
+    opt = opt or {"kind": "sgd"}
+    _check_geometry(opt, mirrors, scalars)
+    if n_epochs is not None and not epoch_mode:
+        raise ValueError("n_epochs requires epoch_mode=True")
+    if n_epochs is not None and n_epochs < 1:
+        raise ValueError(f"n_epochs must be >= 1, got {n_epochs}")
+    if weight_decay:
+        _decay_factor(lr, weight_decay)  # validates
+    kw = dict(
+        epoch_mode=epoch_mode, relu_flags=relu_flags, group_rows=group_rows,
+        batch_size=batch_size, lr=lr, weight_decay=weight_decay, opt=opt,
+        mirrors=mirrors, scalars=scalars, clip_norm=clip_norm, n_epochs=n_epochs,
+    )
+    leaves = _flat_group(stage_params) + [
+        leaf for mirror in mirrors for leaf in _flat_group(mirror)
+    ]
+    if not any(t.is_cuda for t in [x, y, *leaves, *scalars]):
+        return fused_train_reference(stage_params, x, y, **kw)
+
+    dev = x.device
+    X, Y = (x, y) if epoch_mode else (x.unsqueeze(0), y.unsqueeze(0))
+    _check_cuda_operands("fused_train", dev, x=X, y=Y)
+    for i, leaf in enumerate(leaves):
+        _check_cuda_operands("fused_train", dev, **{f"param/state leaf {i}": leaf})
+    for t in scalars:
+        _check_cuda_operands("fused_train", dev, t=t)
+        if t.dim() != 0:
+            raise ValueError(f"fused_train: a scalar slot must be 0-d, got {tuple(t.shape)}")
+    if X.dim() != 3 or Y.dim() != 3:
+        raise ValueError(
+            f"fused_train: x and y must be (B, dim) per batch, got {tuple(x.shape)} "
+            f"and {tuple(y.shape)}"
+        )
+    nb, rows, din = X.shape
+    L = len(stage_params)
+    if L > FUSED_MAX_LAYERS:
+        raise ValueError(
+            f"fused_train: {L} layers; the kernel's operand table holds at most "
+            f"{FUSED_MAX_LAYERS}"
+        )
+    if len(relu_flags) != L:
+        raise ValueError(f"fused_train: {len(relu_flags)} relu flags for {L} layers")
+    prev = din
+    for l, layer in enumerate(stage_params):
+        n_out, n_in = layer["W"].shape
+        if n_in != prev or layer["b"].numel() != n_out:
+            raise ValueError(
+                f"fused_train: layer {l} has W {tuple(layer['W'].shape)} and b "
+                f"{tuple(layer['b'].shape)} after width {prev}"
+            )
+        prev = n_out
+    for i, mirror in enumerate(mirrors):
+        for l, (a, b) in enumerate(zip(_flat_group(mirror), _flat_group(stage_params))):
+            if a.shape != b.shape:
+                raise ValueError(f"fused_train: mirror {i} leaf {l} is not shaped as its param")
+    if tuple(Y.shape) != (nb, rows, prev):
+        raise ValueError(f"fused_train: y is {tuple(y.shape)}, want {(nb, rows, prev)} per batch")
+    if nb == 0 or rows == 0 or group_rows < 1 or rows % group_rows:
+        raise ValueError(
+            f"fused_train: needs at least one batch of rows divisible by group_rows, "
+            f"got {nb} batches of {rows} rows, group_rows={group_rows}"
+        )
+    table, ws_floats, max_items = _fused_train_table(
+        stage_params, mirrors, scalars, opt["kind"], rows, group_rows, relu_flags,
+        clip_norm, weight_decay,
+    )
+    hp = dict(
+        lr=lr, decay=_decay_factor(lr, weight_decay) if weight_decay else 1.0,
+        mu=opt.get("mu", 0.0), b1=opt.get("b1", 0.0), b2=opt.get("b2", 0.0),
+        omb1=1 - opt.get("b1", 0.0), omb2=1 - opt.get("b2", 0.0),
+        eps=opt.get("eps", 0.0), clip=0.0 if clip_norm is None else clip_norm,
+        batch_size=batch_size,
+    )
+    # HOST arrays, like the table: the C entry point copies them into the
+    # launch's parameters
+    hyper = torch.tensor([hp[k] for k in HYPER], dtype=torch.float32)
+    epochs = 1 if n_epochs is None else n_epochs
+    loss = torch.empty((epochs,), dtype=torch.float32, device=dev)
+    ws = torch.empty((ws_floats,), dtype=torch.float32, device=dev)
+    _launch("fused_train", X, Y, loss, ws, table, hyper, nb, epochs, max_items)
+    return stage_params, list(mirrors), list(scalars), loss if n_epochs else loss[0]

@@ -2,12 +2,16 @@
 
     python -m shallowspeed_tpu_torch.train [--epochs 20] [--data-dir DIR]
     python -m shallowspeed_tpu_torch.train --device cpu --data-dir DIR
+    python -m shallowspeed_tpu_torch.train --fuse-mubatches --epoch-kernel
 
 The reference's recipe by default: the flagship MLP, 20 epochs, global
 batch 128 in 4 microbatches, SGD at lr 0.006, with the validation accuracy
 before each epoch and at the end, printed as the root ``train.py`` prints
 it (``Epoch: N, Time Spent: T s, Accuracy: X%``). Runs on the GPU unless
-``--device cpu`` is given; without a GPU it raises.
+``--device cpu`` is given; without a GPU it raises. ``--megakernel``,
+``--epoch-kernel`` and ``--run-kernel`` (with ``--fuse-mubatches``) train
+through the fused train kernel: one launch per batch, per epoch, or per
+``--fused-run --no-eval`` run.
 """
 
 import argparse
@@ -36,6 +40,26 @@ def main(argv=None):
         "--fuse-mubatches", action="store_true",
         help="one full-batch forward/backward per step instead of the "
         "microbatch loop (the same training)",
+    )
+    ap.add_argument(
+        "--megakernel", action="store_true",
+        help="with --fuse-mubatches (SGD, momentum or adam): run each training "
+        "batch as ONE CUDA kernel — forward, head, backward and update in a "
+        "single launch (the same training)",
+    )
+    ap.add_argument(
+        "--epoch-kernel", action="store_true",
+        help="with --fuse-mubatches (SGD, momentum or adam): run each ENTIRE "
+        "epoch as one CUDA kernel — params and optimizer state stay on the "
+        "card across the epoch's batches (one launch per epoch instead of "
+        "one per batch)",
+    )
+    ap.add_argument(
+        "--run-kernel", action="store_true",
+        help="with --fuse-mubatches (SGD, momentum or adam): run the whole "
+        "multi-epoch training run as ONE CUDA kernel when dispatched via "
+        "--fused-run --no-eval. Per-epoch runs and the evaluated fused run "
+        "ride the epoch kernel",
     )
     ap.add_argument(
         "--model", choices=["mnist-mlp", "mlp-wide", "mlp-deep", "transformer"],
@@ -74,6 +98,9 @@ def main(argv=None):
         data_dir=args.data_dir or default_data_dir(),
         resume=args.resume,
         fuse_mubatches=args.fuse_mubatches,
+        megakernel=args.megakernel,
+        epoch_kernel=args.epoch_kernel,
+        run_kernel=args.run_kernel,
         optimizer=args.optimizer,
         momentum=args.momentum,
         weight_decay=args.weight_decay,

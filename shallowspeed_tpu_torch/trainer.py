@@ -18,40 +18,144 @@ the loop sums over microbatches — no averaging anywhere.
 the softmax head's stability max taken per microbatch row group
 (``head_group_rows``), which is the same training computation.
 
-The whole-batch, whole-epoch and whole-run kernels of the JAX package
-(``megakernel``/``epoch_kernel``/``run_kernel``, TPU kernels B9-B11) are not
-ported yet and raise; nothing falls back to the loop.
+The kernel paths (``fuse_mubatches`` only; SGD, momentum or Adam; relu
+family; one stage; within the JAX package's budget) run the fused train
+kernel ``cuda_ops.fused_train_call`` (TPU kernels B9-B11):
+``megakernel=True`` one launch per batch, ``epoch_kernel=True`` one per
+epoch, ``make_train_run(run_kernel=True, with_eval=False)`` one per run.
+On the CPU the same calls run the kernel's plain version, which composes
+the fused path's own torch ops, so there the kernel paths give the fused
+path's bits. Nothing falls back from a kernel path to the loop.
 """
 
 import torch
 
-from shallowspeed_tpu_torch import ops
+from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import (
     ModelSpec,
     model_backward,
     model_forward,
     param_tree,
 )
-from shallowspeed_tpu_torch.optimizer import clip_tree, global_norm, tree_leaves, tree_map
+from shallowspeed_tpu_torch.optimizer import (
+    SGD,
+    Adam,
+    MomentumSGD,
+    clip_tree,
+    global_norm,
+    tree_leaves,
+    tree_map,
+)
 
-def refuse_kernel_paths(megakernel=False, epoch_kernel=False, run_kernel=False):
-    """Raise when any of the fused train kernels' paths is asked for."""
-    if megakernel or epoch_kernel or run_kernel:
-        raise NotImplementedError(
-            "the fused train kernels (pallas_ops.fused_train_call: megakernel, "
-            "epoch_kernel, run_kernel; TPU kernels B9-B11) are not ported yet "
-            "— ROADMAP.md §A item 2 / §B items 9-11"
+_NO_GRAD_NORM = (
+    "with_grad_norm is unavailable on the kernel paths: the gradient never "
+    "leaves the fused train kernel"
+)
+
+
+def _kernel_opt_descriptor(opt):
+    """The fused train kernel's optimizer descriptor for ``opt``
+    (``cuda_ops.fused_train_call``'s ``opt``), or None when the kernel has
+    no such update. Its kind keys ``cuda_ops._OPT_GEOMETRY``."""
+    if type(opt) is SGD:
+        return {"kind": "sgd"}
+    if type(opt) is MomentumSGD:
+        return {"kind": "momentum", "mu": opt.momentum}
+    if type(opt) is Adam:
+        return {"kind": "adam", "b1": opt.b1, "b2": opt.b2, "eps": opt.eps}
+    return None
+
+
+def _validate_megakernel(spec, opt, fuse_mubatches, name="megakernel"):
+    """The kernel paths' refusals, in the JAX package's order and words:
+    fused microbatches, the relu family, a kernel-supported optimizer (SGD,
+    momentum, Adam), a single stage, and the JAX package's budget for the
+    variant (the epoch and run kernels also count a second copy of the
+    streamed batch). Returns the single stage's spec."""
+    if not fuse_mubatches:
+        raise ValueError(f"{name} requires fuse_mubatches=True")
+    if getattr(spec, "act", "relu") != "relu":
+        raise ValueError(
+            f"{name} supports the relu activation family only "
+            f"(model act={spec.act!r})"
         )
+    desc = _kernel_opt_descriptor(opt)
+    if desc is None:
+        raise ValueError(
+            f"{name} supports the (decaying) SGD, momentum and adam "
+            f"optimizers only"
+        )
+    if spec.n_stages != 1 or not spec.stages[0].has_head:
+        raise ValueError(f"{name} runs the single-stage sequential path only")
+    sspec = spec.stages[0]
+    fits = (
+        cuda_ops.train_epoch_kernel_fits
+        if name in ("epoch_kernel", "run_kernel")
+        else cuda_ops.train_step_kernel_fits
+    )
+    n_mirrors, _ = cuda_ops._OPT_GEOMETRY[desc["kind"]]
+    if not fits(spec.global_batch_size, sspec.local_sizes, state_mirrors=n_mirrors):
+        raise ValueError(f"model + batch exceed the {name} VMEM budget")
+    return sspec
+
+
+def _fused_kernel_call(spec, sspec, opt, params, opt_state, X, Y, *, clip_norm,
+                       n_epochs=None):
+    """The one bridge from the trainer to ``cuda_ops.fused_train_call``.
+    ``X``/``Y``: one batch ``(M, mubatch, dim)`` (step mode) or an epoch's
+    ``(nb, M, mubatch, dim)`` (epoch mode; with ``n_epochs`` the run), each
+    batch fused into ``M * mubatch`` rows whose head groups are the
+    microbatches. Maps the optimizer state onto the kernel's mirror groups
+    and scalar slots — momentum's params mirror rides as one group, Adam's
+    ``m`` and ``v`` as two and its ``t`` as the scalar slot. The kernel
+    updates params and state in place; returns ``(params, opt_state,
+    loss)``."""
+    mb = X.shape[-2]
+    x = X.reshape(*X.shape[:-3], -1, X.shape[-1])
+    y = Y.reshape(*Y.shape[:-3], -1, Y.shape[-1])
+    desc = _kernel_opt_descriptor(opt)
+    kind = desc["kind"]
+    if kind == "momentum":
+        mirrors, scalars = (opt_state[0],), ()
+    elif kind == "adam":
+        mirrors, scalars = (opt_state["m"][0], opt_state["v"][0]), (opt_state["t"],)
+    else:
+        mirrors, scalars = (), ()
+    _, _, _, loss = cuda_ops.fused_train_call(
+        param_tree(params)[0], x, y,
+        epoch_mode=X.dim() == 4,
+        relu_flags=sspec.relu_flags,
+        group_rows=mb,
+        batch_size=spec.global_batch_size,
+        lr=opt.lr,
+        weight_decay=opt.weight_decay,
+        opt=desc, mirrors=mirrors, scalars=scalars, clip_norm=clip_norm,
+        n_epochs=n_epochs,
+    )
+    return params, opt_state, loss
 
 
 def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
-                     with_grad_norm=False):
+                     with_grad_norm=False, megakernel=False):
     """The per-batch body shared by the step and the epoch:
     ``batch_step(params, opt_state, xb, yb) -> (params, opt_state, loss)``,
     plus the pre-clip global gradient norm as a fourth output under
     ``with_grad_norm``. ``xb``: (M, mubatch, in_dim), ``yb``: (M, mubatch,
     out_dim) one-hot; ``loss`` is the batch's global-batch-scaled MSE under
-    the pre-update params (a 0-d tensor, left on the device)."""
+    the pre-update params (a 0-d tensor, left on the device).
+    ``megakernel=True`` runs the whole batch as one launch of the fused
+    train kernel."""
+    if megakernel:
+        if with_grad_norm:
+            raise ValueError(_NO_GRAD_NORM)
+        sspec = _validate_megakernel(spec, opt, fuse_mubatches)
+
+        def mega_step(params, opt_state, xb, yb):
+            return _fused_kernel_call(
+                spec, sspec, opt, params, opt_state, xb, yb, clip_norm=clip_norm
+            )
+
+        return mega_step
 
     def finish(params, opt_state, grads, loss):
         gnorm = global_norm(grads) if with_grad_norm else None
@@ -90,8 +194,9 @@ def make_train_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
     """``step(params, opt_state, xb, yb) -> (params, opt_state)``: one
     optimizer step over one global batch. ``params`` (the ``Stage``
     modules) and the state are updated in place and returned."""
-    refuse_kernel_paths(megakernel)
-    batch_step = _make_batch_step(spec, opt, fuse_mubatches, clip_norm)
+    batch_step = _make_batch_step(
+        spec, opt, fuse_mubatches, clip_norm, megakernel=megakernel
+    )
 
     def step(params, opt_state, xb, yb):
         params, opt_state, _ = batch_step(params, opt_state, xb, yb)
@@ -122,15 +227,36 @@ def _make_epoch_core(batch_step, with_grad_norm=False):
     return epoch
 
 
+def _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm):
+    """The whole epoch as one launch of the fused train kernel (epoch mode):
+    the same signature as ``_make_epoch_core``'s result, and per batch the
+    same computation and loss order as a loop of ``megakernel`` steps."""
+    sspec = _validate_megakernel(spec, opt, fuse_mubatches, name="epoch_kernel")
+
+    def epoch_core(params, opt_state, X, Y):
+        return _fused_kernel_call(
+            spec, sspec, opt, params, opt_state, X, Y, clip_norm=clip_norm
+        )
+
+    return epoch_core
+
+
 def make_train_epoch(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
                      megakernel=False, epoch_kernel=False, with_grad_norm=False):
     """Whole epoch: ``epoch(params, opt_state, X, Y) -> (params, opt_state,
     mean_loss)``, ``mean_loss`` the mean batch training loss (``loss_sum /
     nb``, a 0-d tensor). ``with_grad_norm`` adds an aux dict
-    ``{"grad_norm": mean pre-clip global gradient norm}``."""
-    refuse_kernel_paths(megakernel, epoch_kernel)
+    ``{"grad_norm": mean pre-clip global gradient norm}`` (not on the kernel
+    paths). ``megakernel``: one fused-kernel launch per batch;
+    ``epoch_kernel``: one for the whole epoch."""
+    if epoch_kernel:
+        if megakernel:
+            raise ValueError("megakernel and epoch_kernel are exclusive")
+        if with_grad_norm:
+            raise ValueError(_NO_GRAD_NORM)
+        return _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm)
     batch_step = _make_batch_step(
-        spec, opt, fuse_mubatches, clip_norm, with_grad_norm
+        spec, opt, fuse_mubatches, clip_norm, with_grad_norm, megakernel
     )
     return _make_epoch_core(batch_step, with_grad_norm)
 
@@ -143,10 +269,37 @@ def make_train_run(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
     followed by the full-split argmax accuracy (one forward over ``vx``).
     ``with_eval=False`` drops ``vx``/``vy`` and the accuracies:
     ``run(params, opt_state, X, Y, n_epochs) -> (params, opt_state,
-    losses)``. ``with_grad_norm`` appends ``{"grad_norm": (n_epochs,)}``."""
-    refuse_kernel_paths(megakernel, epoch_kernel, run_kernel)
+    losses)``. ``with_grad_norm`` appends ``{"grad_norm": (n_epochs,)}``.
+    ``megakernel``/``epoch_kernel`` run each epoch as in
+    ``make_train_epoch``; ``run_kernel`` (with ``with_eval=False``) runs the
+    whole run as ONE launch of the fused train kernel."""
+    if with_grad_norm and (megakernel or epoch_kernel or run_kernel):
+        raise ValueError(_NO_GRAD_NORM)
+    if run_kernel:
+        if megakernel or epoch_kernel:
+            raise ValueError(
+                "run_kernel already subsumes the epoch/mega kernels; pass "
+                "only run_kernel=True"
+            )
+        if with_eval:
+            raise ValueError(
+                "run_kernel supports with_eval=False only (per-epoch eval "
+                "needs per-epoch params outside the kernel)"
+            )
+        sspec = _validate_megakernel(spec, opt, fuse_mubatches, name="run_kernel")
+
+        def run_all(params, opt_state, X, Y, n_epochs):
+            if n_epochs < 1:
+                raise ValueError("run_kernel requires n_epochs >= 1")
+            return _fused_kernel_call(
+                spec, sspec, opt, params, opt_state, X, Y, clip_norm=clip_norm,
+                n_epochs=n_epochs,
+            )
+
+        return run_all
     epoch = make_train_epoch(
-        spec, opt, fuse_mubatches, clip_norm, with_grad_norm=with_grad_norm
+        spec, opt, fuse_mubatches, clip_norm, megakernel=megakernel,
+        epoch_kernel=epoch_kernel, with_grad_norm=with_grad_norm,
     )
 
     def run(params, opt_state, X, Y, *rest):

@@ -54,6 +54,7 @@ def test_every_module_imports_without_jax():
         "shallowspeed_tpu_torch.data",
         "shallowspeed_tpu_torch.train",
         "shallowspeed_tpu_torch.trainer",
+        "shallowspeed_tpu_torch.cuda_ops",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -89,7 +90,7 @@ def test_kernel_sources_name_no_jax_import():
     """The CUDA sources of the port stand alone: plain C entry points, no
     Python and no JAX (each names the TPU kernel it replaces in a comment)."""
     sources = sorted((PKG / "csrc").glob("*.cu"))
-    assert [p.stem for p in sources] == ["linear_act_bwd", "linear_act_fwd"]
+    assert [p.stem for p in sources] == ["fused_train", "linear_act_bwd", "linear_act_fwd"]
     for p in sources:
         text = p.read_text()
         assert f'extern "C" int {p.stem}(' in text

@@ -104,8 +104,9 @@ def test_relu_keeps_nan():
 def test_reset_launches():
     cuda_ops.LAUNCHES["linear_act_fwd"] += 3
     cuda_ops.LAUNCHES["linear_act_bwd"] += 2
+    cuda_ops.LAUNCHES["fused_train"] += 1
     cuda_ops.reset_launches()
-    assert cuda_ops.LAUNCHES == {"linear_act_fwd": 0, "linear_act_bwd": 0}
+    assert cuda_ops.LAUNCHES == {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -181,12 +181,14 @@ def test_serving_session_refuses_training_and_unported_options(split):
         (dict(digests=True), "§A item 7"),
         (dict(faults="die@step=1"), "§A item 3"),
         (dict(checkpoint_dir="ck"), "§A item 3"),
-        (dict(fuse_mubatches=True, megakernel=True), "B9-B11"),
-        (dict(fuse_mubatches=True, epoch_kernel=True), "B9-B11"),
-        (dict(fuse_mubatches=True, run_kernel=True), "B9-B11"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             TorchSession(device="cpu", data_dir=split, **kw)
+    for kw in (dict(megakernel=True), dict(epoch_kernel=True), dict(run_kernel=True)):
+        with pytest.raises(ValueError, match="requires fuse_mubatches=True"):
+            TorchSession(device="cpu", data_dir=split, **kw)
+    with pytest.raises(ValueError, match="subsumes"):
+        TorchSession(device="cpu", fuse_mubatches=True, run_kernel=True, epoch_kernel=True)
     with pytest.raises(ValueError, match="kernel_backend"):
         TorchSession(device="cpu", kernel_backend="triton")
     with pytest.raises(ValueError, match="mubatches"):

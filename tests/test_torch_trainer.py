@@ -176,13 +176,20 @@ def test_loss_fn_and_accuracy_match_jax():
 
 
 def test_kernel_paths_refuse():
-    """The fused train kernels (B9-B11) are not ported: each refuses, and
-    nothing falls back to the loop."""
+    """The fused train kernels' paths (B9-B11) refuse outside their
+    constraint set — unfused microbatches, megakernel with epoch_kernel,
+    run_kernel with eval — and nothing falls back to the loop."""
     _, tspec, _, _, _, to = _both()
-    for call in (
-        lambda: ttrainer.make_train_step(tspec, to, fuse_mubatches=True, megakernel=True),
-        lambda: ttrainer.make_train_epoch(tspec, to, fuse_mubatches=True, epoch_kernel=True),
-        lambda: ttrainer.make_train_run(tspec, to, fuse_mubatches=True, with_eval=False, run_kernel=True),
+    for call, match in (
+        (lambda: ttrainer.make_train_step(tspec, to, megakernel=True), "fuse_mubatches"),
+        (lambda: ttrainer.make_train_epoch(tspec, to, epoch_kernel=True), "fuse_mubatches"),
+        (lambda: ttrainer.make_train_epoch(
+            tspec, to, fuse_mubatches=True, megakernel=True, epoch_kernel=True), "exclusive"),
+        (lambda: ttrainer.make_train_run(
+            tspec, to, fuse_mubatches=True, with_eval=True, run_kernel=True), "with_eval=False"),
+        (lambda: ttrainer.make_train_run(
+            tspec, to, fuse_mubatches=True, with_eval=False, run_kernel=True,
+            epoch_kernel=True), "subsumes"),
     ):
-        with pytest.raises(NotImplementedError, match="B9-B11"):
+        with pytest.raises(ValueError, match=match):
             call()
