@@ -76,7 +76,34 @@ in phases:
    checks and a bitwise second card run; the epoch kernel bitwise 16 step
    kernels, the run kernel bitwise 2 epoch kernels, ``train_steps`` in two
    chunks bitwise one epoch; momentum and Adam 4 steps through the epoch
-   kernel against the CPU; mlp-deep refused before any launch; samples/s.
+   kernel against the CPU; mlp-deep refused before any launch; samples/s;
+9a. the pipeline executor's flag entries (``linear_flag_fwd`` /
+   ``linear_flag_bwd``, TPU kernels B5-B8, which launch the two kernels
+   above with the relu chosen per call) against their plain versions at
+   every slot of every drive of 9b and 9c, derived from the executor's
+   stacked layout: each Linear at its slot's padded dims with its own flag
+   and zeros beyond its own widths — the flagship's 7 Linears at 8 rows
+   (DP=4, unpadded, 123 -> 10 without the relu), 32 rows (PP=4), 16 rows
+   (DP=2 x PP=4) and 4 rows (that session's eval and predict slots), and
+   mlp-deep's at 32 rows (PP=4) — and a ragged shape with the flag off and
+   on: phase 3's and 3b's checks and times. 9b and 9c record the (rows,
+   K, N, flag) of every flag launch they make, and the script fails if one
+   of them was not checked here;
+9b. training through the executor (``TrainingSession(dp, pp, schedule,
+   kernel_backend="pallas")``) on phase 6's split for DP=4 naive, PP=4
+   naive, PP=4 GPipe, DP=2 x PP=4 GPipe (2 epochs with ``accuracy()``
+   after each, phase 6's checks and a bitwise second run) and PP=4
+   PipeDream (1 epoch each): each flag entry launches exactly dp x 4
+   microbatches x 7 Linears a step (plus eval's forwards), no other kernel;
+   params within the cross-engine class of the port's CPU path and within
+   ``rtol=3e-4, atol=3e-6`` (the executor's cross-layout class) of the
+   card's sequential run; then at DP=2 x PP=4 ``train_steps`` in two
+   chunks bitwise one epoch and 4 Adam steps with a binding clip against
+   the CPU, and 2 mlp-deep steps at PP=4 (the 2048-wide slots) against the
+   CPU with the least move; samples/s per config;
+9c. ``predict`` on a DP=2 x PP=4 session (the inference program, flag
+   forward launches exact) against the card's sequential ``predict`` and
+   the CPU mesh path on the same weights, within 1e-6.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -89,12 +116,15 @@ kernel's three modes; ``ms``/``plain_ms``/``library_ms``/``bound_ms`` summed
 over one flagship slot's six relu layers at 8 rows for the forward, one
 flagship microbatch's at 32 rows for the backward, and for the fused kernel
 one launch of its mode: a step, a 16-batch epoch, a 2-epoch run, with no
-library call; ``max_abs_err`` over every shape or recipe of phase 3, 3b or
-8a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+library call; the flag entries' ``launches`` over phase 9b's five card
+drives and their times summed over one DP=2 x PP=4 microbatch's 7 slots at
+16 rows; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
+9a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before either; so does a machine without CUDA, or a directory without the
 package.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -134,6 +164,18 @@ KERNELS = {
         route="cuda",
         source="shallowspeed_tpu_torch/csrc/fused_train.cu",
         replaces="shallowspeed_tpu/pallas_ops.py:862",
+    ),
+    # the executor's flag entries launch the two kernels above with the relu
+    # chosen per call (TPU kernels B5/B6 and B7/B8)
+    "linear_flag_fwd": dict(
+        route="cuda",
+        source="shallowspeed_tpu_torch/csrc/linear_act_fwd.cu",
+        replaces="shallowspeed_tpu/pallas_ops.py:215",
+    ),
+    "linear_flag_bwd": dict(
+        route="cuda",
+        source="shallowspeed_tpu_torch/csrc/linear_act_bwd.cu",
+        replaces="shallowspeed_tpu/pallas_ops.py:322",
     ),
 }
 # the fused train kernel's modes: its step, epoch and run (TPU kernels B9-B11)
@@ -240,17 +282,18 @@ def phase_device(torch, resolve_device):
 
 
 def phase_build(build):
+    sources = sorted({Path(k["source"]).stem for k in KERNELS.values()})
     t0 = time.perf_counter()
-    logs = build.build_all(list(KERNELS))
+    logs = build.build_all(sources)
     secs = time.perf_counter() - t0
     regs = []
-    for name in KERNELS:
+    for name in sources:
         for line in (logs.get(name) or "").splitlines():
             if "registers" in line or "spill" in line:
                 regs.append(f"{name}: {line.strip()}")
     say(
-        f"phase 2 build: ok: {len(KERNELS)} kernel(s) in {secs:.2f} s "
-        f"({len(logs)} compiled, {len(KERNELS) - len(logs)} already built)"
+        f"phase 2 build: ok: {len(sources)} kernel(s) in {secs:.2f} s "
+        f"({len(logs)} compiled, {len(sources) - len(logs)} already built)"
     )
     for line in regs:
         say(f"  {line}")
@@ -987,7 +1030,7 @@ def phase_fused_training(torch, cuda_ops, TrainingSession, data_dir):
     run = whole_run()
     counts = dict(cuda_ops.LAUNCHES)
     launches["run"] = counts["fused_train"]
-    if counts != {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 1}:
+    if {k: v for k, v in counts.items() if v} != {"fused_train": 1}:
         fail(f"fused run: launches {counts}, want one fused_train")
     if not _bitwise_equal(run[0], sessions["epoch"]):
         fail("fused run: not bitwise two epoch-kernel epochs")
@@ -1036,6 +1079,365 @@ def phase_fused_training(torch, cuda_ops, TrainingSession, data_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pipeline executor and its flag kernels (TPU kernels B5-B8)
+# ---------------------------------------------------------------------------
+
+# the reference's four mesh configs and PipeDream-Flush, through the
+# executor with kernel_backend="pallas": (label, dp, pp, schedule, epochs)
+MESH_CONFIGS = (
+    ("DP=4 naive", 4, 1, "naive", 1),
+    ("PP=4 naive", 1, 4, "naive", 1),
+    ("PP=4 GPipe", 1, 4, "gpipe", 1),
+    ("DP=2xPP=4 GPipe", 2, 4, "gpipe", 2),
+    ("PP=4 PipeDream", 1, 4, "pipedream", 1),
+)
+MAIN_MESH = dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas")
+FLAGSHIP_LINEARS = len(FLAGSHIP) - 1  # each runs once per microbatch per replica
+SEQ_RTOL, SEQ_ATOL = 3e-4, 3e-6  # the executor's cross-layout class (tests/test_executor.py)
+
+
+def executor_slots(model, pp, rows):
+    """``(rows, K, N, flag, in_d, out_d)`` of every Linear the executor
+    launches for ``model`` over ``pp`` stages with ``rows`` rows per
+    replica's microbatch, in stage order: its slot's padded stacked dims,
+    its relu flag, and its own widths inside them (the rest of the slot's
+    input, W and b are zeros)."""
+    from shallowspeed_tpu_torch.model import make_model_spec, resolve_model
+    from shallowspeed_tpu_torch.parallel.executor import slot_shapes
+
+    sizes, act = resolve_model(model)
+    spec = make_model_spec(sizes, pp, 128, act=act)
+    dims = slot_shapes(spec)
+    return [
+        (rows, dims[l][1], dims[l][0], int(st.relu_flags[l]), st.local_sizes[l], st.local_sizes[l + 1])
+        for st in spec.stages
+        for l in range(st.n_linears)
+    ]
+
+
+def flag_drives():
+    """``(tag, executor_slots)`` of every drive of phases 9b and 9c: each
+    config's training microbatch (B=128, M=4, rows B/M/dp per replica), the
+    DP=2xPP=4 session's eval and predict slots (``slot_rows / dp`` rows per
+    replica) and mlp-deep at PP=4."""
+    from shallowspeed_tpu_torch.serving.slots import default_slot_rows
+
+    B, M = 128, 4
+    drives = [(label, executor_slots("mnist-mlp", pp, B // M // dp)) for label, dp, pp, *_ in MESH_CONFIGS]
+    dp, pp = MAIN_MESH["dp"], MAIN_MESH["pp"]
+    drives.append(("DP=2xPP=4 eval", executor_slots("mnist-mlp", pp, default_slot_rows(dp) // dp)))
+    drives.append(("mlp-deep PP=4", executor_slots("mlp-deep", 4, B // M)))
+    return drives
+
+
+def _flag_operands(torch, gen, rows, k, n, in_d, out_d):
+    """Seeded operands of one executor slot: the input, W and b are zero
+    beyond the Linear's own ``in_d`` x ``out_d`` (the zero-padded stacked
+    layout)."""
+    x = torch.randn(rows, k, generator=gen)
+    w = torch.randn(n, k, generator=gen) / math.sqrt(in_d)
+    b = 0.1 * torch.randn(1, n, generator=gen)
+    x[:, in_d:] = 0
+    w[:, in_d:] = 0
+    w[out_d:] = 0
+    b[:, out_d:] = 0
+    g = torch.randn(rows, n, generator=gen)
+    return [t.cuda() for t in (x, w, b, g)]
+
+
+def _check_flag_slot(torch, cuda_ops, gen, rows, k, n, flag, in_d, out_d, tag):
+    """Both flag entries at one executor shape against their plain versions
+    with phase 3's and 3b's checks; then their times. Returns (fwd, bwd)
+    dicts of err, ms, plain_ms, library_ms, bound_ms, bound_by."""
+    x, w, b, g = _flag_operands(torch, gen, rows, k, n, in_d, out_d)
+    label = f"flag {rows}x{k}->{n} ({in_d}->{out_d}) flag={flag} {tag}"
+    y, mask = cuda_ops.linear_flag_fwd(x, w, b, flag)
+    y2, mask2 = cuda_ops.linear_flag_fwd(x, w, b, flag)
+    torch.cuda.synchronize()
+    y_ref, mask_ref = cuda_ops.linear_flag_fwd_reference(x, w, b, flag)
+    z = torch.addmm(b, x, w.T)
+    f_err = (y - y_ref).abs().max().item()
+    if not torch.allclose(y, y_ref, rtol=1e-5, atol=1e-5 * math.ceil(k / 784)):
+        fail(f"{label}: y max |err| {f_err} > tolerance")
+    stable = z.abs() > 1e-5
+    if not torch.equal(mask[stable], mask_ref[stable]):
+        fail(f"{label}: mask differs where |z| > 1e-5")
+    if not (torch.equal(y, y2) and torch.equal(mask, mask2)):
+        fail(f"{label}: two forward launches differ")
+    got = cuda_ops.linear_flag_bwd(g, mask_ref, x, w, flag)
+    again = cuda_ops.linear_flag_bwd(g, mask_ref, x, w, flag)
+    torch.cuda.synchronize()
+    want = cuda_ops.linear_flag_bwd_reference(g, mask_ref, x, w, flag)
+    b_err = _check_bwd(torch, got, want, rows, n, label)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail(f"{label}: two backward launches differ")
+    fwd = dict(max_abs_err=f_err)
+    fwd["ms"] = device_ms(torch, lambda: cuda_ops.linear_flag_fwd(x, w, b, flag))
+    fwd["plain_ms"] = device_ms(torch, lambda: cuda_ops.linear_flag_fwd_reference(x, w, b, flag))
+    fwd["library_ms"] = device_ms(torch, lambda: torch.addmm(b, x, w.T))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(rows, k, n)
+    ge = g * mask_ref.to(g.dtype) if flag else g
+    bwd = dict(max_abs_err=b_err)
+    bwd["ms"] = device_ms(torch, lambda: cuda_ops.linear_flag_bwd(g, mask_ref, x, w, flag))
+    bwd["plain_ms"] = device_ms(
+        torch, lambda: cuda_ops.linear_flag_bwd_reference(g, mask_ref, x, w, flag)
+    )
+    bwd["library_ms"] = device_ms(torch, lambda: (torch.mm(ge, w), torch.mm(ge.T, x), ge.sum(0)))
+    bwd["bound_ms"], bwd["bound_by"] = bwd_bound_ms(rows, k, n, bool(flag))
+    for name, r in (("fwd", fwd), ("bwd", bwd)):
+        say(
+            f"  {rows:4d} {k:5d} {n:5d} {flag:4d} {in_d:5d} {out_d:5d}  {tag:16s} {name}  "
+            f"{r['max_abs_err']:11.3e} "
+            f"{r['ms']:11.5f} {r['plain_ms']:11.5f} {r['library_ms']:11.5f} "
+            f"{r['bound_ms']:11.5f}  {r['bound_by']}"
+        )
+    return fwd, bwd
+
+
+def phase_flag_kernels(torch, cuda_ops):
+    """9a: the flag entries against their plain versions at every slot of
+    every drive of 9b and 9c (``flag_drives``), and a ragged shape with the
+    flag off and on. Returns ({entry: one DP=2xPP=4 microbatch's 7-slot
+    sums}, {entry: largest error}, the set of (rows, K, N, flag) checked)."""
+    gen = torch.Generator().manual_seed(9)
+    shapes = {}  # (rows, K, N, flag, in_d, out_d) -> the first drive that runs it
+    for tag, slots in flag_drives():
+        for slot in slots:
+            shapes.setdefault(slot, tag)
+    for flag in (0, 1):
+        shapes[(37, 29, 23, flag, 29, 23)] = "ragged"
+    say(
+        "  rows     K     N flag  in_d out_d  tag              pass max_abs_err   kernel_ms    "
+        "plain_ms  library_ms    bound_ms  bound_by"
+    )
+    results = {}
+    errs = {"linear_flag_fwd": 0.0, "linear_flag_bwd": 0.0}
+    for slot, tag in shapes.items():
+        fwd, bwd = _check_flag_slot(torch, cuda_ops, gen, *slot, tag)
+        results[slot] = (fwd, bwd)
+        errs["linear_flag_fwd"] = max(errs["linear_flag_fwd"], fwd["max_abs_err"])
+        errs["linear_flag_bwd"] = max(errs["linear_flag_bwd"], bwd["max_abs_err"])
+    # one DP=2xPP=4 microbatch: stages 0-2 run slots 0 and 1 with the relu,
+    # stage 3 its one Linear (slot 0) without
+    main = executor_slots("mnist-mlp", MAIN_MESH["pp"], 128 // 4 // MAIN_MESH["dp"])
+    sums = {}
+    for i, entry in enumerate(("linear_flag_fwd", "linear_flag_bwd")):
+        parts = [results[slot][i] for slot in main]
+        s = {key: sum(p[key] for p in parts) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        s["bound_by"] = "bytes" if {p["bound_by"] for p in parts} == {"bytes"} else "operations"
+        sums[entry] = s
+    say(
+        f"phase 9a flag kernels: ok: {len(shapes)} executor shapes x forward and "
+        f"backward within phase 3/3b's tolerances, launches bitwise repeatable; max "
+        f"|err| fwd {errs['linear_flag_fwd']:.3e}, bwd {errs['linear_flag_bwd']:.3e}; "
+        f"one DP=2xPP=4 microbatch's {len(main)} slots: fwd "
+        f"{sums['linear_flag_fwd']['ms']:.5f} ms (bound "
+        f"{sums['linear_flag_fwd']['bound_ms']:.5f}), bwd {sums['linear_flag_bwd']['ms']:.5f} "
+        f"ms (bound {sums['linear_flag_bwd']['bound_ms']:.5f})"
+    )
+    return sums, errs, {slot[:4] for slot in shapes}
+
+
+@contextlib.contextmanager
+def flag_shapes_seen(cuda_ops, seen):
+    """Within the block, add the (rows, K, N, flag) of every flag-entry call
+    on CUDA tensors to ``seen``: the shapes the drives really launched."""
+    fwd, bwd = cuda_ops.linear_flag_fwd, cuda_ops.linear_flag_bwd
+
+    def seen_fwd(x, w, b2, flag):
+        if x.is_cuda:
+            seen.add((x.shape[0], x.shape[1], w.shape[0], int(flag)))
+        return fwd(x, w, b2, flag)
+
+    def seen_bwd(g, mask, x, w, flag):
+        if x.is_cuda:
+            seen.add((x.shape[0], x.shape[1], w.shape[0], int(flag)))
+        return bwd(g, mask, x, w, flag)
+
+    cuda_ops.linear_flag_fwd, cuda_ops.linear_flag_bwd = seen_fwd, seen_bwd
+    try:
+        yield
+    finally:
+        cuda_ops.linear_flag_fwd, cuda_ops.linear_flag_bwd = fwd, bwd
+
+
+def _eval_flag_launches(session, n_rows):
+    """Forward flag launches of one ``predict``/``accuracy()`` over n_rows
+    on a mesh session: per chunk of at most the top rung's slots, dp
+    replicas x the rung's microbatches x the model's active slots."""
+    from shallowspeed_tpu_torch.serving import slots as serving_slots
+
+    active = len(session.spec.sizes) - 1  # one active slot per Linear
+    cap = session.slot_ladder[-1] * session.slot_rows
+    total = 0
+    for i in range(0, n_rows, cap):
+        m = serving_slots.slots_needed(min(cap, n_rows - i), session.slot_rows)
+        total += session.dp * serving_slots.rung_for(m, session.slot_ladder) * active
+    return total
+
+
+def _params_close_to(a, b, rtol, atol, label):
+    import numpy as np
+
+    worst = 0.0
+    for sa, sb in zip(a, b):
+        for la, lb in zip(sa, sb):
+            for key in ("W", "b"):
+                worst = max(worst, float(np.abs(la[key] - lb[key]).max()))
+                if not np.allclose(la[key], lb[key], rtol=rtol, atol=atol):
+                    fail(f"{label}: {key} differs by up to {worst}")
+    return worst
+
+
+def _sequential_card_params(TrainingSession, data_dir, epochs):
+    """The card's sequential session (phase 6's recipe), params after each
+    epoch."""
+    seq = TrainingSession(device="cuda", data_dir=data_dir)
+    out = []
+    for _ in range(max(epochs)):
+        seq.train_epoch()
+        out.append(seq.params())
+    return {e: out[e - 1] for e in epochs}
+
+
+def phase_pipeline_training(torch, cuda_ops, TrainingSession, data_dir):
+    """9b: the five executor configs through the flag kernels on phase 6's
+    split. Returns the flag entries' launches over the drive and samples/s
+    per config."""
+    B, M = 128, 4
+    seq = _sequential_card_params(TrainingSession, data_dir, (1, 2))
+    drive = {"linear_flag_fwd": 0, "linear_flag_bwd": 0}
+    lines, rates = [], {}
+    for label, dp, pp, schedule, epochs in MESH_CONFIGS:
+        kw = dict(data_dir=data_dir, dp=dp, pp=pp, schedule=schedule, kernel_backend="pallas")
+        with_eval = epochs == 2
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        if with_eval:
+            card = _train_2_epochs(TrainingSession, "cuda", **kw)
+        else:
+            gpu = TrainingSession(device="cuda", **kw)
+            init = gpu.params()
+            t0 = time.perf_counter()
+            loss = gpu.train_epoch()
+            card = (gpu, init, [loss], [], [time.perf_counter() - t0])
+        counts = dict(cuda_ops.LAUNCHES)
+        gpu = card[0]
+        steps = TRAIN_BATCHES * epochs
+        want_bwd = dp * M * FLAGSHIP_LINEARS * steps
+        want_fwd = want_bwd + (epochs * _eval_flag_launches(gpu, VAL_ROWS) if with_eval else 0)
+        if counts["linear_flag_bwd"] != want_bwd or counts["linear_flag_fwd"] != want_fwd:
+            fail(
+                f"{label}: flag launches fwd {counts['linear_flag_fwd']} / bwd "
+                f"{counts['linear_flag_bwd']}, want {want_fwd} / {want_bwd} "
+                f"(dp {dp} x M {M} x {FLAGSHIP_LINEARS} Linears x {steps} steps"
+                + (", plus eval's forwards)" if with_eval else ")")
+            )
+        others = {k: v for k, v in counts.items() if not k.startswith("linear_flag")}
+        if any(others.values()):
+            fail(f"{label}: the mesh path launched {others}")
+        drive["linear_flag_fwd"] += counts["linear_flag_fwd"]
+        drive["linear_flag_bwd"] += counts["linear_flag_bwd"]
+        if with_eval:
+            cpu = _train_2_epochs(TrainingSession, "cpu", **kw)
+            again = _train_2_epochs(TrainingSession, "cuda", with_eval=False, **kw)
+            worst, moved = _check_card_run(label, card, cpu, again)
+            extra = (
+                f", losses {card[2][0]:.7f} -> {card[2][1]:.7f}, accuracy {card[3]}, every "
+                f"leaf moved >= {min(moved):.2f}, second card run bitwise"
+            )
+        else:
+            cpu_s = TrainingSession(device="cpu", **kw)
+            cpu_s.train_epoch()
+            worst = _params_close(gpu, cpu_s, label)
+            extra = f", loss {card[2][0]:.7f}"
+        seq_diff = _params_close_to(gpu.params(), seq[epochs], SEQ_RTOL, SEQ_ATOL, f"{label} vs sequential")
+        rates[label] = TRAIN_BATCHES * B / card[4][-1]
+        lines.append(
+            f"  {label}: {epochs} epoch(s), {counts['linear_flag_fwd']} fwd / "
+            f"{counts['linear_flag_bwd']} bwd flag launches (= {dp} x {M} x "
+            f"{FLAGSHIP_LINEARS} x {steps} steps{' + eval' if with_eval else ''}); card vs "
+            f"CPU {worst:.3e}, vs the card's sequential run {seq_diff:.3e}{extra}; "
+            f"{rates[label]:.1f} samples/s (epoch {card[4][-1] * 1e3:.2f} ms)"
+        )
+
+    # DP=2xPP=4 GPipe: train_steps in two chunks is one epoch, bitwise
+    whole = TrainingSession(device="cuda", data_dir=data_dir, **MAIN_MESH)
+    whole.train_epoch()
+    chunked = TrainingSession(device="cuda", data_dir=data_dir, **MAIN_MESH)
+    chunked.train_steps(5)
+    steps, _ = chunked.train_steps(TRAIN_BATCHES)
+    if steps != TRAIN_BATCHES - 5 or not _bitwise_equal(chunked, whole):
+        fail("DP=2xPP=4: train_steps in two chunks is not bitwise one epoch")
+    # Adam with a binding clip (the flagship's gradient norm is ~0.048). At
+    # lr 2e-4 this recipe is ill-conditioned on this split: on the CPU alone,
+    # inputs perturbed by 1e-7 relative move the params 3.7e-4 after 4 steps
+    # (the clip lifts Adam's eps to ~5e-8 against gradients of which a third
+    # are below 1e-7). At lr 5e-5 the same perturbation moves them < 1e-7
+    # (tests/test_torch_pipeline_session.py::test_adam_with_binding_clip_conditioning).
+    adam = _side_run(
+        TrainingSession, "DP=2xPP=4 adam+clip", 4, optimizer="adam", lr=5e-5,
+        clip_norm=0.01, data_dir=data_dir, **MAIN_MESH,
+    )
+    # mlp-deep at PP=4: the B6/B8 shapes (2048 x 2048 slots) at full width
+    deep = dict(model="mlp-deep", dp=1, pp=4, schedule="gpipe", kernel_backend="pallas")
+    gpu = TrainingSession(device="cuda", data_dir=data_dir, **deep)
+    init = gpu.params()
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    gpu.train_steps(2)
+    deep_wall = time.perf_counter() - t0
+    n_lin = len(gpu.spec.sizes) - 1
+    if not cuda_ops.LAUNCHES["linear_flag_fwd"] == cuda_ops.LAUNCHES["linear_flag_bwd"] == 4 * n_lin * 2:
+        fail(f"mlp-deep PP=4: {cuda_ops.LAUNCHES} launches, want 4 x {n_lin} x 2 per entry")
+    cpu = TrainingSession(device="cpu", data_dir=data_dir, **deep)
+    cpu.train_steps(2)
+    deep_diff = _params_close(gpu, cpu, "mlp-deep PP=4")
+    most = max(_moved(init, gpu, cpu))
+    if most < MIN_MOVE:
+        fail(f"mlp-deep PP=4: moved at most {most:.2f} x its allowed difference")
+    for line in lines:
+        say(line)
+    say(
+        f"phase 9b pipeline training: ok: {len(MESH_CONFIGS)} configs through the flag "
+        f"kernels, launches exact, card vs CPU within {TRAIN_RTOL}/{TRAIN_ATOL} and vs "
+        f"the card's sequential run within {SEQ_RTOL}/{SEQ_ATOL}; DP=2xPP=4 chunked "
+        f"train_steps bitwise one epoch; 4 steps {adam}; mlp-deep PP=4 2 steps "
+        f"({4 * n_lin * 2} launches per entry) card vs CPU {deep_diff:.3e}, largest move "
+        f"{most:.2f}, wall {deep_wall * 1e3:.1f} ms"
+    )
+    return drive, rates
+
+
+def phase_pipeline_predict(torch, cuda_ops, TrainingSession):
+    """9c: predict on a DP=2xPP=4 session (the inference program through the
+    flag forward) against the card's sequential predict and the CPU mesh
+    path, on the same (initial) weights."""
+    import numpy as np
+
+    mesh = TrainingSession(device="cuda", **MAIN_MESH)
+    x = np.random.RandomState(5).rand(3 * mesh.slot_rows * 16 + 5, FLAGSHIP[0]).astype(np.float32)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    got = mesh.predict(x)
+    launches = cuda_ops.LAUNCHES["linear_flag_fwd"]
+    want = _eval_flag_launches(mesh, x.shape[0])
+    if launches != want or cuda_ops.LAUNCHES["linear_act_fwd"]:
+        fail(f"predict: {dict(cuda_ops.LAUNCHES)} launches, want {want} linear_flag_fwd")
+    seq = TrainingSession(device="cuda").predict(x)
+    cpu = TrainingSession(device="cpu", **MAIN_MESH).predict(x)
+    d_seq = float(np.abs(got - seq).max())
+    d_cpu = float(np.abs(got - cpu).max())
+    if not np.isfinite(got).all() or max(d_seq, d_cpu) > 1e-6:
+        fail(f"predict: card mesh vs sequential {d_seq}, vs CPU mesh {d_cpu} (> 1e-6)")
+    say(
+        f"phase 9c pipeline predict: ok: {x.shape[0]} rows, {launches} flag forward "
+        f"launches; card mesh vs card sequential {d_seq:.3e}, vs CPU mesh {d_cpu:.3e}"
+    )
+
+
 def main():
     import torch
 
@@ -1061,6 +1463,14 @@ def main():
         phase_wide_training(torch, cuda_ops, TrainingSession, tmp)
         fused = phase_fused_kernels(torch, cuda_ops, tmp)
         fused_launches = phase_fused_training(torch, cuda_ops, TrainingSession, tmp)
+        flag_sums, flag_errs, checked = phase_flag_kernels(torch, cuda_ops)
+        seen = set()
+        with flag_shapes_seen(cuda_ops, seen):
+            flag_launches, _ = phase_pipeline_training(torch, cuda_ops, TrainingSession, tmp)
+            phase_pipeline_predict(torch, cuda_ops, TrainingSession)
+        if not seen or seen - checked:
+            fail(f"phases 9b/9c launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
+        say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b and 9c launched was checked in 9a")
     entries = [
         ("linear_act_fwd", "linear_act_fwd", serving["linear_act_fwd"], fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd", training["linear_act_bwd"], bwd_err, mub),
@@ -1069,6 +1479,8 @@ def main():
         # no single PyTorch call computes a training step
         t = dict(fused[mode], library_ms=None)
         entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
+    for entry in ("linear_flag_fwd", "linear_flag_bwd"):
+        entries.append((entry, entry, flag_launches[entry], flag_errs[entry], flag_sums[entry]))
     kernels = []
     for name, source_name, launches, err, t in entries:
         kernels.append(

@@ -10,7 +10,10 @@ directory. For each path it builds ``TrainingSession(device="cuda",
 data_dir=...)`` for the flagship (B=128, M=4, SGD at lr 0.006): ``scanned``
 the 4-microbatch loop, ``fused`` ``fuse_mubatches=True`` (both through the
 B1/B3 kernels and torch ops), ``megakernel`` the fused train kernel once per
-batch, ``epoch_kernel`` once per epoch. It trains one epoch to warm up,
+batch, ``epoch_kernel`` once per epoch; then the five pipeline executor
+configs with ``kernel_backend="pallas"`` (every slot through the flag
+kernels, B5-B8): ``dp4-naive``, ``pp4-naive``, ``pp4-gpipe``,
+``dp2pp4-gpipe`` and ``pp4-pipedream``. It trains one epoch to warm up,
 times one unprofiled epoch (samples/s, host clock around ``train_epoch``,
 which returns after the device), then traces one more epoch with CPU and
 CUDA activity and reports over that epoch's window: the wall time, the
@@ -51,6 +54,11 @@ PATHS = {
     "fused": dict(fuse_mubatches=True),
     "megakernel": dict(fuse_mubatches=True, megakernel=True),
     "epoch_kernel": dict(fuse_mubatches=True, epoch_kernel=True),
+    "dp4-naive": dict(dp=4, pp=1, schedule="naive", kernel_backend="pallas"),
+    "pp4-naive": dict(dp=1, pp=4, schedule="naive", kernel_backend="pallas"),
+    "pp4-gpipe": dict(dp=1, pp=4, schedule="gpipe", kernel_backend="pallas"),
+    "dp2pp4-gpipe": dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"),
+    "pp4-pipedream": dict(dp=1, pp=4, schedule="pipedream", kernel_backend="pallas"),
 }
 
 

@@ -21,11 +21,25 @@ The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Three kernels:
   TPU's fused train kernels (``pallas_ops.fused_train_call``) in their step,
   epoch and run modes. ``fused_train_reference`` is its plain version.
 
+and the pipeline executor's two flag entries, which launch the first two
+kernels with the relu chosen per call:
+
+- ``linear_flag_fwd(x, W, b2, flag) -> (y, mask)``: ``linear_act_fwd`` with
+  ``apply_relu = flag``, the TPU's ``linear_flag_fwd`` (single-block and
+  grid-tiled, B5/B6). On the TPU one compiled kernel takes the traced flag
+  as an SMEM operand; here the flag is a host int passed to the kernel as a
+  run-time argument, so one compiled kernel serves every (stage, slot).
+- ``linear_flag_bwd(g, mask, x, W, flag) -> (dx, dW, db2)``:
+  ``linear_act_bwd`` with ``apply_relu = flag``, the TPU's
+  ``linear_flag_bwd`` (B7/B8); ``db2`` is ``(1, out)`` as the TPU returns it.
+
 Dispatch is by the device of the tensors and nothing else: CPU tensors
 run the plain version (``*_reference``), CUDA tensors launch the kernel or
 raise — there is no fallback from one to the other. Every launch adds one
-to ``LAUNCHES[<kernel>]``, so a caller can show that its path went through
-the kernel.
+to ``LAUNCHES[<entry>]`` (the flag entries count under their own names,
+though they launch the ``linear_act_*`` kernels: ``KERNEL_OF`` maps each
+entry to its source), so a caller can show that its path went through the
+kernel.
 """
 
 import ctypes
@@ -35,7 +49,16 @@ import torch
 
 from shallowspeed_tpu_torch.optimizer import _decay_factor, clip_tree
 
-LAUNCHES = {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 0}
+# each wrapper's launch-count entry -> the kernel (csrc/<name>.cu and its C
+# entry point <name>) it launches
+KERNEL_OF = {
+    "linear_act_fwd": "linear_act_fwd",
+    "linear_act_bwd": "linear_act_bwd",
+    "fused_train": "fused_train",
+    "linear_flag_fwd": "linear_act_fwd",
+    "linear_flag_bwd": "linear_act_bwd",
+}
+LAUNCHES = dict.fromkeys(KERNEL_OF, 0)
 
 # each kernel's C entry point: (pointer arguments, int arguments), then the
 # stream; tests/test_torch_kernels.py holds this to the sources' signatures
@@ -64,15 +87,17 @@ def _check_cuda_operands(kernel, device, **tensors):
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _launch(kernel, *args):
-    """Call a kernel's C entry point on the current stream; count it."""
+def _launch(entry, *args):
+    """Call the C entry point of ``KERNEL_OF[entry]`` on the current stream;
+    count the launch under ``entry``."""
+    kernel = KERNEL_OF[entry]
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         err = _fn(kernel)(*ptrs, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")
-    LAUNCHES[kernel] += 1
+        raise RuntimeError(f"{entry}: launch of {kernel} failed with CUDA error {err}")
+    LAUNCHES[entry] += 1
 
 
 @functools.cache
@@ -101,35 +126,56 @@ def linear_act_fwd_reference(x, w, b, apply_relu=True):
     return y, z > 0
 
 
-def linear_act_fwd(x, w, b, apply_relu=True):
+def linear_act_fwd(x, w, b, apply_relu=True, _entry="linear_act_fwd"):
     """``(y, mask)`` of ``z = x @ w.T + b`` — the kernel on CUDA tensors,
     the plain version on CPU tensors. x ``(M, K)``, w ``(N, K)``, b
     ``(N,)`` or ``(1, N)``; all float32 and contiguous on one device."""
     if not (x.is_cuda or w.is_cuda or b.is_cuda):
         return linear_act_fwd_reference(x, w, b, apply_relu)
-    _check_cuda_operands("linear_act_fwd", x.device, x=x, w=w, b=b)
+    _check_cuda_operands(_entry, x.device, x=x, w=w, b=b)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(
-            f"linear_act_fwd: x and w must be 2-D, got {tuple(x.shape)} and "
+            f"{_entry}: x and w must be 2-D, got {tuple(x.shape)} and "
             f"{tuple(w.shape)}"
         )
     M, K = x.shape
     N = w.shape[0]
     if w.shape[1] != K:
-        raise ValueError(f"linear_act_fwd: w is {tuple(w.shape)}, x has K={K}")
+        raise ValueError(f"{_entry}: w is {tuple(w.shape)}, x has K={K}")
     if b.numel() != N:
-        raise ValueError(f"linear_act_fwd: b has {b.numel()} elements, w has N={N}")
+        raise ValueError(f"{_entry}: b has {b.numel()} elements, w has N={N}")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     mask = torch.empty((M, N), dtype=torch.bool, device=x.device)
     if M == 0 or N == 0:
         return y, mask
-    _launch("linear_act_fwd", x, w, b, y, mask, M, N, K, int(bool(apply_relu)))
+    _launch(_entry, x, w, b, y, mask, M, N, K, int(bool(apply_relu)))
     return y, mask
 
 
 def linear_relu_fwd(x, w, b):
     """The TPU kernel's name and contract: ``(relu(z), z > 0)``."""
     return linear_act_fwd(x, w, b, apply_relu=True)
+
+
+def linear_flag_fwd_reference(x, w, b2, flag):
+    """Plain version of ``linear_flag_fwd`` (the CPU path and its oracle):
+    ``linear_act_fwd_reference`` with ``apply_relu = flag``."""
+    return linear_act_fwd_reference(x, w, b2, bool(flag))
+
+
+def linear_flag_fwd(x, w, b2, flag):
+    """The TPU kernel's name and contract (B5/B6, ``pallas_ops.py:215``):
+    ``(y, mask)`` with ``y = relu(z) if flag else z``, ``z = x @ w.T + b2``,
+    ``mask = z > 0`` (torch.bool). ``b2`` is ``(1, out)``; ``flag`` a HOST
+    int or bool (the executor reads it from its host copy of the stacked
+    flags, so no launch waits on the device). The ``linear_act_fwd`` kernel
+    with ``apply_relu = flag`` on CUDA tensors, counted under
+    ``LAUNCHES["linear_flag_fwd"]``; the plain version on CPU tensors."""
+    if isinstance(flag, torch.Tensor):
+        raise TypeError("linear_flag_fwd: flag must be a host int or bool, not a tensor")
+    if not (x.is_cuda or w.is_cuda or b2.is_cuda):
+        return linear_flag_fwd_reference(x, w, b2, flag)
+    return linear_act_fwd(x, w, b2, bool(flag), _entry="linear_flag_fwd")
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +192,7 @@ def linear_act_bwd_reference(g, mask, x, w, apply_relu=True):
     return torch.matmul(ge, w), torch.matmul(ge.T, x), ge.sum(dim=0)
 
 
-def linear_act_bwd(g, mask, x, w, apply_relu=True):
+def linear_act_bwd(g, mask, x, w, apply_relu=True, _entry="linear_act_bwd"):
     """``(dx, dw, db)`` of the Linear (+ relu) that produced ``mask`` — the
     kernel on CUDA tensors, the plain version on CPU tensors. g ``(M, N)``
     float32, mask ``(M, N)`` bool (read only when ``apply_relu``; may then
@@ -154,28 +200,28 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True):
     dx ``(M, K)``, dw ``(N, K)``, db ``(N,)``."""
     apply_relu = bool(apply_relu)
     if apply_relu and mask is None:
-        raise ValueError("linear_act_bwd: apply_relu needs the forward's mask")
+        raise ValueError(f"{_entry}: apply_relu needs the forward's mask")
     operands = dict(g=g, x=x, w=w)
     if apply_relu:
         operands["mask"] = mask
     if not any(t.is_cuda for t in operands.values()):
         return linear_act_bwd_reference(g, mask, x, w, apply_relu)
-    _check_cuda_operands("linear_act_bwd", g.device, **operands)
+    _check_cuda_operands(_entry, g.device, **operands)
     if g.dim() != 2 or x.dim() != 2 or w.dim() != 2:
         raise ValueError(
-            f"linear_act_bwd: g, x and w must be 2-D, got {tuple(g.shape)}, "
+            f"{_entry}: g, x and w must be 2-D, got {tuple(g.shape)}, "
             f"{tuple(x.shape)} and {tuple(w.shape)}"
         )
     M, N = g.shape
     K = x.shape[1]
     if x.shape[0] != M or tuple(w.shape) != (N, K):
         raise ValueError(
-            f"linear_act_bwd: g {tuple(g.shape)}, x {tuple(x.shape)} and w "
+            f"{_entry}: g {tuple(g.shape)}, x {tuple(x.shape)} and w "
             f"{tuple(w.shape)} do not fit (M, N), (M, K), (N, K)"
         )
     if apply_relu and tuple(mask.shape) != (M, N):
         raise ValueError(
-            f"linear_act_bwd: mask is {tuple(mask.shape)}, g is {(M, N)}"
+            f"{_entry}: mask is {tuple(mask.shape)}, g is {(M, N)}"
         )
     dev = g.device
     dx = torch.empty((M, K), dtype=torch.float32, device=dev)
@@ -186,7 +232,7 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True):
     # without the relu the kernel never reads the mask; g stands in as a
     # valid device address
     _launch(
-        "linear_act_bwd",
+        _entry,
         g, mask if apply_relu else g, x, w, dx, dw, db, M, N, K, int(apply_relu),
     )
     return dx, dw, db
@@ -195,6 +241,29 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True):
 def linear_relu_bwd(g, mask, x, w):
     """The TPU kernel's name and contract: ``(dx, dw, db)`` of ``g * mask``."""
     return linear_act_bwd(g, mask, x, w, apply_relu=True)
+
+
+def linear_flag_bwd_reference(g, mask, x, w, flag):
+    """Plain version of ``linear_flag_bwd`` (the CPU path and its oracle):
+    ``linear_act_bwd_reference`` with ``apply_relu = flag``, db as ``(1, out)``."""
+    dx, dw, db = linear_act_bwd_reference(g, mask, x, w, bool(flag))
+    return dx, dw, db.reshape(1, -1)
+
+
+def linear_flag_bwd(g, mask, x, w, flag):
+    """The TPU kernel's name and contract (B7/B8, ``pallas_ops.py:322``):
+    ``(dx, dw, db2)`` of the ``linear_flag_fwd`` that produced ``mask``, with
+    ``ge = g * mask`` when ``flag`` (a multiply: NaN at a masked position
+    stays NaN) and ``ge = g`` otherwise; ``db2`` is ``(1, out)``. ``flag`` is
+    a HOST int or bool. The ``linear_act_bwd`` kernel with ``apply_relu =
+    flag`` on CUDA tensors, counted under ``LAUNCHES["linear_flag_bwd"]``;
+    the plain version on CPU tensors."""
+    if isinstance(flag, torch.Tensor):
+        raise TypeError("linear_flag_bwd: flag must be a host int or bool, not a tensor")
+    if not any(t.is_cuda for t in (g, mask, x, w) if t is not None):
+        return linear_flag_bwd_reference(g, mask, x, w, flag)
+    dx, dw, db = linear_act_bwd(g, mask, x, w, bool(flag), _entry="linear_flag_bwd")
+    return dx, dw, db.reshape(1, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,14 @@ class StageSpec:
         return len(self.local_sizes) - 1
 
     @property
+    def in_dim(self):
+        return self.local_sizes[0]
+
+    @property
+    def out_dim(self):
+        return self.local_sizes[-1]
+
+    @property
     def res_flags(self):
         """residual_flags normalized to one bool per Linear."""
         if len(self.residual_flags) == self.n_linears:

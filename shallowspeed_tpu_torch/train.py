@@ -1,8 +1,10 @@
-"""Training CLI of the port: the sequential subset of the root ``train.py``.
+"""Training CLI of the port: a subset of the root ``train.py``.
 
     python -m shallowspeed_tpu_torch.train [--epochs 20] [--data-dir DIR]
     python -m shallowspeed_tpu_torch.train --device cpu --data-dir DIR
     python -m shallowspeed_tpu_torch.train --fuse-mubatches --epoch-kernel
+    python -m shallowspeed_tpu_torch.train --dp 2 --pp 4 --schedule gpipe \
+        --kernel-backend pallas
 
 The reference's recipe by default: the flagship MLP, 20 epochs, global
 batch 128 in 4 microbatches, SGD at lr 0.006, with the validation accuracy
@@ -11,7 +13,10 @@ it (``Epoch: N, Time Spent: T s, Accuracy: X%``). Runs on the GPU unless
 ``--device cpu`` is given; without a GPU it raises. ``--megakernel``,
 ``--epoch-kernel`` and ``--run-kernel`` (with ``--fuse-mubatches``) train
 through the fused train kernel: one launch per batch, per epoch, or per
-``--fused-run --no-eval`` run.
+``--fused-run --no-eval`` run. ``--dp``/``--pp``/``--schedule`` train a
+mesh layout through the lockstep pipeline executor (every rank on the one
+device), and ``--kernel-backend pallas`` puts its slots through the flag
+kernels.
 """
 
 import argparse
@@ -21,6 +26,19 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas")
+    ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    ap.add_argument(
+        "--schedule", choices=["naive", "gpipe", "pipedream"], default="naive",
+        help="pipeline schedule (ignored unless --pp > 1)",
+    )
+    ap.add_argument(
+        "--kernel-backend", choices=["xla", "pallas"], default="xla",
+        help="mesh layouts (--dp/--pp > 1): per-slot compute unit inside "
+        "every pipeline tick — 'pallas' runs each slot through the "
+        "hand-written flag kernels (the same math), 'xla' through plain "
+        "torch ops. Sequential path: use --megakernel",
+    )
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--global-batch-size", type=int, default=128)
     ap.add_argument("--mubatches", type=int, default=4)
@@ -91,6 +109,10 @@ def main(argv=None):
     from shallowspeed_tpu_torch.data import default_data_dir
 
     run = TrainingSession(
+        dp=args.dp,
+        pp=args.pp,
+        schedule=args.schedule,
+        kernel_backend=args.kernel_backend,
         model=args.model,
         global_batch_size=args.global_batch_size,
         mubatches=args.mubatches,
@@ -116,9 +138,15 @@ def main(argv=None):
     note = f" resumed at epoch {run.epoch}" if args.resume else ""
     if run.step_in_epoch:
         note += f", step {run.step_in_epoch}"
+    if run.sequential:
+        layout = "sequential"
+    elif args.pp > 1:
+        layout = f"{args.schedule} pipeline"
+    else:
+        layout = "data-parallel"
     print(
-        f"device={run.device} layout: DP=1 x PP=1 x TP=1 (sequential) "
-        f"batches/epoch={run.batches_per_epoch}" + note
+        f"device={run.device} layout: DP={args.dp} x PP={args.pp} x TP=1 "
+        f"({layout}) batches/epoch={run.batches_per_epoch}" + note
     )
 
     t0 = time.time()

@@ -55,6 +55,12 @@ def test_every_module_imports_without_jax():
         "shallowspeed_tpu_torch.train",
         "shallowspeed_tpu_torch.trainer",
         "shallowspeed_tpu_torch.cuda_ops",
+        "shallowspeed_tpu_torch.schedules",
+        "shallowspeed_tpu_torch.parallel.lowering",
+        "shallowspeed_tpu_torch.parallel.mesh",
+        "shallowspeed_tpu_torch.parallel.executor",
+        "shallowspeed_tpu_torch.analysis.progcheck",
+        "shallowspeed_tpu_torch.analysis.stash",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -105,8 +105,13 @@ def test_reset_launches():
     cuda_ops.LAUNCHES["linear_act_fwd"] += 3
     cuda_ops.LAUNCHES["linear_act_bwd"] += 2
     cuda_ops.LAUNCHES["fused_train"] += 1
+    cuda_ops.LAUNCHES["linear_flag_fwd"] += 4
+    cuda_ops.LAUNCHES["linear_flag_bwd"] += 5
     cuda_ops.reset_launches()
-    assert cuda_ops.LAUNCHES == {"linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 0}
+    assert cuda_ops.LAUNCHES == {
+        "linear_act_fwd": 0, "linear_act_bwd": 0, "fused_train": 0,
+        "linear_flag_fwd": 0, "linear_flag_bwd": 0,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -224,17 +229,20 @@ def test_build_is_keyed_by_source_and_flags():
     assert p.name.startswith("linear_act_fwd-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
-    for name in cuda_ops.LAUNCHES:
+    assert set(cuda_ops.LAUNCHES) == set(cuda_ops.KERNEL_OF)
+    for name in cuda_ops.KERNEL_OF.values():
         assert (_build.CSRC / f"{name}.cu").is_file()
 
 
-@pytest.mark.parametrize("name", sorted(cuda_ops.SIGNATURES))
-def test_ctypes_signature_matches_the_source(name):
-    """The argtypes the wrapper declares match the C entry point's
-    parameters (pointers, then ints, then the stream): a mismatch shows only
-    on the card otherwise."""
+@pytest.mark.parametrize("entry", sorted(cuda_ops.KERNEL_OF))
+def test_ctypes_signature_matches_the_source(entry):
+    """The argtypes each wrapper entry declares match the C entry point of
+    the kernel it launches (pointers, then ints, then the stream): a
+    mismatch shows only on the card otherwise. The flag entries launch the
+    ``linear_act_*`` kernels."""
     import re
 
+    name = cuda_ops.KERNEL_OF[entry]
     src = (_build.CSRC / f"{name}.cu").read_text()
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
     kinds = ["ptr" if "*" in p else "int" for p in params]

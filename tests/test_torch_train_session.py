@@ -173,9 +173,9 @@ def test_serving_session_refuses_training_and_unported_options(split):
             call()
     assert ts.batches_per_epoch == 0 and ts.global_step == 0
     for kw, match in (
-        (dict(dp=2), "§A item 6"),
-        (dict(pp=2), "§A item 6"),
-        (dict(kernel_backend="pallas"), "B5-B8"),
+        (dict(tp=2), "§A item 6b"),
+        (dict(zero=1), "§A item 6b"),
+        (dict(virtual_stages=2), "§A item 6b"),
         (dict(metrics=object()), "§A item 7"),
         (dict(health="warn"), "§A item 7"),
         (dict(digests=True), "§A item 7"),
