@@ -18,7 +18,12 @@ in phases:
    ``rtol=1e-5, atol=1e-5*ceil(K/784)``, ``mask`` equal wherever
    ``|z| > 1e-5``, two launches bitwise equal; then the kernel's time,
    the plain version's, ``torch.addmm``'s (a yardstick the port never
-   calls), and the bound max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s fp32);
+   calls), and the bound max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s fp32),
+   beside the launch plan (``cuda_ops.fwd_plan``: row x column tile, K in
+   chunks over a cluster, grid); then the row-independence rule: the same
+   seeded rows at M = 1, 4, 8, 16, 32, 128 and 1000 (784 -> 128 and 2048
+   -> 2048, relu on and off), every row's ``y`` and ``mask`` bitwise the
+   same row of the 1000-row launch, failing on the first M that differs;
 3b. the backward kernel vs its plain version at the training path's
    shapes — every flagship relu layer and mlp-deep's layers at 32 rows (a
    microbatch) and 128 (fused microbatches), and a ragged shape with the
@@ -28,7 +33,9 @@ in phases:
    plain version, two launches bitwise equal; then the times as in phase 3
    (the yardstick: ``torch.mm(ge, W)`` + ``torch.mm(ge.T, x)`` +
    ``ge.sum(0)``) and the bound max(bytes / 3.35 TB/s, 4*M*N*K / 67
-   TFLOP/s); then the forward kernel, with phase 3's checks and times, at
+   TFLOP/s), beside the launch plan (``cuda_ops.bwd_plan``: dx's row x
+   column tile, N in chunks over a cluster, dx blocks + dW tiles); then
+   the forward kernel, with phase 3's checks, times and plans, at
    the shapes training gives it that phase 3 does not: every flagship relu
    layer at 32 rows and at the 1000-row eval chunk, mlp-deep's at 32 rows;
 4. serving (the main path): ``TrainingSession()`` -> ``ServingEngine`` ->
@@ -86,7 +93,7 @@ in phases:
    (DP=4, unpadded, 123 -> 10 without the relu), 32 rows (PP=4), 16 rows
    (DP=2 x PP=4) and 4 rows (that session's eval and predict slots), and
    mlp-deep's at 32 rows (PP=4) — and a ragged shape with the flag off and
-   on: phase 3's and 3b's checks and times. 9b and 9c record the (rows,
+   on: phase 3's and 3b's checks, times and plans. 9b and 9c record the (rows,
    K, N, flag) of every flag launch they make, and the script fails if one
    of them was not checked here;
 9b. training through the executor (``TrainingSession(dp, pp, schedule,
@@ -261,6 +268,22 @@ def bwd_bound_ms(m, k, n, relu=True):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def plan_str(plan):
+    """A launch plan in one column: row x column tile, the reduction's
+    chunks x chunk length (= the cluster size), the grid; for the backward
+    its dx and dW blocks, and dW's chunks of M when M is split."""
+    grid = "x".join(str(g) for g in plan["grid"])
+    out = (
+        f"{plan['row_tile']}x{plan['col_tile']} {plan['chunks']}x{plan['chunk_len']} "
+        f"grid {grid}"
+    )
+    if "dx_blocks" in plan:
+        out += f" = {plan['dx_blocks']} dx + {plan['blocks'] - plan['dx_blocks']} dW"
+        if plan["dw_chunk_len"]:
+            out += f" (M {plan['chunks']}x{plan['dw_chunk_len']})"
+    return out
+
+
 def phase_device(torch, resolve_device):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -301,7 +324,7 @@ def phase_build(build):
 
 FWD_HEADER = (
     "  rows     K     N relu  tag        max_abs_err   kernel_ms    "
-    "plain_ms    addmm_ms    bound_ms  bound_by"
+    "plain_ms    addmm_ms    bound_ms  bound_by    plan (tile chunks grid)"
 )
 
 
@@ -333,7 +356,8 @@ def _check_fwd(torch, cuda_ops, gen, rows, k, n, relu, tag):
     bnd, by = bound_ms(rows, k, n)
     say(
         f"  {rows:4d} {k:5d} {n:5d} {relu:4d}  {tag:9s} {err:12.3e} "
-        f"{ms:11.5f} {plain:11.5f} {lib:11.5f} {bnd:11.5f}  {by}"
+        f"{ms:11.5f} {plain:11.5f} {lib:11.5f} {bnd:11.5f}  {by:10s}  "
+        f"{plan_str(cuda_ops.fwd_plan(rows, n, k))}"
     )
     return err, ms, plain, lib, bnd, by
 
@@ -371,6 +395,39 @@ def phase_kernels(torch, cuda_ops):
     )
     slot["bound_by"] = "bytes" if slot_bound_by == {"bytes"} else "operations"
     return slot, max_err
+
+
+ROW_COUNTS = (1, 4, 8, 16, 32, 128, 1000)  # the row-independence check's M
+
+
+def phase_row_independence(torch, cuda_ops):
+    """The forward's row-independence rule on the card: the same seeded rows
+    through the kernel at every M of ``ROW_COUNTS``, 784 -> 128 and 2048 ->
+    2048, relu on and off; each launch's ``y`` and ``mask`` bitwise the same
+    rows of the largest launch. Fails naming the first M that differs."""
+    gen = torch.Generator().manual_seed(3)
+    top = max(ROW_COUNTS)
+    tiles = sorted({cuda_ops.fwd_plan(m, 1, 1)["row_tile"] for m in ROW_COUNTS})
+    for k, n in ((FLAGSHIP[0], FLAGSHIP[1]), MLP_DEEP_SHAPES[1]):
+        x = torch.randn(top, k, generator=gen).cuda()
+        w = (torch.randn(n, k, generator=gen) / math.sqrt(k)).cuda()
+        b = (0.1 * torch.randn(n, generator=gen)).cuda()
+        for relu in (1, 0):
+            y_top, mask_top = cuda_ops.linear_act_fwd(x, w, b, relu)
+            for m in ROW_COUNTS:
+                y, mask = cuda_ops.linear_act_fwd(x[:m], w, b, relu)
+                same = torch.equal(y.view(torch.int32), y_top[:m].view(torch.int32))
+                if not (same and torch.equal(mask, mask_top[:m])):
+                    fail(
+                        f"row independence: at M={m} ({k}->{n}, relu={relu}, plan "
+                        f"{plan_str(cuda_ops.fwd_plan(m, n, k))}) rows differ from the "
+                        f"same rows of the {top}-row launch"
+                    )
+    say(
+        f"phase 3 row independence: ok: M = {', '.join(map(str, ROW_COUNTS))} (row "
+        f"tiles {tiles}) x 784->128 and 2048->2048 x relu on/off, every row's y and "
+        f"mask bitwise the same row of the {top}-row launch"
+    )
 
 
 def _bwd_operands(torch, gen, rows, k, n):
@@ -417,7 +474,7 @@ def phase_bwd_kernels(torch, cuda_ops):
     mub_bound_by = set()
     say(
         "  rows     K     N relu  tag        max_abs_err   kernel_ms    "
-        "plain_ms  3-call_ms    bound_ms  bound_by"
+        "plain_ms  3-call_ms    bound_ms  bound_by    plan (dx tile, N chunks, grid)"
     )
     for rows, k, n, relu, tag in shapes:
         g, mask, x, w = _bwd_operands(torch, gen, rows, k, n)
@@ -441,7 +498,8 @@ def phase_bwd_kernels(torch, cuda_ops):
         bnd, by = bwd_bound_ms(rows, k, n, relu)
         say(
             f"  {rows:4d} {k:5d} {n:5d} {relu:4d}  {tag:9s} {err:12.3e} "
-            f"{ms:11.5f} {plain:11.5f} {lib:11.5f} {bnd:11.5f}  {by}"
+            f"{ms:11.5f} {plain:11.5f} {lib:11.5f} {bnd:11.5f}  {by:10s}  "
+            f"{plan_str(cuda_ops.bwd_plan(rows, n, k))}"
         )
         if tag == "flagship" and rows == MUBATCH_ROWS:
             mub["ms"] += ms
@@ -1185,12 +1243,14 @@ def _check_flag_slot(torch, cuda_ops, gen, rows, k, n, flag, in_d, out_d, tag):
     )
     bwd["library_ms"] = device_ms(torch, lambda: (torch.mm(ge, w), torch.mm(ge.T, x), ge.sum(0)))
     bwd["bound_ms"], bwd["bound_by"] = bwd_bound_ms(rows, k, n, bool(flag))
-    for name, r in (("fwd", fwd), ("bwd", bwd)):
+    for name, r, plan in (
+        ("fwd", fwd, cuda_ops.fwd_plan(rows, n, k)), ("bwd", bwd, cuda_ops.bwd_plan(rows, n, k))
+    ):
         say(
             f"  {rows:4d} {k:5d} {n:5d} {flag:4d} {in_d:5d} {out_d:5d}  {tag:16s} {name}  "
             f"{r['max_abs_err']:11.3e} "
             f"{r['ms']:11.5f} {r['plain_ms']:11.5f} {r['library_ms']:11.5f} "
-            f"{r['bound_ms']:11.5f}  {r['bound_by']}"
+            f"{r['bound_ms']:11.5f}  {r['bound_by']:10s}  {plan_str(plan)}"
         )
     return fwd, bwd
 
@@ -1209,7 +1269,7 @@ def phase_flag_kernels(torch, cuda_ops):
         shapes[(37, 29, 23, flag, 29, 23)] = "ragged"
     say(
         "  rows     K     N flag  in_d out_d  tag              pass max_abs_err   kernel_ms    "
-        "plain_ms  library_ms    bound_ms  bound_by"
+        "plain_ms  library_ms    bound_ms  bound_by    plan (tile chunks grid)"
     )
     results = {}
     errs = {"linear_flag_fwd": 0.0, "linear_flag_bwd": 0.0}
@@ -1453,6 +1513,7 @@ def main():
     phase_device(torch, resolve_device)
     phase_build(_build)
     slot, fwd_err = phase_kernels(torch, cuda_ops)
+    phase_row_independence(torch, cuda_ops)
     mub, bwd_err = phase_bwd_kernels(torch, cuda_ops)
     fwd_err = max(fwd_err, phase_train_fwd(torch, cuda_ops))
     serving = phase_serving(torch, cuda_ops, TrainingSession, engine_mod, loadgen)

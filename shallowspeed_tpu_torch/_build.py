@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/shallowspeed_tpu_torch/<name>-<sha>.so`` beside the
-package, where ``<sha>`` hashes the source and the flags: an edited source
-builds anew, an unchanged one is loaded from disk. Nothing is built at
+package, where ``<sha>`` hashes the source, the shared headers
+``csrc/*.cuh`` and the flags: an edited source builds anew, an unchanged one
+is loaded from disk. Nothing is built at
 import time; ``load(name)`` builds on first use, and ``build_all()``
 starts one ``nvcc`` per source at once, so the build time of several
 kernels is that of the slowest.
@@ -53,8 +54,11 @@ def nvcc():
 
 
 def library_path(name):
-    """Where the built library of ``csrc/<name>.cu`` lives."""
+    """Where the built library of ``csrc/<name>.cu`` lives; the key also
+    hashes the headers beside it (``csrc/*.cuh``), which a source may
+    include."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

@@ -6,14 +6,15 @@ The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Three kernels:
   ``csrc/linear_act_fwd.cu``: ``z = x @ W.T + b``, ``y = relu(z)`` when
   ``apply_relu`` else ``z``, ``mask = z > 0`` (torch.bool). It replaces both
   regimes of the TPU forward (``linear_relu_fwd``, single-block and
-  grid-tiled): on Hopper one tiled kernel covers every shape.
-  ``linear_relu_fwd`` keeps the JAX name and pins ``apply_relu=1``.
+  grid-tiled): on Hopper one kernel covers every shape, with a launch plan
+  sized to it (``fwd_plan``). ``linear_relu_fwd`` keeps the JAX name and
+  pins ``apply_relu=1``.
 - ``linear_act_bwd(g, mask, x, W, apply_relu) -> (dx, dW, db)``, built from
   ``csrc/linear_act_bwd.cu``: ``ge = g * mask`` (``g`` when not
   ``apply_relu``), ``dx = ge @ W``, ``dW = ge.T @ x``, ``db = sum_rows(ge)``
-  in one launch. It replaces both regimes of the TPU backward
-  (``linear_relu_bwd``, single-block and grid-tiled). ``linear_relu_bwd``
-  keeps the JAX name and pins ``apply_relu=1``.
+  in one launch (``bwd_plan``). It replaces both regimes of the TPU
+  backward (``linear_relu_bwd``, single-block and grid-tiled).
+  ``linear_relu_bwd`` keeps the JAX name and pins ``apply_relu=1``.
 - ``fused_train_call(stage_params, x, y, ...)``, built from
   ``csrc/fused_train.cu``: a whole training batch (forward, softmax-MSE
   head, backward, optional global-norm clip, SGD / momentum / Adam update),
@@ -40,6 +41,12 @@ to ``LAUNCHES[<entry>]`` (the flag entries count under their own names,
 though they launch the ``linear_act_*`` kernels: ``KERNEL_OF`` maps each
 entry to its source), so a caller can show that its path went through the
 kernel.
+
+The two linear kernels take a launch plan from the wrapper (``fwd_plan``,
+``bwd_plan``): a row tile sized to M, and the reduction split into chunks
+over the blocks of a thread block cluster, added in rank order on chip.
+The forward's chunking is a function of K alone, so a row's bits do not
+depend on the other rows of the launch (the sources state the order rule).
 """
 
 import ctypes
@@ -62,7 +69,102 @@ LAUNCHES = dict.fromkeys(KERNEL_OF, 0)
 
 # each kernel's C entry point: (pointer arguments, int arguments), then the
 # stream; tests/test_torch_kernels.py holds this to the sources' signatures
-SIGNATURES = {"linear_act_fwd": (5, 4), "linear_act_bwd": (7, 4), "fused_train": (6, 3)}
+SIGNATURES = {"linear_act_fwd": (5, 8), "linear_act_bwd": (7, 9), "fused_train": (6, 3)}
+
+# The two linear kernels' launch plans. The sources take the plan as ints,
+# check it and refuse any other (csrc/staging.cuh, chunks_cover; the tile
+# dispatch of each entry point); tests/test_torch_kernel_plan.py holds these
+# constants to the sources.
+STAGE_DEPTH = 16  # staging.cuh BK: the reduction depth of one cp.async stage
+MAX_CLUSTER = 8  # staging.cuh MAX_CLUSTER: the portable thread block cluster
+CHUNK_TERMS = 32  # a reduction of L terms: at most min(8, ceil(L / 32)) chunks
+ROW_TILES = (8, 16, 32, 64)  # a row tile sized to M (see row_tile)
+FWD_COL_TILE = {8: 32, 16: 32, 32: 32, 64: 64}  # linear_act_fwd.cu's tiles
+BWD_TILE = 64  # linear_act_bwd.cu: dx's column tile, dW's tile edge
+SM_COUNT = 132  # an H100 SXM's SMs: below this many dW tiles, M splits over a cluster
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def reduction_chunks(length):
+    """``(chunks, chunk_len)``: a reduction of ``length`` terms cut into
+    ``chunks`` consecutive chunks of ``chunk_len`` terms (the last one
+    shorter), one per rank of a thread block cluster. A function of
+    ``length`` alone, with chunk edges on stage edges: the forward's order
+    rule, which keeps a row's bits independent of the other rows."""
+    if length <= 0:
+        return 1, 0
+    want = min(MAX_CLUSTER, _cdiv(length, CHUNK_TERMS))
+    chunk_len = _cdiv(_cdiv(length, want), STAGE_DEPTH) * STAGE_DEPTH
+    return _cdiv(length, chunk_len), chunk_len
+
+
+def row_tile(rows):
+    """The row tile (one of ``ROW_TILES``) for ``rows`` rows: 8 or 16 for a
+    serving slot and the executor's slots, 32 up to 64 rows (a microbatch),
+    64 above (fused microbatches, the eval chunk)."""
+    if rows <= 16:
+        return 8 if rows <= 8 else 16
+    return 32 if rows <= 64 else 64
+
+
+def fwd_plan(M, N, K):
+    """``linear_act_fwd``'s launch plan for x ``(M, K)``, W ``(N, K)``: a
+    row x column output tile per block, K in ``chunks`` chunks of
+    ``chunk_len`` over the ranks of a cluster of ``chunks`` blocks (the
+    cluster size), and the grid ``(column tiles x chunks, row tiles)``."""
+    rt = row_tile(M)
+    ct = FWD_COL_TILE[rt]
+    chunks, chunk_len = reduction_chunks(K)
+    grid = (_cdiv(N, ct) * chunks, _cdiv(M, rt))
+    return dict(row_tile=rt, col_tile=ct, chunks=chunks, chunk_len=chunk_len, grid=grid,
+                blocks=grid[0] * grid[1])
+
+
+def bwd_plan(M, N, K):
+    """``linear_act_bwd``'s launch plan for g ``(M, N)``, x ``(M, K)``, W
+    ``(N, K)``, in clusters of ``chunks`` blocks: dx in (row tile x 64)
+    tiles with N in ``chunks`` chunks of ``chunk_len`` over a cluster
+    (``dx_blocks`` blocks); then dW in 64 x 64 tiles (``dw_tiles``, at least
+    one K-tile so that db is written). Too few dW tiles to fill the card
+    (and more than one stage of rows) split M over a cluster too, in
+    ``chunks`` chunks of ``dw_chunk_len`` rows; else ``dw_chunk_len`` is 0
+    and a cluster's ranks take adjacent tiles, padded to whole clusters."""
+    rt = row_tile(M)
+    chunks, chunk_len = reduction_chunks(N)
+    dx_blocks = _cdiv(M, rt) * _cdiv(K, BWD_TILE) * chunks
+    dw_tiles = _cdiv(N, BWD_TILE) * max(1, _cdiv(K, BWD_TILE))
+    if chunks > 1 and M > STAGE_DEPTH and dw_tiles < SM_COUNT:
+        dw_chunk_len = _cdiv(_cdiv(M, chunks), STAGE_DEPTH) * STAGE_DEPTH
+        dw_blocks = dw_tiles * chunks
+    else:
+        dw_chunk_len = 0
+        dw_blocks = _cdiv(dw_tiles, chunks) * chunks
+    blocks = dx_blocks + dw_blocks
+    return dict(row_tile=rt, col_tile=BWD_TILE, chunks=chunks, chunk_len=chunk_len,
+                dw_chunk_len=dw_chunk_len, dx_blocks=dx_blocks, dw_tiles=dw_tiles,
+                grid=(blocks,), blocks=blocks)
+
+
+def plan_ints(plan):
+    """The plan as the C entry points take it, after the shapes and the
+    relu flag."""
+    keys = ("row_tile", "col_tile", "chunks", "chunk_len", "dw_chunk_len")
+    return tuple(plan[k] for k in keys if k in plan)
+
+
+# the plans' ints per shape, kept: the main path launches a few shapes
+# thousands of times, and the host pays for every microsecond of a launch
+@functools.lru_cache(maxsize=4096)
+def _fwd_ints(M, N, K):
+    return plan_ints(fwd_plan(M, N, K))
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_ints(M, N, K):
+    return plan_ints(bwd_plan(M, N, K))
 
 
 def reset_launches():
@@ -148,7 +250,10 @@ def linear_act_fwd(x, w, b, apply_relu=True, _entry="linear_act_fwd"):
     mask = torch.empty((M, N), dtype=torch.bool, device=x.device)
     if M == 0 or N == 0:
         return y, mask
-    _launch(_entry, x, w, b, y, mask, M, N, K, int(bool(apply_relu)))
+    _launch(
+        _entry, x, w, b, y, mask, M, N, K, int(bool(apply_relu)),
+        *_fwd_ints(M, N, K),
+    )
     return y, mask
 
 
@@ -234,6 +339,7 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True, _entry="linear_act_bwd"):
     _launch(
         _entry,
         g, mask if apply_relu else g, x, w, dx, dw, db, M, N, K, int(apply_relu),
+        *_bwd_ints(M, N, K),
     )
     return dx, dw, db
 
