@@ -70,11 +70,14 @@ in phases:
    and the 2-epoch run: each param and mirror leaf's change from where it
    started within 1e-3 (a step) or 5e-2 (an epoch, a run) of the plain
    version's largest change in that leaf, plus one float32 rounding, t
-   equal, the loss within ``rtol=1e-4``, two launches bitwise equal; the
-   kernel's time, the plain version's, the bound (operations over 67
-   TFLOP/s fp32 against bytes over 3.35 TB/s), and the device time of the
-   fused-microbatch step without the fused kernel (the B1/B3 kernels and
-   torch ops) as the "before";
+   equal, the loss within ``rtol=1e-4``, two launches bitwise equal; then
+   one SGD step of two more shapes of the kernel's partition with the same
+   checks (a ragged ``(29, 23, 17, 10)`` MLP at 24 rows in groups of 8, the
+   flagship as one group of 128 rows); the kernel's time beside its time
+   before the redesign (``FUSED_BEFORE_MS``), the plain version's, the
+   bound (operations over 67 TFLOP/s fp32 against bytes over 3.35 TB/s),
+   and the device time of the fused-microbatch step without the fused
+   kernel (the B1/B3 kernels and torch ops);
 8b. the kernel paths of the training main path, phase 6's split for 2
    epochs with ``fuse_mubatches=True``: ``megakernel`` (exactly 16 launches
    an epoch), ``epoch_kernel`` (1 an epoch) and ``run_kernel`` with
@@ -198,6 +201,18 @@ RUN_EPOCHS = 2
 # only moves a few elements by a whole gradient term (~1e-2 of the largest
 # change on an H100). The loss within FUSED_LOSS_RTOL, Adam's t equal.
 FUSED_UPD_RTOL = {"step": 1e-3, "epoch": 5e-2, "run": 5e-2}
+# two more shapes of the kernel's partition, one SGD step each: (label,
+# sizes, rows, group_rows) — a ragged MLP with odd widths in three head
+# groups of 8 rows (one cluster item of whole groups), and the flagship as
+# one group of all 128 rows (one item of four row tiles)
+FUSED_SHAPES = (
+    ("ragged 29-23-17-10", (29, 23, 17, 10), 24, 8),
+    ("flagship one group", FLAGSHIP, 128, 128),
+)
+# the kernel's device ms before its redesign (commit 291c44b), for
+# comparison: measured by this script's phase 8a on an NVIDIA H100 80GB
+# HBM3 at 700 W
+FUSED_BEFORE_MS = {"step": 0.11489, "epoch": 1.79526, "run": 3.51667}
 FUSED_LOSS_RTOL = 1e-4
 FLT_EPS = 2.0**-23
 FUSED_CASES = (
@@ -853,15 +868,17 @@ def fused_bound_ms(widths, rows, batches, n_mirrors):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _fused_operands(torch, trainer, model, convert, recipe, seed):
-    """Flagship params from the port's init on the card with seeded nonzero
-    biases (the init's are 0, where a decay has nothing to shrink), the
-    recipe's optimizer state seeded nonzero (so the update reads it), and
-    the kernel's keyword arguments. Returns (stage, mirrors, scalars, kw,
-    n_mirrors)."""
+def _fused_operands(torch, trainer, model, convert, recipe, seed, sizes=FLAGSHIP, rows=128,
+                    group_rows=MUBATCH_ROWS):
+    """Params of ``sizes`` (the flagship by default) from the port's init on
+    the card with seeded nonzero biases (the init's are 0, where a decay has
+    nothing to shrink), the recipe's optimizer state seeded nonzero (so the
+    update reads it), and the kernel's keyword arguments for batches of
+    ``rows`` in head groups of ``group_rows``. Returns (stage, mirrors,
+    scalars, kw, n_mirrors)."""
     from shallowspeed_tpu_torch.optimizer import make_optimizer
 
-    spec = model.make_model_spec(FLAGSHIP, 1, 128)
+    spec = model.make_model_spec(sizes, 1, rows)
     stages = convert.params_from_numpy(model.init_model(spec), "cuda")
     opt = make_optimizer(
         recipe["optimizer"], recipe["lr"], weight_decay=recipe.get("weight_decay", 0.0)
@@ -888,7 +905,7 @@ def _fused_operands(torch, trainer, model, convert, recipe, seed):
     n_mirrors = len(mirrors)
     scalars = [torch.full((), 3.0, device="cuda")] if desc["kind"] == "adam" else []
     kw = dict(
-        relu_flags=spec.stages[0].relu_flags, group_rows=MUBATCH_ROWS, batch_size=128,
+        relu_flags=spec.stages[0].relu_flags, group_rows=group_rows, batch_size=rows,
         lr=opt.lr, weight_decay=opt.weight_decay, opt=desc,
         clip_norm=recipe.get("clip_norm"),
     )
@@ -1005,9 +1022,37 @@ def phase_fused_kernels(torch, cuda_ops, data_dir):
             out[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
             lines.append(
                 f"  {tag}: {batches[mode]} batch(es): {diff}; kernel "
-                f"{ms:.5f} ms ({ms / batches[mode]:.5f} per step), plain {plain:.5f} ms, "
-                f"bound {bnd:.5f} ms ({by})"
+                f"{ms:.5f} ms ({ms / batches[mode]:.5f} per step; before the redesign "
+                f"{FUSED_BEFORE_MS[mode]:.5f}), plain {plain:.5f} ms, bound {bnd:.5f} ms ({by})"
             )
+    # the partition's other shapes: odd widths in small groups, one big group
+    gen = torch.Generator().manual_seed(8)
+    for case_i, (label, sizes, rows, group) in enumerate(FUSED_SHAPES):
+        stage, mirrors, scalars, kw, _ = _fused_operands(
+            torch, trainer, model_mod, convert, FUSED_CASES[0][1], seed=10 + case_i,
+            sizes=sizes, rows=rows, group_rows=group,
+        )
+        kw.update(epoch_mode=False)
+        if sizes == FLAGSHIP:
+            x, y = X[1][:rows], Y[1][:rows]
+        else:
+            x = torch.rand((rows, sizes[0]), generator=gen).cuda()
+            y = torch.eye(sizes[-1])[torch.randint(0, sizes[-1], (rows,), generator=gen)].cuda()
+        a, b, p = (_clone(stage, mirrors, scalars) for _ in range(3))
+        got = cuda_ops.fused_train_call(a[0], x, y, mirrors=a[1], scalars=a[2], **kw)
+        again = cuda_ops.fused_train_call(b[0], x, y, mirrors=b[1], scalars=b[2], **kw)
+        torch.cuda.synchronize()
+        want = cuda_ops.fused_train_reference(p[0], x, y, mirrors=p[1], scalars=p[2], **kw)
+        tag = f"fused step {label} ({rows} rows, groups of {group})"
+        err, ratio = _fused_close(
+            torch, got, want, (stage, mirrors, scalars), tag, FUSED_UPD_RTOL["step"]
+        )
+        if not torch.equal(got[3], again[3]) or not all(
+            torch.equal(u, v) for u, v in zip(_state_leaves(*got[:3]), _state_leaves(*again[:3]))
+        ):
+            fail(f"{tag}: two launches differ")
+        out["step"]["max_abs_err"] = max(out["step"]["max_abs_err"], err)
+        lines.append(f"  {tag}: max |kernel - plain| {err:.3e} = {ratio:.3e} of the largest change")
     # the "before": the fused-microbatch step without the fused kernel
     spec = model_mod.make_model_spec(FLAGSHIP, 1, 128)
     stages = convert.params_from_numpy(model_mod.init_model(spec), "cuda")
@@ -1021,13 +1066,15 @@ def phase_fused_kernels(torch, cuda_ops, data_dir):
         say(line)
     say(
         f"phase 8a fused train kernel: ok: {len(FUSED_CASES)} recipes x one flagship "
-        f"step (B=128, groups of {MUBATCH_ROWS}) and the SGD recipe's {nb}-batch epoch "
-        f"and {RUN_EPOCHS}-epoch run within tolerance of the plain version (each "
+        f"step (B=128, groups of {MUBATCH_ROWS}), the SGD recipe's {nb}-batch epoch "
+        f"and {RUN_EPOCHS}-epoch run, and {len(FUSED_SHAPES)} more shapes of the "
+        f"partition within tolerance of the plain version (each "
         f"leaf's change within {FUSED_UPD_RTOL['step']} of its largest change after "
         f"a step, {FUSED_UPD_RTOL['epoch']} after an epoch or run), two launches "
         f"bitwise equal; per step: "
         f"kernel {out['step']['ms']:.5f} ms (in the epoch kernel "
-        f"{out['epoch']['ms'] / nb:.5f}), plain {out['step']['plain_ms']:.5f} ms, the "
+        f"{out['epoch']['ms'] / nb:.5f}; before the redesign {FUSED_BEFORE_MS['step']:.5f} "
+        f"and {FUSED_BEFORE_MS['epoch'] / TRAIN_BATCHES:.5f}), plain {out['step']['plain_ms']:.5f} ms, the "
         f"fused-microbatch step without the kernel (B1/B3 kernels + torch ops) "
         f"{before:.5f} ms, bound "
         f"{out['step']['bound_ms']:.5f} ms ({out['step']['bound_by']})"

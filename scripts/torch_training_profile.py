@@ -26,14 +26,25 @@ Then the fused train kernel's floor: the device ms per step of one
 epoch-mode launch (16 batches of 128 rows, CUDA graph, CUDA events) for the
 flagship and for a model of the flagship's depth whose every width is 16
 (784 in, so the same input, then 16 wide: ``FLOOR_SIZES``). The narrow
-model does almost no arithmetic but crosses the same 2L + 2 grid-wide
-barriers a batch, so its time is the kernel's cost of phases and barriers.
+model does almost no arithmetic but crosses the same barriers and phases a
+batch, so its time is the kernel's cost of phases and barriers. And the
+split of a step: the kernel built a second time with
+``FUSED_TRAIN_PHASE_STAMPS`` (a library beside the main path's, which never
+has the macro), whose block 0 stamps the device clock at each pass boundary
+of every batch of one epoch-mode launch: the group pass (block 0's cluster,
+from the batch's start to its arrival at the first grid barrier), the wait
+at that barrier (the other clusters' lag and the barrier), the
+weight-gradient pass and update, and the wait at the last barrier; and
+block 0's group pass phase by phase (each forward layer, the head, each dX
+layer: its work, then the cluster barrier after it); the median of each over
+the batches after the first.
 
 Prints a readable table per path and, as its last line, one JSON object
 with every path. Needs a CUDA device; exits non-zero without one.
 """
 
 import collections
+import ctypes
 import json
 import subprocess
 import sys
@@ -135,6 +146,68 @@ def fused_kernel_ms(torch, sizes, X, Y):
     return ms / X.shape[0]
 
 
+STAMPS_MACRO = "FUSED_TRAIN_PHASE_STAMPS"
+STAMP_SPANS = ("group_pass", "first_barrier", "weight_pass", "last_barrier")
+
+
+def _stamps_per_batch():
+    from shallowspeed_tpu_torch import cuda_ops
+
+    return 5 + 4 * cuda_ops.FUSED_MAX_LAYERS  # fused_train.cu's STAMPS
+
+
+def fused_kernel_split(torch, sizes, X, Y):
+    """Median device µs per batch of each span of ``STAMP_SPANS`` over one
+    epoch-mode launch of the stamped build (the batches after the first),
+    for an SGD-trained MLP of ``sizes``."""
+    from chip_smoke import MUBATCH_ROWS
+
+    from shallowspeed_tpu_torch import _build, convert, cuda_ops
+    from shallowspeed_tpu_torch import model as model_mod
+
+    lib = _build.load("fused_train", defines=(STAMPS_MACRO,))
+    stamped = cuda_ops._bind(lib, "fused_train")
+    read = lib.fused_train_stamps
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    spec = model_mod.make_model_spec(sizes, 1, 128)
+    stage = model_mod.param_tree(convert.params_from_numpy(model_mod.init_model(spec), "cuda"))[0]
+    kw = dict(
+        epoch_mode=True, relu_flags=spec.stages[0].relu_flags, group_rows=MUBATCH_ROWS,
+        batch_size=128, lr=0.006, weight_decay=0.0,
+    )
+    plain_fn = cuda_ops._fn
+    cuda_ops._fn = lambda name: stamped if name == "fused_train" else plain_fn(name)
+    try:
+        for _ in range(3):
+            cuda_ops.fused_train_call(stage, X, Y, **kw)
+        torch.cuda.synchronize()
+    finally:
+        cuda_ops._fn = plain_fn
+    nb, per = X.shape[0], _stamps_per_batch()
+    buf = (ctypes.c_ulonglong * (per * nb))()
+    if read(buf, per * nb) != 0:
+        raise RuntimeError("fused_train_stamps failed")
+    L = len(sizes) - 1
+    phases = [f"forward {l}" for l in range(L)] + ["head"] + [f"dX {l}" for l in range(L - 1, 0, -1)]
+    spans = {name: [] for name in STAMP_SPANS}
+    work = {name: [] for name in phases}
+    wait = {name: [] for name in phases[:-1]}
+    for b in range(1, nb):
+        t = buf[per * b : per * (b + 1)]
+        for i, name in enumerate(STAMP_SPANS):
+            spans[name].append((t[i + 1] - t[i]) / 1e3)
+        for i, name in enumerate(phases):
+            work[name].append((t[6 + 2 * i] - t[5 + 2 * i]) / 1e3)
+            if name in wait:
+                wait[name].append((t[7 + 2 * i] - t[6 + 2 * i]) / 1e3)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    out = {name: med(v) for name, v in spans.items()}
+    out["batch"] = sum(out.values())
+    out["phases"] = {name: [med(work[name]), med(wait[name]) if name in wait else None]
+                     for name in phases}
+    return out
+
+
 def main():
     import torch
 
@@ -173,12 +246,27 @@ def main():
         floor = {
             "flagship_ms_per_step": fused_kernel_ms(torch, FLAGSHIP_SIZES, X, Y),
             "narrow_ms_per_step": fused_kernel_ms(torch, FLOOR_SIZES, X, Y),
+            "flagship_split_us": fused_kernel_split(torch, FLAGSHIP_SIZES, X, Y),
+            "narrow_split_us": fused_kernel_split(torch, FLOOR_SIZES, X, Y),
         }
     print(
         f"fused train kernel, epoch mode, device ms per step: flagship "
         f"{floor['flagship_ms_per_step']:.5f}, the same depth 16 wide "
         f"{floor['narrow_ms_per_step']:.5f} (phases and barriers)"
     )
+    for model in ("flagship", "narrow"):
+        split = floor[f"{model}_split_us"]
+        print(
+            f"  {model} batch split, median device µs (stamped build): "
+            + ", ".join(f"{name} {split[name]:.3f}" for name in (*STAMP_SPANS, "batch"))
+        )
+        print(
+            f"    block 0's group pass, µs of work (then of cluster barrier): "
+            + ", ".join(
+                f"{name} {w:.3f}" + ("" if b is None else f" ({b:.3f})")
+                for name, (w, b) in split["phases"].items()
+            )
+        )
     print(json.dumps({"card": card, "paths": records, "fused_kernel": floor}))
     return 0
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
-_LIBS = {}  # name -> ctypes.CDLL, loaded once per process
+_LIBS = {}  # (name, defines) -> ctypes.CDLL, loaded once per process
 
 
 def nvcc():
@@ -53,30 +53,35 @@ def nvcc():
     )
 
 
-def library_path(name):
+def _flags(defines):
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name, defines=()):
     """Where the built library of ``csrc/<name>.cu`` lives; the key also
     hashes the headers beside it (``csrc/*.cuh``), which a source may
-    include."""
+    include, and the macros ``defines`` it is built with."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def _start(compiler, name, out):
+def _start(compiler, name, out, defines):
     """Start nvcc for ``name``; -> (Popen, tmp, out)."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [compiler, *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return proc, tmp, out
 
 
-def build_all(names, timeout=600):
+def build_all(names, timeout=600, defines=()):
     """Build every named kernel that is not built yet, all ``nvcc``
-    processes at once; returns ``{name: nvcc output}`` for those built."""
-    todo = {n: library_path(n) for n in names}
+    processes at once, with the macros ``defines``; returns ``{name: nvcc
+    output}`` for those built."""
+    todo = {n: library_path(n, defines) for n in names}
     todo = {n: out for n, out in todo.items() if not out.exists()}
     if not todo:
         return {}
@@ -87,7 +92,7 @@ def build_all(names, timeout=600):
     failed = []
     try:
         for name, out in todo.items():
-            started[name] = _start(compiler, name, out)
+            started[name] = _start(compiler, name, out, defines)
         for name, (proc, tmp, out) in started.items():
             log, _ = proc.communicate(timeout=timeout)
             logs[name] = log
@@ -107,11 +112,12 @@ def build_all(names, timeout=600):
     return logs
 
 
-def load(name):
-    """The ctypes library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def load(name, defines=()):
+    """The ctypes library of ``csrc/<name>.cu``, built on first use (with the
+    macros ``defines``: a profiling build beside the plain one)."""
+    lib = _LIBS.get((name, defines))
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        build_all([name], defines=defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _LIBS[name, defines] = lib
     return lib

@@ -18,9 +18,13 @@ The counterpart of ``shallowspeed_tpu/pallas_ops.py``. Three kernels:
 - ``fused_train_call(stage_params, x, y, ...)``, built from
   ``csrc/fused_train.cu``: a whole training batch (forward, softmax-MSE
   head, backward, optional global-norm clip, SGD / momentum / Adam update),
-  a whole epoch or a whole run of epochs in one cooperative launch — the
-  TPU's fused train kernels (``pallas_ops.fused_train_call``) in their step,
-  epoch and run modes. ``fused_train_reference`` is its plain version.
+  a whole epoch or a whole run of epochs in one cooperative launch in thread
+  block clusters — the TPU's fused train kernels
+  (``pallas_ops.fused_train_call``) in their step, epoch and run modes. Its
+  partition (``fused_plan``: head groups to clusters, columns to the blocks
+  of a cluster, dW tiles) comes from the wrapper as ints, and a batch
+  crosses 2 grid-wide barriers (3 with a clip). ``fused_train_reference`` is
+  its plain version.
 
 and the pipeline executor's two flag entries, which launch the first two
 kernels with the relu chosen per call:
@@ -69,7 +73,7 @@ LAUNCHES = dict.fromkeys(KERNEL_OF, 0)
 
 # each kernel's C entry point: (pointer arguments, int arguments), then the
 # stream; tests/test_torch_kernels.py holds this to the sources' signatures
-SIGNATURES = {"linear_act_fwd": (5, 8), "linear_act_bwd": (7, 9), "fused_train": (6, 3)}
+SIGNATURES = {"linear_act_fwd": (5, 8), "linear_act_bwd": (7, 9), "fused_train": (6, 6)}
 
 # The two linear kernels' launch plans. The sources take the plan as ints,
 # check it and refuse any other (csrc/staging.cuh, chunks_cover; the tile
@@ -206,7 +210,12 @@ def _launch(entry, *args):
 def _fn(name):
     from shallowspeed_tpu_torch import _build
 
-    fn = getattr(_build.load(name), name)
+    return _bind(_build.load(name), name)
+
+
+def _bind(lib, name):
+    """The C entry point ``name`` of ``lib`` with its ctypes signature."""
+    fn = getattr(lib, name)
     n_ptrs, n_ints = SIGNATURES[name]
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
@@ -386,15 +395,24 @@ _OPT_CODES = {"sgd": 0, "momentum": 1, "adam": 2}
 # keeps its working set in device memory.
 SINGLE_BLOCK_BUDGET_BYTES = 8 * 1024 * 1024
 
-# csrc/fused_train.cu's output tile edge (T) and its operand table: a header
-# of HEADER_LEN int64 fields, then one record of LAYER_LEN per layer, for at
-# most MAX_LAYERS layers; the names are the source's enums without their
-# H_ / R_ prefix, in order.
-FUSED_TILE = 16
+# csrc/fused_train.cu's partition (its constants of the same names;
+# tests/test_torch_fused_plan.py holds them to the source): group-pass output
+# tiles of FUSED_ROW_TILE rows x FUSED_COL_TILE columns on clusters of
+# FUSED_CLUSTER blocks, a reduction staged in chunks of at most FUSED_KC
+# terms cut into FUSED_WARPS warp ranges, dW tiles of FUSED_DW_N x FUSED_DW_K
+FUSED_CLUSTER = 8
+FUSED_ROW_TILE = 32
+FUSED_COL_TILE = 16
+FUSED_KC = 800
+FUSED_WARPS = 8
+FUSED_DW_N, FUSED_DW_K = 32, 64
+# and its operand table: a header of HEADER_LEN int64 fields, then one record
+# of LAYER_LEN per layer, for at most MAX_LAYERS layers; the names are the
+# source's enums without their H_ / R_ prefix, in order.
 FUSED_MAX_LAYERS = 24
 TABLE_HEADER_LEN = 16
 TABLE_HEADER = (
-    "L", "OPT", "ROWS", "GROUP_ROWS", "N_GROUPS", "LOSS_PART", "T", "HAS_CLIP",
+    "L", "OPT", "ROWS", "GROUP_ROWS", "N_GROUPS", "ROW_LOSS", "T", "HAS_CLIP",
     "HAS_DECAY",
 )
 TABLE_LAYER = (
@@ -556,16 +574,70 @@ def fused_train_reference(
     return stage_params, list(mirrors), list(scalars), loss
 
 
-def fused_train_layout(widths, rows, group_rows):
+def reduction_split(length):
+    """``(chunk_len, warp_len)``: how the fused train kernel cuts a group-pass
+    reduction of ``length`` terms — chunks of ``chunk_len`` terms staged at
+    once, each cut into ``FUSED_WARPS`` ranges of ``warp_len`` terms (whole
+    float4s). Warp ``w`` sums its range of every chunk in order, and the warp
+    partials are added in warp order: a function of ``length`` alone."""
+    step = 4 * FUSED_WARPS
+    chunk_len = min(FUSED_KC, _cdiv(length, step) * step)
+    return chunk_len, chunk_len // FUSED_WARPS
+
+
+def group_tiles(i0, i1, n, cluster=FUSED_CLUSTER):
+    """The group pass's tiles of one phase over the rows ``[i0, i1)`` of an
+    item, ``n`` output columns wide, as the kernel walks them: ``{rank:
+    [(r0, c0), ...]}``, tile ``u`` (row tile ``u // column tiles``, column
+    tile ``u % column tiles``) to rank ``u % cluster``."""
+    ct = _cdiv(n, FUSED_COL_TILE)
+    units = _cdiv(i1 - i0, FUSED_ROW_TILE) * ct
+    out = {r: [] for r in range(cluster)}
+    for u in range(units):
+        out[u % cluster].append((i0 + (u // ct) * FUSED_ROW_TILE, (u % ct) * FUSED_COL_TILE))
+    return out
+
+
+def dw_tile_grid(n, k):
+    """The dW tiles of an ``(n, k)`` weight: ``(tiles along N, tiles along K)``,
+    at least one along K so that db is computed."""
+    return _cdiv(n, FUSED_DW_N), max(1, _cdiv(k, FUSED_DW_K))
+
+
+def fused_plan(widths, rows, group_rows, clip=False):
+    """The fused train kernel's partition of one batch, from the shapes alone
+    (never the number of batches or epochs): the group pass's items
+    (``item_rows`` rows of whole head groups each, ``n_items`` of them, one
+    cluster of ``cluster`` blocks an item: up to ``FUSED_ROW_TILE`` rows of
+    small groups, else one group; each phase's tiles split over the blocks
+    by ``group_tiles``), the weight-gradient pass's ``dw_tiles`` over every
+    layer (``dw_grid``: per layer ``dw_tile_grid``), and the barriers a
+    batch: ``grid_barriers`` (2, 3 with a clip) and ``cluster_barriers`` per
+    item (L forward, the head, L - 2 in the dX chain)."""
+    L = len(widths) - 1
+    item_rows = min(rows, max(1, FUSED_ROW_TILE // group_rows) * group_rows)
+    n_items = _cdiv(rows, item_rows)
+    dw_grid = [dw_tile_grid(widths[l + 1], widths[l]) for l in range(L)]
+    return dict(
+        cluster=FUSED_CLUSTER, item_rows=item_rows, n_items=n_items,
+        items=[(i * item_rows, min(rows, (i + 1) * item_rows)) for i in range(n_items)],
+        dw_grid=dw_grid, dw_tiles=sum(a * b for a, b in dw_grid),
+        grid_barriers=3 if clip else 2,
+        cluster_barriers=L + (1 if L > 1 else 0) + max(0, L - 2),
+    )
+
+
+FUSED_PLAN_INTS = ("cluster", "item_rows", "n_items", "dw_tiles")
+
+
+def fused_train_layout(widths, rows):
     """The kernel's workspace, in float32 elements: per layer ``l`` (``K``
     inputs, ``N`` outputs) its activation ``ACT_OUT`` (rows x N), the head
     or backward gradient ``G`` (rows x N), ``DW`` (N x K), ``DB`` (N), and
-    the clip's sums of squares per dW tile ``SQW`` and per db slice ``SQB``;
-    then one loss partial per head group. Returns ``(layers, loss_part,
-    total, max_items)``: ``layers`` one dict of offsets per layer (``ACT_IN``
-    is -1 for the first, whose input is the batch), ``max_items`` the most
-    work items any phase has."""
-    tiles = lambda n: -(-n // FUSED_TILE)  # noqa: E731
+    the clip's sums of squares per dW tile ``SQW`` and per column of tiles
+    ``SQB``; then each row's share of the loss. Returns ``(layers, row_loss,
+    total)``: ``layers`` one dict of offsets per layer (``ACT_IN`` is -1 for
+    the first, whose input is the batch)."""
     L = len(widths) - 1
     layers = [dict(K=widths[l], N=widths[l + 1]) for l in range(L)]
     off = 0
@@ -574,36 +646,30 @@ def fused_train_layout(widths, rows, group_rows):
         off += rows * rec["N"]
     for l, rec in enumerate(layers):
         K, N = rec["K"], rec["N"]
+        tn, tk = dw_tile_grid(N, K)
         rec["ACT_IN"] = layers[l - 1]["ACT_OUT"] if l else -1
         for name, size in (
-            ("G", rows * N), ("DW", N * K), ("DB", N),
-            ("SQW", tiles(N) * tiles(K)), ("SQB", tiles(N)),
+            ("G", rows * N), ("DW", N * K), ("DB", N), ("SQW", tn * tk), ("SQB", tn),
         ):
             rec[name] = off
             off += size
-    n_groups = rows // group_rows
-    loss_part = off
-    off += n_groups
-    max_items = n_groups
-    for l, rec in enumerate(layers):
-        tk = tiles(rec["K"])
-        fwd = tiles(rows) * tiles(rec["N"])
-        bwd = tiles(rec["N"]) * tk + (tiles(rows) * tk if l else 0)
-        max_items = max(max_items, fwd, bwd)
-    return layers, loss_part, off, max_items
+    row_loss = off
+    off += rows
+    return layers, row_loss, off
 
 
 def _fused_train_table(stage_params, mirrors, scalars, kind, rows, group_rows,
                        relu_flags, clip_norm, weight_decay):
     """The kernel's int64 operand table, a host tensor the C entry point
-    copies into the launch's parameters, and the workspace size and launch
-    width."""
+    copies into the launch's parameters, the workspace size and the plan's
+    ints (``FUSED_PLAN_INTS``)."""
     widths = [layer["W"].shape[1] for layer in stage_params]
     widths.append(stage_params[-1]["W"].shape[0])
-    layers, loss_part, total, max_items = fused_train_layout(widths, rows, group_rows)
+    layers, row_loss, total = fused_train_layout(widths, rows)
+    plan = fused_plan(widths, rows, group_rows, clip_norm is not None)
     header = dict(
         L=len(layers), OPT=_OPT_CODES[kind], ROWS=rows, GROUP_ROWS=group_rows,
-        N_GROUPS=rows // group_rows, LOSS_PART=loss_part,
+        N_GROUPS=rows // group_rows, ROW_LOSS=row_loss,
         T=scalars[0].data_ptr() if scalars else 0,
         HAS_CLIP=int(clip_norm is not None), HAS_DECAY=int(bool(weight_decay)),
     )
@@ -617,7 +683,8 @@ def _fused_train_table(stage_params, mirrors, scalars, kind, rows, group_rows,
             rec[name + "W"] = mirrors[i][l]["W"].data_ptr() if has else 0
             rec[name + "B"] = mirrors[i][l]["b"].data_ptr() if has else 0
         content += [rec[k] for k in TABLE_LAYER]
-    return torch.tensor(content, dtype=torch.int64), total, max_items
+    ints = tuple(plan[k] for k in FUSED_PLAN_INTS)
+    return torch.tensor(content, dtype=torch.int64), total, ints
 
 
 def fused_train_call(
@@ -710,7 +777,7 @@ def fused_train_call(
             f"fused_train: needs at least one batch of rows divisible by group_rows, "
             f"got {nb} batches of {rows} rows, group_rows={group_rows}"
         )
-    table, ws_floats, max_items = _fused_train_table(
+    table, ws_floats, plan_ints = _fused_train_table(
         stage_params, mirrors, scalars, opt["kind"], rows, group_rows, relu_flags,
         clip_norm, weight_decay,
     )
@@ -727,5 +794,5 @@ def fused_train_call(
     epochs = 1 if n_epochs is None else n_epochs
     loss = torch.empty((epochs,), dtype=torch.float32, device=dev)
     ws = torch.empty((ws_floats,), dtype=torch.float32, device=dev)
-    _launch("fused_train", X, Y, loss, ws, table, hyper, nb, epochs, max_items)
+    _launch("fused_train", X, Y, loss, ws, table, hyper, nb, epochs, *plan_ints)
     return stage_params, list(mirrors), list(scalars), loss if n_epochs else loss[0]

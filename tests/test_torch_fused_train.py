@@ -371,8 +371,8 @@ def test_budget_predicates_are_the_jax_packages():
 
 def test_table_and_hyper_fields_match_the_source():
     """The Python side of the operand table (field names and order, the
-    header length, the tile edge, the hyperparameters' order) is the CUDA
-    source's: a mismatch would show only on the card."""
+    header length, the partition's tiles, the hyperparameters' order) is the
+    CUDA source's: a mismatch would show only on the card."""
     import re
 
     src = (_build.CSRC / "fused_train.cu").read_text()
@@ -385,7 +385,12 @@ def test_table_and_hyper_fields_match_the_source():
     assert enum("Layer") == tuple(f"R_{f}" for f in cuda_ops.TABLE_LAYER)
     assert f"constexpr int HEADER_LEN = {cuda_ops.TABLE_HEADER_LEN};" in src
     assert f"constexpr int LAYER_LEN = {len(cuda_ops.TABLE_LAYER)};" in src
-    assert f"constexpr int T = {cuda_ops.FUSED_TILE};" in src
+    for name, value in (("ROW_TILE", cuda_ops.FUSED_ROW_TILE), ("COL_TILE", cuda_ops.FUSED_COL_TILE),
+                        ("KC", cuda_ops.FUSED_KC), ("DW_N", cuda_ops.FUSED_DW_N),
+                        ("DW_K", cuda_ops.FUSED_DW_K), ("MAX_CLUSTER", cuda_ops.FUSED_CLUSTER)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "constexpr int WARPS = THREADS / 32;" in src
+    assert f"constexpr int THREADS = {32 * cuda_ops.FUSED_WARPS};" in src
     assert f"constexpr int MAX_LAYERS = {cuda_ops.FUSED_MAX_LAYERS};" in src
     hyper = re.search(r"struct Hyper \{ float ([^;]*); \};", src).group(1)
     assert tuple(f.strip() for f in hyper.split(",")) == cuda_ops.HYPER
@@ -396,27 +401,23 @@ def test_table_and_hyper_fields_match_the_source():
                                                ((5, 3), 7, 7)])
 def test_workspace_layout_regions_are_disjoint(widths, rows, group):
     """Every region of the kernel's workspace has its size, none overlaps
-    another, and they fill the total; max_items is the largest phase."""
-    layers, loss_part, total, max_items = cuda_ops.fused_train_layout(widths, rows, group)
-    t = lambda n: -(-n // cuda_ops.FUSED_TILE)  # noqa: E731
-    regions = [(loss_part, rows // group)]
+    another, and they fill the total; the clip's regions hold one sum per dW
+    tile and per column of tiles."""
+    layers, row_loss, total = cuda_ops.fused_train_layout(widths, rows)
+    regions = [(row_loss, rows)]
     for l, rec in enumerate(layers):
         K, N = widths[l], widths[l + 1]
+        tn, tk = cuda_ops.dw_tile_grid(N, K)
         assert (rec["K"], rec["N"]) == (K, N)
         assert rec["ACT_IN"] == (layers[l - 1]["ACT_OUT"] if l else -1)
         regions += [(rec["ACT_OUT"], rows * N), (rec["G"], rows * N), (rec["DW"], N * K),
-                    (rec["DB"], N), (rec["SQW"], t(N) * t(K)), (rec["SQB"], t(N))]
+                    (rec["DB"], N), (rec["SQW"], tn * tk), (rec["SQB"], tn)]
     regions.sort()
     assert regions[0][0] == 0
     for (a, n), (b, _) in zip(regions, regions[1:]):
         assert a + n == b
     assert regions[-1][0] + regions[-1][1] == total
-    assert max_items == max(
-        [rows // group]
-        + [t(rows) * t(widths[l + 1]) for l in range(len(layers))]
-        + [t(widths[l + 1]) * t(widths[l]) + (t(rows) * t(widths[l]) if l else 0)
-           for l in range(len(layers))]
-    )
+    assert cuda_ops.fused_plan(widths, rows, group)["n_items"] >= 1
 
 
 # ---------------------------------------------------------------------------
