@@ -114,6 +114,30 @@ in phases:
 9c. ``predict`` on a DP=2 x PP=4 session (the inference program, flag
    forward launches exact) against the card's sequential ``predict`` and
    the CPU mesh path on the same weights, within 1e-6.
+10. recovery on phase 6's split, every leg held to ``model_hash()``
+   (``SHALLOWSPEED_FAULTS`` is removed from the environment first; a leg
+   sets its own plan): 10a for each of the 4-microbatch path (B1/B3), the
+   epoch kernel (B10), the megakernel with Adam at lr 5e-5 (B9, its
+   mirrors and t) and DP=2 x PP=4 GPipe through the flag entries (B5/B7),
+   an uninterrupted twin of 2 epochs, then the same run with a step
+   checkpoint every 4 steps (keep 3) and ``faults="die@step=11"``, which
+   must raise ``InjectedFault`` with snapshots 4 and 8 on disk; a new
+   session with ``resume="auto"`` must restore step 8 with the hash the
+   killed run had there, launch exactly each kernel's count for the 24
+   steps left (one epoch-kernel launch per grid chunk) and end bitwise on
+   the twin's hash; 10b the 4-microbatch path with the async writer and
+   ``die@save=2``: the failure surfaces on the training thread at the
+   next save, snapshots [4, 8], the resume bitwise the twin; 10c
+   ``python -m shallowspeed_tpu_torch.train`` in three subprocesses: the
+   twin, a run killed by ``die@step=11:mode=sigkill`` (exit -9), and
+   ``--resume auto`` printing ``resumed at epoch 0, step 8`` and the
+   twin's ``final model hash:`` (which is also the session's); 10d
+   ``run_kernel`` for 2 epochs (B11), ``save``, ``verify_checkpoint`` and a
+   reload with the same hash (the epoch kernel twin's); 10e the card's
+   step-8 snapshot resumed on the CPU with the same hash, both finished
+   and held within the cross-engine class. Each leg prints its hashes,
+   launches, saves, a snapshot's bytes, the save's wall (sync; async: on
+   the step path) and its seconds.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -137,6 +161,8 @@ package.
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -317,6 +343,7 @@ def phase_device(torch, resolve_device):
         f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, TF32 matmul/cudnn off"
     )
+    return card
 
 
 def phase_build(build):
@@ -1545,6 +1572,266 @@ def phase_pipeline_predict(torch, cuda_ops, TrainingSession):
     )
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: recovery — step checkpoints, a kill, resume="auto", the hash
+# ---------------------------------------------------------------------------
+
+RECOVERY_EVERY = 4  # the step grid
+RECOVERY_DIE = 11  # die@step=11: the last grid save before it is step 8
+RECOVERY_KEEP = 3
+# (label, the session's options): the four paths of 10a, with the kernels
+# each one launches
+RECOVERY_PATHS = (
+    ("4 microbatches (B1/B3)", dict()),
+    ("fused epoch kernel (B10)", dict(fuse_mubatches=True, epoch_kernel=True)),
+    (
+        "fused megakernel, Adam lr 5e-5 (B9)",
+        dict(fuse_mubatches=True, megakernel=True, optimizer="adam", lr=5e-5),
+    ),
+    (
+        "DP=2 x PP=4 GPipe pallas (B5/B7)",
+        dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"),
+    ),
+)
+
+
+def _grid_chunks(start, nb, epochs, every=RECOVERY_EVERY):
+    """The ``train_steps`` chunks of the CLI's step loop from global step
+    ``start`` to the end of ``epochs``: cut at the grid and at epochs."""
+    chunks, gs = 0, start
+    while gs < epochs * nb:
+        gs += min(every - gs % every, nb - gs % nb)
+        chunks += 1
+    return chunks
+
+
+def _recovery_drive(session, epochs, hashes, walls, saves=True, drain_first=False):
+    """The CLI's step loop (``shallowspeed_tpu_torch/train.py``): chunks cut
+    at the grid, a step checkpoint on it (its on-path wall into ``walls``,
+    the session's hash after it into ``hashes``). ``drain_first``: wait for
+    the async writer's previous save before each save, so a writer failure
+    surfaces at the next grid step, before a later snapshot is queued."""
+    nb = session.batches_per_epoch
+    while session.epoch < epochs:
+        n = min(RECOVERY_EVERY - session.global_step % RECOVERY_EVERY, nb - session.step_in_epoch)
+        session.train_steps(n)
+        if saves and session.global_step % RECOVERY_EVERY == 0:
+            if drain_first:
+                session.drain_checkpoints()
+            t0 = time.perf_counter()
+            session.save_step_checkpoint()
+            walls.append(time.perf_counter() - t0)
+            hashes[session.global_step] = session.model_hash()
+
+
+def _want_resumed(kw):
+    """Each kernel's launches for the resumed run's remaining steps (steps
+    8..31 of 2 epochs of 16): per step on the microbatch and mesh paths, per
+    batch on the megakernel, per grid chunk on the epoch kernel."""
+    steps = 2 * TRAIN_BATCHES - 8
+    relu_layers = len(FLAGSHIP) - 2
+    if kw.get("epoch_kernel"):
+        return {"fused_train": _grid_chunks(8, TRAIN_BATCHES, 2)}
+    if kw.get("megakernel"):
+        return {"fused_train": steps}
+    if kw.get("dp"):
+        per_step = kw["dp"] * 4 * FLAGSHIP_LINEARS
+        return {"linear_flag_fwd": per_step * steps, "linear_flag_bwd": per_step * steps}
+    return {"linear_act_fwd": relu_layers * 4 * steps, "linear_act_bwd": relu_layers * 4 * steps}
+
+
+def _kill_and_resume(torch, cuda_ops, TrainingSession, F, ckpt, data_dir, ck, kw,
+                     faults=None, async_checkpoint=False, twin_hash=None, keep_step8=None):
+    """One kill-and-resume of 2 epochs from the card's step checkpoints in
+    ``ck``; fails unless the killed run stopped at the fault with snapshots
+    4 and 8, the resume restored step 8 with the hash the killed run had
+    there, launched exactly ``_want_resumed`` and ended bitwise on
+    ``twin_hash``; ``keep_step8``: where to copy the step-8 snapshot
+    before the resumed run rotates it away. Returns (how it died, hashes, save walls, snapshot bytes,
+    launches, the resumed run's save walls, the resumed session)."""
+    hashes, walls, resumed_walls = {}, [], []
+    faults = faults or f"die@step={RECOVERY_DIE}"
+    killed = TrainingSession(
+        device="cuda", data_dir=data_dir, checkpoint_dir=ck, checkpoint_keep=RECOVERY_KEEP,
+        faults=faults, async_checkpoint=async_checkpoint, **kw,
+    )
+    try:
+        _recovery_drive(killed, 2, hashes, walls, drain_first=async_checkpoint)
+    except F.InjectedFault as e:
+        died = (killed.global_step, str(e))
+    else:
+        fail(f"recovery {kw}: {faults} never fired")
+    if async_checkpoint:
+        killed.close()
+    steps = [gs for gs, _ in ckpt.list_step_checkpoints(ck)]
+    if steps != [4, 8]:
+        fail(f"recovery {kw} {faults}: snapshots {steps}, want [4, 8]")
+    nbytes = ckpt.step_checkpoint_path(ck, 8).stat().st_size
+    if keep_step8 is not None:
+        shutil.copy(ckpt.step_checkpoint_path(ck, 8), keep_step8)
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    resumed = TrainingSession(
+        device="cuda", data_dir=data_dir, checkpoint_dir=ck, checkpoint_keep=RECOVERY_KEEP,
+        resume="auto", **kw,
+    )
+    if resumed.resumed_from != str(ckpt.step_checkpoint_path(ck, 8)):
+        fail(f"recovery {kw}: resumed from {resumed.resumed_from}, want step 8")
+    if resumed.model_hash() != hashes[8]:
+        fail(f"recovery {kw}: hash {resumed.model_hash()} at the resume, {hashes[8]} at the save")
+    _recovery_drive(resumed, 2, {}, resumed_walls)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+    if launches != _want_resumed(kw):
+        fail(f"recovery {kw}: resumed launches {launches}, want {_want_resumed(kw)}")
+    if resumed.model_hash() != twin_hash:
+        fail(f"recovery {kw}: resumed hash {resumed.model_hash()}, twin {twin_hash}")
+    return died, hashes, walls, nbytes, launches, resumed_walls, resumed
+
+
+def _cli(data_dir, ck, *extra, faults=None):
+    """``python -m shallowspeed_tpu_torch.train`` on the card from the
+    checkout, 2 epochs without eval; returns (exit code, stdout)."""
+
+    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
+    if faults:
+        env["SHALLOWSPEED_FAULTS"] = faults
+    root = Path(__file__).resolve().parent
+    env["PYTHONPATH"] = str(root)
+    argv = [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
+            "--epochs", "2", "--no-eval", *extra]
+    if ck is not None:
+        argv += ["--checkpoint-dir", str(ck), "--checkpoint-every-steps", str(RECOVERY_EVERY)]
+    proc = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _hash_line(rc, out, err, label):
+    lines = out.splitlines()
+    if rc != 0 or not lines or not lines[-1].startswith("final model hash: "):
+        fail(f"recovery CLI {label}: exit {rc}, last lines {lines[-3:]}, stderr {err[-500:]}")
+    return lines[-1].split(": ", 1)[1]
+
+
+def phase_recovery(torch, cuda_ops, TrainingSession, data_dir, card):
+    """10: step checkpoints, kills and ``resume="auto"`` on the card,
+    every leg held to hashes (``model_hash``)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch import checkpoint as ckpt
+    from shallowspeed_tpu_torch import faults as F
+
+    t_phase = time.perf_counter()
+    root = Path(data_dir) / "recovery"
+    twins, reports, sync_walls, async_walls = {}, [], [], []
+
+    # 10a: kill at step 11 and resume, on the four paths
+    for i, (label, kw) in enumerate(RECOVERY_PATHS):
+        t0 = time.perf_counter()
+        twin = TrainingSession(device="cuda", data_dir=data_dir, **kw)
+        for _ in range(2):
+            twin.train_epoch()
+        twins[i] = twin.model_hash()
+        ck = root / f"10a-{i}"
+        died, hashes, walls, nbytes, launches, walls2, resumed = _kill_and_resume(
+            torch, cuda_ops, TrainingSession, F, ckpt, data_dir, ck, kw, twin_hash=twins[i],
+            keep_step8=root / "card-step8.npz" if i == 0 else None,
+        )
+        walls += walls2
+        if i == 0:
+            sync_walls += walls
+            card_at_8, card_end = hashes[8], resumed
+        reports.append(
+            f"10a {label}: {died[1]!r} at step {died[0]}; resumed from step 8 "
+            f"(hash {hashes[8][:12]}), {launches}, hash {resumed.model_hash()[:12]} = "
+            f"twin's bitwise; {len(walls)} saves of {nbytes} B, save "
+            f"{np.median(walls) * 1e3:.3f} ms (median); {time.perf_counter() - t0:.2f} s"
+        )
+
+    # 10b: the async writer dies inside save 2 (step 12) and says so on the
+    # training thread at the next save
+    t0 = time.perf_counter()
+    died, hashes, walls, nbytes, launches, _, _ = _kill_and_resume(
+        torch, cuda_ops, TrainingSession, F, ckpt, data_dir, root / "10b", {},
+        faults="die@save=2", async_checkpoint=True, twin_hash=twins[0],
+    )
+    if died[0] != 16 or "die@save=2" not in died[1]:
+        fail(f"recovery 10b: the writer's failure surfaced as {died}, want at step 16's save")
+    async_walls += walls
+    reports.append(
+        f"10b async writer, die@save=2: {died[1]!r} on the training thread at step "
+        f"{died[0]}; snapshots [4, 8]; resumed hash {twins[0][:12]} = twin's bitwise, "
+        f"{launches}; {len(walls)} async saves of {nbytes} B, on-path "
+        f"{np.median(walls) * 1e3:.3f} ms (median); {time.perf_counter() - t0:.2f} s"
+    )
+
+    # 10c: a real SIGKILL through the CLI, then --resume auto
+    t0 = time.perf_counter()
+    twin_cli = _hash_line(*_cli(data_dir, None), "twin")
+    if twin_cli != twins[0]:
+        fail(f"recovery 10c: the CLI's twin hash {twin_cli} is not the session's {twins[0]}")
+    ck = root / "10c"
+    rc, out, err = _cli(data_dir, ck, faults=f"die@step={RECOVERY_DIE}:mode=sigkill")
+    if rc != -9 or "final model hash" in out:
+        fail(f"recovery 10c: the killed CLI exited {rc}, want -9; stderr {err[-500:]}")
+    rc, out, err = _cli(data_dir, ck, "--resume", "auto")
+    if "resumed at epoch 0, step 8" not in out:
+        fail(f"recovery 10c: the resumed CLI printed {out.splitlines()[:2]}")
+    resumed_cli = _hash_line(rc, out, err, "resumed")
+    if resumed_cli != twin_cli:
+        fail(f"recovery 10c: resumed CLI hash {resumed_cli}, twin {twin_cli}")
+    reports.append(
+        f"10c CLI: SIGKILL at step {RECOVERY_DIE} exited -9, --resume auto resumed at "
+        f"epoch 0, step 8, final model hash {resumed_cli[:12]} = twin CLI's = the "
+        f"session's; {time.perf_counter() - t0:.2f} s"
+    )
+
+    # 10d: the whole-run kernel (B11), saved and reloaded
+    t0 = time.perf_counter()
+    kw = dict(data_dir=data_dir, fuse_mubatches=True, run_kernel=True)
+    run = TrainingSession(device="cuda", **kw)
+    run.train_run(2, with_eval=False)
+    path = root / "run.npz"
+    t1 = time.perf_counter()
+    run.save(path)
+    run_save = time.perf_counter() - t1
+    meta = ckpt.verify_checkpoint(path, require_finite=True)
+    again = TrainingSession(device="cuda", resume=path, **kw)
+    if again.model_hash() != run.model_hash() or again.epoch != 2 or meta["epoch"] != 1:
+        fail(f"recovery 10d: reloaded hash {again.model_hash()} (epoch {again.epoch}), saved {run.model_hash()}")
+    if run.model_hash() != twins[1]:
+        fail(f"recovery 10d: the run kernel's hash {run.model_hash()} is not 2 epoch kernels' {twins[1]}")
+    reports.append(
+        f"10d run kernel: save {path.stat().st_size} B in {run_save * 1e3:.3f} ms, "
+        f"verifies, reloads to hash {run.model_hash()[:12]} (= the epoch kernel twin's); "
+        f"{time.perf_counter() - t0:.2f} s"
+    )
+
+    # 10e: the card's step-8 snapshot resumed on the CPU
+    t0 = time.perf_counter()
+    cpu = TrainingSession(device="cpu", data_dir=data_dir, resume=root / "card-step8.npz")
+    if cpu.model_hash() != card_at_8 or (cpu.epoch, cpu.step_in_epoch) != (0, 8):
+        fail(f"recovery 10e: CPU hash {cpu.model_hash()} at the handover, card {card_at_8}")
+    _recovery_drive(cpu, 2, {}, [], saves=False)
+    worst = _params_close(card_end, cpu, "recovery 10e")
+    reports.append(
+        f"10e card -> CPU: hash {card_at_8[:12]} equal at the handover; after 24 more "
+        f"steps card vs CPU params max |diff| {worst:.3e} (within rtol {TRAIN_RTOL}, "
+        f"atol {TRAIN_ATOL}); {time.perf_counter() - t0:.2f} s"
+    )
+    for line in reports:
+        say(f"  {line}")
+    say(
+        f"phase 10 recovery: ok: kill at step {RECOVERY_DIE} and resume=\"auto\" bitwise "
+        f"the twin on {len(RECOVERY_PATHS)} paths, the async writer's failure surfaced, "
+        f"SIGKILL + --resume auto through the CLI, the run kernel saved and reloaded, "
+        f"card -> CPU; save wall {np.median(sync_walls) * 1e3:.3f} ms sync, "
+        f"{np.median(async_walls) * 1e3:.3f} ms async on-path (medians, {card}); "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
+
+
 def main():
     import torch
 
@@ -1557,7 +1844,10 @@ def main():
         from shallowspeed_tpu_torch.serving import loadgen
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the root of a checkout")
-    phase_device(torch, resolve_device)
+    # an inherited fault plan would make the phases' train_epoch refuse; the
+    # recovery phase sets its plans per session
+    os.environ.pop("SHALLOWSPEED_FAULTS", None)
+    card = phase_device(torch, resolve_device)
     phase_build(_build)
     slot, fwd_err = phase_kernels(torch, cuda_ops)
     phase_row_independence(torch, cuda_ops)
@@ -1576,9 +1866,10 @@ def main():
         with flag_shapes_seen(cuda_ops, seen):
             flag_launches, _ = phase_pipeline_training(torch, cuda_ops, TrainingSession, tmp)
             phase_pipeline_predict(torch, cuda_ops, TrainingSession)
+            phase_recovery(torch, cuda_ops, TrainingSession, tmp, card)
         if not seen or seen - checked:
-            fail(f"phases 9b/9c launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
-        say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b and 9c launched was checked in 9a")
+            fail(f"phases 9b, 9c and 10 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
+        say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b, 9c and 10 launched was checked in 9a")
     entries = [
         ("linear_act_fwd", "linear_act_fwd", serving["linear_act_fwd"], fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd", training["linear_act_bwd"], bwd_err, mub),

@@ -36,19 +36,39 @@ with ``serving/slots.pack_slots``). A fixed slot shape is what makes a
 request's rows give the same bits whatever rides beside them, which the
 serving engine's "response == direct predict()" contract needs.
 
+Fault tolerance, as the JAX session's: ``checkpoint_dir`` with
+``save_step_checkpoint`` (sync, or through the async writer) writes
+checksummed, rotating step snapshots in the JAX package's format;
+``resume="auto"`` continues from the newest one that verifies; ``faults``
+(or ``SHALLOWSPEED_FAULTS``) kills, poisons or corrupts the run at a pinned
+step or save; ``model_hash`` is the reference's weight hash.
+
 Not in this slice, and refused with a pointer to their ROADMAP.md item:
 the multi-card runtime (``runtime="mpmd"``), tp, ZeRO, gradient buckets,
 the split backward, recompute, interleaved schedules, gelu models on the
-mesh, metrics/health/digests, fault injection and checkpoint writing.
+mesh, and metrics/health/digests.
 """
+
+import threading
 
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import convert, resolve_device, trainer
+from shallowspeed_tpu_torch import convert, resolve_device, trainer, utils
+from shallowspeed_tpu_torch import faults as F
 from shallowspeed_tpu_torch import model as Mo
 from shallowspeed_tpu_torch import schedules as S
-from shallowspeed_tpu_torch.checkpoint import load_checkpoint
+from shallowspeed_tpu_torch.checkpoint import (
+    AsyncCheckpointWriter,
+    CheckpointError,
+    assemble_checkpoint,
+    build_snapshot,
+    find_latest_good,
+    load_checkpoint,
+    run_save_stages,
+    save_checkpoint,
+    step_checkpoint_path,
+)
 from shallowspeed_tpu_torch.data import Dataset
 from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
@@ -65,7 +85,7 @@ FLAGSHIP_LR = 0.006
 
 def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, backward_split,
                      recompute, virtual_stages, schedule, runtime, metrics,
-                     health, digests, faults, checkpoint_dir):
+                     health, digests):
     lattice = [
         (tp != 1, f"tp={tp}: tensor parallelism"),
         (bool(zero1) or bool(zero), f"zero={zero if zero is not None else int(bool(zero1))}: ZeRO"),
@@ -80,24 +100,19 @@ def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, backward_split,
             raise NotImplementedError(
                 f"{what} is not ported yet; the port's executor runs dp x pp "
                 "with the naive, gpipe and pipedream schedules (ROADMAP.md §A "
-                "item 6b)"
+                "item 3)"
             )
     if runtime != "lockstep":
         raise NotImplementedError(
             f"runtime={runtime!r}: the multi-card runtime (one process per rank "
             "over torch.distributed) is not ported yet; the port runs the "
             "lockstep executor over a virtual mesh on one device (ROADMAP.md "
-            "§A item 6)"
+            "§A item 7)"
         )
     if metrics is not None or health is not None or digests:
         raise NotImplementedError(
             "metrics, health and digests come with the port's observability "
-            "(ROADMAP.md §A item 7)"
-        )
-    if faults is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "fault injection and checkpoint writing come with the port's "
-            "checkpoint/faults slice (ROADMAP.md §A item 3)"
+            "(ROADMAP.md §A item 4)"
         )
 
 
@@ -119,7 +134,15 @@ class TrainingSession:
     ``run_kernel`` excludes the other two): the fused train kernel per
     batch, per epoch, or per whole eval-free run. ``resume``: a
     checkpoint path whose params, optimizer state and epoch/step cursor
-    this session continues from. ``predict_slot_rows``/
+    this session continues from, or ``"auto"``: the newest step snapshot
+    in ``checkpoint_dir`` that verifies (an empty directory is a fresh
+    start; snapshots of which none verifies raise ``CheckpointError``).
+    ``checkpoint_dir``/``checkpoint_keep``: where ``save_step_checkpoint``
+    writes ``step-<global_step>.npz`` and how many it keeps;
+    ``async_checkpoint``/``checkpoint_queue``: the default save mode (the
+    background writer) and its in-flight window. ``faults``: a fault
+    plan, its spec string, or None to read ``SHALLOWSPEED_FAULTS``
+    (``faults.py``). ``predict_slot_rows``/
     ``predict_slot_ladder``: the slot geometry (``serving/slots.py``).
     ``dp``/``pp``/``schedule`` (naive|gpipe|pipedream): the mesh layout,
     run by the lockstep pipeline executor over a virtual mesh on the
@@ -128,7 +151,8 @@ class TrainingSession:
     layouts only, as in the JAX package). ``tp``, ``zero``/``zero1``,
     ``grad_bucket_bytes``, ``backward_split``, ``recompute``,
     ``virtual_stages`` and ``runtime`` are the JAX session's names for
-    layouts the port does not run yet; anything but their defaults raises.
+    layouts the port does not run yet, and ``metrics``, ``health`` and
+    ``digests`` its observability; anything but their defaults raises.
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -167,6 +191,9 @@ class TrainingSession:
         digests=False,
         faults=None,
         checkpoint_dir=None,
+        checkpoint_keep=3,
+        async_checkpoint=False,
+        checkpoint_queue=2,
         predict_slot_rows=None,
         predict_slot_ladder=None,
         device=None,
@@ -186,9 +213,26 @@ class TrainingSession:
             )
         _refuse_unported(
             tp, zero1, zero, grad_bucket_bytes, backward_split, recompute,
-            virtual_stages, schedule, runtime, metrics, health, digests, faults,
-            checkpoint_dir,
+            virtual_stages, schedule, runtime, metrics, health, digests,
         )
+        if checkpoint_keep < 1:
+            raise ValueError("checkpoint_keep must be >= 1")
+        if checkpoint_queue < 1:
+            raise ValueError("checkpoint_queue must be >= 1")
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_keep = int(checkpoint_keep)
+        self._async_ckpt_default = bool(async_checkpoint)
+        self._ckpt_queue = int(checkpoint_queue)
+        self._ckpt_writer = None
+        # paths THIS session wrote finite: rotation trusts them without
+        # re-reading (their checksums were computed in-process). The async
+        # writer's completions add to it, so it is guarded by a lock.
+        self._trusted_snapshots = set()
+        self._trusted_lock = threading.Lock()
+        # the @save=N fault anchor: every save this session attempts
+        self._save_seq = 0
+        self._faults = F.make_plan(faults)
+        self.resumed_from = None  # path of the restored snapshot, if any
         if model is not None:
             sizes, act = Mo.resolve_model(model)
         else:
@@ -251,7 +295,7 @@ class TrainingSession:
         if act != "relu" and not self._sequential:
             raise NotImplementedError(
                 f"the {model!r} model (act={act!r}) on a mesh layout: the port's "
-                "executor runs the relu family only (ROADMAP.md §A item 6b)"
+                "executor runs the relu family only (ROADMAP.md §A item 3)"
             )
         self._kernel_backend = kernel_backend
         self.B, self.M = int(global_batch_size), int(mubatches)
@@ -280,10 +324,21 @@ class TrainingSession:
             self._load_train(data_dir)
 
         host_opt_state = None
+        verified = None  # (meta, arrays) of the snapshot discovery verified
+        if resume == "auto":
+            resume, verified = self._discover_resume()
         if resume is not None:
-            host_params, loaded_spec, meta, host_opt_state = load_checkpoint(
-                resume, pp, self.B, with_opt_state=True
-            )
+            if verified is not None:
+                # assemble from the arrays discovery read and checksummed:
+                # one read, and nothing can rot or rotate away in between
+                host_params, loaded_spec, meta, host_opt_state = assemble_checkpoint(
+                    resume, *verified, pp, self.B, with_opt_state=True
+                )
+            else:
+                host_params, loaded_spec, meta, host_opt_state = load_checkpoint(
+                    resume, pp, self.B, with_opt_state=True
+                )
+            self.resumed_from = str(resume)
             self._check_compatible(loaded_spec, "the requested model")
             self.spec = loaded_spec
             if data_dir is not None:
@@ -345,6 +400,31 @@ class TrainingSession:
             if predict_slot_ladder is not None
             else serving_slots.DEFAULT_SLOT_LADDER
         )
+
+    def _discover_resume(self):
+        """``resume="auto"``: the newest step snapshot in the checkpoint
+        directory that verifies (checksum, finiteness), as ``(path, (meta,
+        arrays))``, or ``(None, None)`` for an empty or missing directory
+        (a fresh start). Corrupt, torn and non-finite snapshots are skipped;
+        when snapshots exist and none verifies, ``CheckpointError`` names
+        each one's cause."""
+        if self._ckpt_dir is None:
+            raise ValueError(
+                "resume='auto' discovers snapshots in the step-checkpoint "
+                "directory — pass checkpoint_dir"
+            )
+        path, meta, arrays, skipped = find_latest_good(self._ckpt_dir, with_arrays=True)
+        if path is None and skipped:
+            raise CheckpointError(
+                self._ckpt_dir,
+                "no snapshot verifies: "
+                + "; ".join(f"{p.name}: {c}" for p, c in skipped)
+                + " (non-finite snapshots are skipped by design — delete the "
+                "directory to start fresh)",
+            )
+        if path is None:
+            return None, None
+        return path, (meta, arrays)
 
     def _load_train(self, data_dir):
         ds = Dataset(data_dir, self.B, mubatch_size=self.B // self.M)
@@ -442,7 +522,14 @@ class TrainingSession:
         """Train up to ``n`` optimizer steps of the CURRENT epoch (clipped at
         the epoch boundary): the epoch function over a slice of the batch
         axis, so chunked training applies the same per-batch updates in the
-        same order as one whole epoch (bitwise-identical weights).
+        same order as one whole epoch (bitwise-identical weights), while the
+        host regains control between chunks to write step checkpoints.
+
+        Fault injection: every un-fired fault at this chunk's first step
+        fires before the dispatch, in spec order (``die`` raises or
+        SIGKILLs before the step trains, ``nan``/``flip`` poison the
+        weights it reads); a later fault inside the chunk cuts the chunk at
+        its step, so it fires at the start of the next call.
 
         Returns ``(steps_trained, epoch_mean_loss_or_None)``: the mean loss
         is reported on the call that completes the epoch, the chunks' means
@@ -453,6 +540,21 @@ class TrainingSession:
         nb = self.batches_per_epoch
         k0 = self.step_in_epoch
         k1 = min(k0 + n, nb)
+        if self._faults:
+            g0 = self.epoch * nb + k0
+            fault = self._faults.first_in(g0, g0 + (k1 - k0))
+            while fault is not None and fault.step == g0:
+                if fault.kind == "die":
+                    self._faults.fire_die(fault)  # SIGKILL never returns
+                elif fault.kind == "nan":
+                    fault.fired = True
+                    self.poison_weights()
+                elif fault.kind == "flip":
+                    fault.fired = True
+                    self.flip_weights()
+                fault = self._faults.first_in(g0, g0 + (k1 - k0))
+            if fault is not None:
+                k1 = k0 + (fault.step - g0)  # the fault lands on a boundary
         loss = float(self._run_epoch_fn(k0, k1))  # waits for the device
         steps = k1 - k0
         self.step_in_epoch = k1
@@ -472,6 +574,7 @@ class TrainingSession:
         training loss (the global-batch-scaled MSE of each batch under its
         pre-update params, averaged over the epoch)."""
         self._require_data("train_epoch")
+        self._refuse_pending_faults("train_epoch")
         if self.step_in_epoch != 0:
             raise ValueError(
                 f"epoch {self.epoch} is mid-flight at step {self.step_in_epoch} "
@@ -480,6 +583,25 @@ class TrainingSession:
         loss = float(self._run_epoch_fn(0, self.batches_per_epoch))  # waits for the device
         self.epoch += 1
         return loss
+
+    @property
+    def faults_active(self):
+        """True when a fault-injection plan is loaded (argument or
+        environment): the caller must then use ``train_steps`` so the
+        injections land on their steps."""
+        return bool(self._faults)
+
+    def _refuse_pending_faults(self, entry):
+        """Injections fire at step boundaries, which only ``train_steps``
+        has: a whole-epoch or whole-run dispatch would sail past them, and
+        a recovery harness expecting the kill would take the uninjected run
+        for a survived crash. Refuse instead."""
+        if self._faults and self._faults.pending:
+            raise ValueError(
+                f"{entry}() cannot honor the pending fault injection(s) "
+                f"{self._faults.pending!r}: injections land on step "
+                "boundaries — drive this run with train_steps()"
+            )
 
     def _state_args(self):
         """The layout's leading state arguments of its epoch/run functions."""
@@ -508,6 +630,7 @@ class TrainingSession:
         accuracy is one forward over the whole validation split. Under
         ``run_kernel`` the eval-free run is one kernel launch."""
         self._require_data("train_run")
+        self._refuse_pending_faults("train_run")
         if epochs <= 0:
             raise ValueError("epochs must be positive")
         if self.step_in_epoch != 0:
@@ -668,7 +791,8 @@ class TrainingSession:
     # -- state --------------------------------------------------------------
 
     def params(self):
-        """Logical per-stage params (host numpy), the JAX pytree layout."""
+        """Logical per-stage params (host numpy copies, which later steps
+        never touch), the JAX pytree layout."""
         if self._sequential:
             return convert.params_to_numpy(self._params)
         return convert.stacked_to_numpy(self._stacked, self.spec)
@@ -695,3 +819,133 @@ class TrainingSession:
             # the session's flags stay: only the weight planes swap
             self._stacked = convert.stacked_from_numpy(host_params, self.spec, self.device)[0]
         return meta
+
+    def model_hash(self) -> str:
+        """The reference's weight hash of ``params()`` (``utils.model_hash``):
+        the same on every layout, and the JAX package's for the same bytes."""
+        return utils.model_hash(self.params())
+
+    def assert_replicas_in_sync(self):
+        """The dp replica-sync check. The lockstep executor keeps one
+        stacked copy for every dp replica, so it holds by construction;
+        ``utils.assert_dp_replicas_in_sync`` checks that layout."""
+        if not self._sequential:
+            utils.assert_dp_replicas_in_sync(self._stacked, self.spec)
+
+    def poison_weights(self):
+        """Fault-injection hook (``nan@step=N``): NaN into flat element 0 of
+        global layer 0's W, in the live tensor the next step reads."""
+        F.poison_nan(self._live_params())
+
+    def flip_weights(self):
+        """Fault-injection hook (``flip@step=N``): XOR the lowest mantissa
+        bit of the element ``poison_weights`` poisons, in place."""
+        F.poison_bitflip(self._live_params())
+
+    def _live_params(self):
+        """The params tree the next step reads (the tensors themselves)."""
+        return Mo.param_tree(self._params) if self._sequential else self._stacked
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save(self, path):
+        """Write params, optimizer state and the epoch to ``path`` (the
+        JAX session's epoch-boundary snapshot: a resume continues at the
+        next epoch). Mid-epoch state needs ``save_step_checkpoint``, whose
+        snapshot keeps the step cursor."""
+        if self.step_in_epoch != 0:
+            raise ValueError(
+                f"save() writes an epoch-boundary snapshot, but epoch "
+                f"{self.epoch} is at step {self.step_in_epoch}; use "
+                "save_step_checkpoint() to keep the step cursor"
+            )
+        return save_checkpoint(
+            path,
+            self.params(),
+            self.spec,
+            self.epoch - 1,
+            extra={"optimizer": self._opt_config},
+            opt_state=self.opt_state_logical(),
+        )
+
+    def save_step_checkpoint(self, async_=None):
+        """Write the resumable snapshot at the current ``global_step`` into
+        the checkpoint directory (``step-<global_step>.npz``: params,
+        optimizer state, step cursor, content checksum) and rotate down to
+        ``checkpoint_keep``. Returns the path.
+
+        ``async_`` (default: the session's ``async_checkpoint``): keep only
+        a host copy of the live state on the step path and hand the
+        snapshot build, verification, the write-fsync-rename sequence and
+        rotation to the background writer, behind a ``checkpoint_queue``
+        deep window whose ``submit`` blocks when full. The stages and their
+        crash windows are the synchronous path's (``run_save_stages``); a
+        writer-side failure re-raises here at the next save, or at
+        ``drain_checkpoints()``/``close()``.
+
+        Rotation is skipped whenever the snapshot just written is
+        non-finite or corrupted: a blown-up run's saves must never rotate
+        the last healthy snapshot away (``resume="auto"`` skips non-finite
+        ones). The snapshot just written counts as trusted."""
+        if self._ckpt_dir is None:
+            raise ValueError("no checkpoint_dir configured on this session")
+        if async_ is None:
+            async_ = self._async_ckpt_default
+        gs, epoch, sie = self.global_step, self.epoch, self.step_in_epoch
+        path = step_checkpoint_path(self._ckpt_dir, gs)
+        save_seq = self._save_seq
+        self._save_seq += 1
+        # the host copy of the live state: the training steps that follow
+        # update the device tensors (in place), never these arrays
+        params, opt_state = self.params(), self.opt_state_logical()
+        spec, opt_cfg = self.spec, dict(self._opt_config)
+
+        def build():
+            return build_snapshot(
+                params, spec, epoch, extra={"optimizer": opt_cfg},
+                opt_state=opt_state, step_in_epoch=sie, global_step=gs,
+            )
+
+        def completion(result):
+            # inline (sync) or on the writer thread (async). "trusted", not
+            # "all_finite": a corrupt-injected snapshot never verifies
+            if result["trusted"]:
+                with self._trusted_lock:
+                    self._trusted_snapshots.add(str(path))
+
+        with self._trusted_lock:
+            trusted_now = tuple(self._trusted_snapshots)
+        if not async_:
+            arrays, meta = build()
+            completion(
+                run_save_stages(
+                    path, arrays, meta, faults=self._faults, save_seq=save_seq,
+                    rotate_dir=self._ckpt_dir, rotate_keep=self._ckpt_keep,
+                    trusted=trusted_now,
+                )
+            )
+            return path
+        if self._ckpt_writer is None:
+            self._ckpt_writer = AsyncCheckpointWriter(
+                max_in_flight=self._ckpt_queue, faults=self._faults
+            )
+        self._ckpt_writer.submit(
+            path, None, None, save_seq,
+            rotate_dir=self._ckpt_dir, rotate_keep=self._ckpt_keep,
+            trusted=trusted_now, on_complete=completion, build=build,
+        )
+        return path
+
+    def drain_checkpoints(self):
+        """Block until every async snapshot in flight is durable; writer
+        failures re-raise here. A no-op when nothing was saved async."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain()
+
+    def close(self):
+        """Drain and stop the async checkpoint writer, re-raising any writer
+        failure. Idempotent; the session stays usable (a later async save
+        starts a new writer)."""
+        if self._ckpt_writer is not None:
+            writer, self._ckpt_writer = self._ckpt_writer, None
+            writer.close()

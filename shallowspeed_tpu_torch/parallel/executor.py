@@ -53,7 +53,7 @@ Python bool. Per slot unit, two backends:
 
 Masks stay ``torch.bool`` in the stash. Not ported here, and refused by
 ``make_pipeline_step``: virtual stages (interleaved), the split backward,
-recompute and the gelu family (``ROADMAP.md`` §A item 6b).
+recompute and the gelu family (``ROADMAP.md`` §A item 3).
 """
 
 import functools
@@ -296,7 +296,7 @@ def _check_program(mesh, spec, prog, kernel_backend):
     if spec.act != "relu":
         raise NotImplementedError(
             f"act={spec.act!r}: the port's executor runs the relu family only "
-            "(the gelu family on the mesh is ROADMAP.md §A item 6b)"
+            "(the gelu family on the mesh is ROADMAP.md §A item 3)"
         )
     for what, on in (
         ("virtual stages (interleaved)", prog.num_chunks != 1),
@@ -306,7 +306,7 @@ def _check_program(mesh, spec, prog, kernel_backend):
         if on:
             raise NotImplementedError(
                 f"{what}: not ported to the port's executor yet (ROADMAP.md §A "
-                "item 6b)"
+                "item 3)"
             )
     if prog.num_stages != mesh.pp or spec.n_stages != mesh.pp:
         raise ValueError(

@@ -17,9 +17,27 @@ through the fused train kernel: one launch per batch, per epoch, or per
 mesh layout through the lockstep pipeline executor (every rank on the one
 device), and ``--kernel-backend pallas`` puts its slots through the flag
 kernels.
+
+Preemption-safe runs, as the root ``train.py``'s::
+
+    SHALLOWSPEED_FAULTS=die@step=11:mode=sigkill python -m \
+        shallowspeed_tpu_torch.train --checkpoint-dir CK \
+        --checkpoint-every-steps 4 --epochs 2      # killed at step 11
+    python -m shallowspeed_tpu_torch.train --checkpoint-dir CK \
+        --checkpoint-every-steps 4 --epochs 2 --resume auto
+
+``--checkpoint-every-steps`` dispatches each epoch in chunks cut at the
+step grid (the same weights as whole epochs) and writes a step checkpoint
+at each grid step; ``--resume auto`` continues from the newest one that
+verifies, with ``--epochs`` as the run's TOTAL target. The run ends, as the
+root CLI's, with the accuracy line, ``DP replicas in sync ✓`` at dp > 1,
+and ``final model hash: <sha1>``, so the two runs' hash lines compare.
+Exit code 4 (``CHECKPOINT UNRECOVERABLE:``) when the checkpoint to resume
+from, or every snapshot in the directory, fails verification.
 """
 
 import argparse
+import os
 import sys
 import time
 
@@ -95,49 +113,127 @@ def main(argv=None):
         "and losses come back together at the end)",
     )
     ap.add_argument(
+        "--checkpoint", default=None,
+        help="path to save a checkpoint after each epoch (with --fused-run: "
+        "once, after the run)",
+    )
+    ap.add_argument(
+        "--checkpoint-dir", default=None,
+        help="directory for preemption-safe STEP checkpoints "
+        "(step-<global_step>.npz, atomic and checksummed) — needed by "
+        "--checkpoint-every-steps and --resume auto",
+    )
+    ap.add_argument(
+        "--checkpoint-every-steps", type=int, default=0, metavar="N",
+        help="write a step checkpoint into --checkpoint-dir every N optimizer "
+        "steps (0 = off); the epoch is dispatched in N-step chunks, the same "
+        "weights as whole epochs",
+    )
+    ap.add_argument(
+        "--keep", type=int, default=3, metavar="K",
+        help="step-checkpoint retention: keep the newest K snapshots",
+    )
+    ap.add_argument(
+        "--async-checkpoint", action="store_true",
+        help="write step checkpoints through the background writer: the step "
+        "path pays only a host copy of the state and an enqueue; the run "
+        "drains the writer before it exits",
+    )
+    ap.add_argument(
         "--resume", default=None,
-        help="checkpoint to continue from (params, optimizer state, cursor); "
-        "--epochs more epochs are trained",
+        help="checkpoint to continue from (params, optimizer state, cursor; "
+        "--epochs more epochs are trained), or 'auto': the newest VERIFYING "
+        "step checkpoint in --checkpoint-dir (a fresh start when there is "
+        "none), with --epochs as the run's TOTAL epoch target"
     )
     ap.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="cuda (the hand-written kernels) or cpu (the plain PyTorch path)",
     )
     args = ap.parse_args(argv)
+    # incoherent fault-tolerance flags fail at parse time, before any device
+    # or data is touched (the root train.py's checks and words)
+    if args.checkpoint_every_steps < 0:
+        ap.error("--checkpoint-every-steps must be >= 0")
+    if args.checkpoint_every_steps and args.checkpoint_dir is None:
+        ap.error("--checkpoint-every-steps needs --checkpoint-dir")
+    if args.checkpoint_every_steps and args.fused_run:
+        ap.error(
+            "--checkpoint-every-steps is incompatible with --fused-run: the "
+            "fused run is ONE dispatch, so there is no step boundary for the "
+            "host to checkpoint at — drop --fused-run for preemption-safe runs "
+            "(--checkpoint still saves once after the fused dispatch)"
+        )
+    if args.resume == "auto" and args.checkpoint_dir is None:
+        ap.error("--resume auto discovers snapshots in --checkpoint-dir")
+    if args.async_checkpoint and args.checkpoint_dir is None:
+        ap.error("--async-checkpoint needs --checkpoint-dir")
+    if args.resume == "auto" and args.fused_run:
+        ap.error(
+            "--resume auto may land mid-epoch, and the fused run has no "
+            "mid-epoch entry point — drop --fused-run to recover"
+        )
+    if args.keep < 1:
+        ap.error("--keep must be >= 1")
+    faults_env = os.environ.get("SHALLOWSPEED_FAULTS", "")
+    if args.fused_run and any(p.strip() for p in faults_env.split(",")):
+        ap.error(
+            f"SHALLOWSPEED_FAULTS={faults_env!r} is set but --fused-run "
+            "dispatches the whole run at once — step-granular injections can "
+            "never fire, and a recovery harness would mistake the uninjected "
+            "run for a survived crash; drop --fused-run (the fault harness "
+            "needs the step loop)"
+        )
 
     from shallowspeed_tpu_torch.api import TrainingSession
+    from shallowspeed_tpu_torch.checkpoint import CheckpointError
     from shallowspeed_tpu_torch.data import default_data_dir
 
-    run = TrainingSession(
-        dp=args.dp,
-        pp=args.pp,
-        schedule=args.schedule,
-        kernel_backend=args.kernel_backend,
-        model=args.model,
-        global_batch_size=args.global_batch_size,
-        mubatches=args.mubatches,
-        lr=args.lr,
-        data_dir=args.data_dir or default_data_dir(),
-        resume=args.resume,
-        fuse_mubatches=args.fuse_mubatches,
-        megakernel=args.megakernel,
-        epoch_kernel=args.epoch_kernel,
-        run_kernel=args.run_kernel,
-        optimizer=args.optimizer,
-        momentum=args.momentum,
-        weight_decay=args.weight_decay,
-        clip_norm=args.clip_norm,
-        device=args.device,
-    )
+    try:
+        run = TrainingSession(
+            dp=args.dp,
+            pp=args.pp,
+            schedule=args.schedule,
+            kernel_backend=args.kernel_backend,
+            model=args.model,
+            global_batch_size=args.global_batch_size,
+            mubatches=args.mubatches,
+            lr=args.lr,
+            data_dir=args.data_dir or default_data_dir(),
+            resume=args.resume,
+            fuse_mubatches=args.fuse_mubatches,
+            megakernel=args.megakernel,
+            epoch_kernel=args.epoch_kernel,
+            run_kernel=args.run_kernel,
+            optimizer=args.optimizer,
+            momentum=args.momentum,
+            weight_decay=args.weight_decay,
+            clip_norm=args.clip_norm,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_keep=args.keep,
+            async_checkpoint=args.async_checkpoint,
+            device=args.device,
+        )
+    except CheckpointError as e:
+        # the snapshot to resume from, or every one in the directory, fails
+        # verification: a distinct exit code, so a caller can tell "restore
+        # is impossible" from a crash
+        print(f"CHECKPOINT UNRECOVERABLE: {e}", file=sys.stderr)
+        return 4
     if args.fused_run and run.step_in_epoch > 0:
         ap.error(
             f"--resume {args.resume} restored a mid-epoch cursor (epoch "
             f"{run.epoch}, step {run.step_in_epoch}); drop --fused-run to "
             "finish the epoch step by step"
         )
-    note = f" resumed at epoch {run.epoch}" if args.resume else ""
-    if run.step_in_epoch:
-        note += f", step {run.step_in_epoch}"
+    note = ""
+    if args.resume:
+        if run.resumed_from is not None:
+            note = f" resumed at epoch {run.epoch}"
+            if run.step_in_epoch:
+                note += f", step {run.step_in_epoch}"
+        else:  # --resume auto on an empty checkpoint directory
+            note = " no resumable checkpoint found — fresh start"
     if run.sequential:
         layout = "sequential"
     elif args.pp > 1:
@@ -150,6 +246,34 @@ def main(argv=None):
     )
 
     t0 = time.time()
+    try:
+        final_acc = _train(run, args, t0)
+    except BaseException:
+        # every exceptional exit drains the async writer, so no accepted
+        # snapshot is stranded in its queue; a drain failure must not mask
+        # the exception already propagating
+        try:
+            run.close()
+        except Exception as e:  # noqa: BLE001 — never mask the exit
+            print(f"checkpoint writer drain failed: {e}", file=sys.stderr)
+        raise
+    # a clean exit leaves every accepted snapshot durable: writer failures
+    # re-raise here and fail the run
+    run.close()
+    print(
+        f"Epoch: {run.epoch}, Time Spent: {time.time() - t0:.2f}s, "
+        f"Accuracy: {final_acc * 100:.2f}%"
+    )
+    run.assert_replicas_in_sync()
+    if args.dp > 1:
+        print("DP replicas in sync ✓")
+    print("final model hash:", run.model_hash())
+    return 0
+
+
+def _train(run, args, t0):
+    """The epochs of the run, printing the root CLI's lines (``t0``: the
+    run's start on the host clock); returns the final accuracy."""
     if args.fused_run and args.epochs > 0:
         if not args.no_eval:
             print(f"Epoch: {run.epoch}, Accuracy: {run.accuracy() * 100:.2f}%")
@@ -159,26 +283,34 @@ def main(argv=None):
             print(f"Epoch: {start + e}, mean train loss: {loss:.5f}")
             if not args.no_eval and e < len(losses) - 1:
                 print(f"Epoch: {start + e + 1}, Accuracy: {accs[e] * 100:.2f}%")
-        final_acc = accs[-1] if accs else run.accuracy()
-    else:
-        target = run.epoch + args.epochs
-        while run.epoch < target:
-            if run.step_in_epoch:  # a mid-epoch resume: finish that epoch
-                _, loss = run.train_steps(run.batches_per_epoch - run.step_in_epoch)
-            else:
-                if not args.no_eval:
-                    print(
-                        f"Epoch: {run.epoch}, Time Spent: {time.time() - t0:.2f}s, "
-                        f"Accuracy: {run.accuracy() * 100:.2f}%"
-                    )
-                loss = run.train_epoch()
+        if args.checkpoint:
+            run.save(args.checkpoint)
+        return accs[-1] if accs else run.accuracy()
+    # the step loop: chunks cut at the checkpoint grid (and by train_steps
+    # at fault-injection steps); a snapshot whenever global_step lands on
+    # the grid. Under --resume auto --epochs is the TOTAL target, so a
+    # resumed run ends where its uninterrupted twin does
+    every = args.checkpoint_every_steps
+    target = args.epochs if args.resume == "auto" else run.epoch + args.epochs
+    nb = run.batches_per_epoch
+    while run.epoch < target:
+        if run.step_in_epoch == 0 and not args.no_eval:
+            print(
+                f"Epoch: {run.epoch}, Time Spent: {time.time() - t0:.2f}s, "
+                f"Accuracy: {run.accuracy() * 100:.2f}%"
+            )
+        if every > 0:
+            n = min(every - run.global_step % every, nb - run.step_in_epoch)
+        else:
+            n = nb - run.step_in_epoch
+        _, loss = run.train_steps(n)
+        if every > 0 and run.global_step % every == 0:
+            run.save_step_checkpoint()
+        if loss is not None:
             print(f"Epoch: {run.epoch - 1}, mean train loss: {loss:.5f}")
-        final_acc = run.accuracy()
-    print(
-        f"Epoch: {run.epoch}, Time Spent: {time.time() - t0:.2f}s, "
-        f"Accuracy: {final_acc * 100:.2f}%"
-    )
-    return 0
+            if args.checkpoint:
+                run.save(args.checkpoint)
+    return run.accuracy()
 
 
 if __name__ == "__main__":

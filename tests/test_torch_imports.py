@@ -61,6 +61,8 @@ def test_every_module_imports_without_jax():
         "shallowspeed_tpu_torch.parallel.executor",
         "shallowspeed_tpu_torch.analysis.progcheck",
         "shallowspeed_tpu_torch.analysis.stash",
+        "shallowspeed_tpu_torch.utils",
+        "shallowspeed_tpu_torch.faults",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -9,6 +9,8 @@ params within the cross-engine class ``rtol=2e-4, atol=2e-6``, accuracies
 within one sample, ``predict`` within 1e-6 on the same weights.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -185,7 +187,7 @@ def test_refusals(split):
             TorchSession(device="cpu", fuse_mubatches=True, **{flag: True}, **MESH)
     with pytest.raises(ValueError, match="hard-codes the relu/identity slot"):
         TorchSession(device="cpu", model="transformer", **MESH)
-    with pytest.raises(NotImplementedError, match="§A item 6b"):
+    with pytest.raises(NotImplementedError, match="§A item 3"):
         TorchSession(device="cpu", model="transformer", **dict(MESH, kernel_backend="xla"))
     for kw, match in (
         (dict(tp=2), "tp=2"),
@@ -199,8 +201,8 @@ def test_refusals(split):
     ):
         with pytest.raises(NotImplementedError, match=match) as e:
             TorchSession(device="cpu", data_dir=split, **dict(MESH, **kw))
-        assert "§A item 6b" in str(e.value)
-    with pytest.raises(NotImplementedError, match="§A item 6\\)"):
+        assert "§A item 3" in str(e.value)
+    with pytest.raises(NotImplementedError, match="§A item 7\\)"):
         TorchSession(device="cpu", runtime="mpmd", **MESH)
     with pytest.raises(ValueError, match="schedule must be one of"):
         TorchSession(device="cpu", **dict(MESH, schedule="zigzag"))
@@ -279,7 +281,10 @@ def test_cli_trains_a_mesh_layout_on_cpu(split, capsys):
     out = capsys.readouterr().out
     assert "layout: DP=2 x PP=4 x TP=1 (gpipe pipeline) batches/epoch=8" in out
     assert "Epoch: 0, mean train loss:" in out
-    assert "Epoch: 1, Time Spent:" in out and "Accuracy:" in out.splitlines()[-1]
+    lines = out.splitlines()
+    assert "Epoch: 1, Time Spent:" in out and "Accuracy:" in lines[-3]
+    assert lines[-2] == "DP replicas in sync ✓"
+    assert re.fullmatch(r"final model hash: [0-9a-f]{40}", lines[-1])
     assert tcli.main(argv + ["--fused-run", "--no-eval"]) == 0
     assert "Epoch: 0, mean train loss:" in capsys.readouterr().out
     with pytest.raises(ValueError, match="needs a mesh layout"):

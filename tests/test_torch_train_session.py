@@ -9,6 +9,8 @@ cross-engine tolerance of ``tests/test_torch_oracle.py`` and
 ``tests/test_trainer.py``.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -166,24 +168,29 @@ def test_mid_epoch_checkpoint_restores_cursor(split, tmp_path):
     _assert_params_close(ts.params(), js.params())
 
 
-def test_serving_session_refuses_training_and_unported_options(split):
+def test_serving_session_refuses_training_and_unported_options(split, tmp_path):
     ts = TorchSession(device="cpu")
     for call in (ts.train_epoch, lambda: ts.train_steps(1), lambda: ts.train_run(1), ts.accuracy):
         with pytest.raises(RuntimeError, match="data_dir"):
             call()
     assert ts.batches_per_epoch == 0 and ts.global_step == 0
     for kw, match in (
-        (dict(tp=2), "§A item 6b"),
-        (dict(zero=1), "§A item 6b"),
-        (dict(virtual_stages=2), "§A item 6b"),
-        (dict(metrics=object()), "§A item 7"),
-        (dict(health="warn"), "§A item 7"),
-        (dict(digests=True), "§A item 7"),
-        (dict(faults="die@step=1"), "§A item 3"),
-        (dict(checkpoint_dir="ck"), "§A item 3"),
+        (dict(tp=2), "§A item 3"),
+        (dict(zero=1), "§A item 3"),
+        (dict(virtual_stages=2), "§A item 3"),
+        (dict(metrics=object()), "§A item 4"),
+        (dict(health="warn"), "§A item 4"),
+        (dict(digests=True), "§A item 4"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             TorchSession(device="cpu", data_dir=split, **kw)
+    # fault injection and checkpoint writing are ported: accepted
+    ts = TorchSession(device="cpu", data_dir=split, faults="die@step=1")
+    assert ts.faults_active
+    with pytest.raises(ValueError, match="die@step=1"):
+        ts.train_epoch()
+    ts = TorchSession(device="cpu", data_dir=split, checkpoint_dir=tmp_path / "ck")
+    assert ts.save_step_checkpoint().is_file() and not ts.faults_active
     for kw in (dict(megakernel=True), dict(epoch_kernel=True), dict(run_kernel=True)):
         with pytest.raises(ValueError, match="requires fuse_mubatches=True"):
             TorchSession(device="cpu", data_dir=split, **kw)
@@ -210,7 +217,9 @@ def test_cli_trains_on_cpu_and_needs_a_gpu_otherwise(split, capsys, monkeypatch)
     out = capsys.readouterr().out
     assert "batches/epoch=8" in out
     assert "Epoch: 0, Time Spent:" in out and "Epoch: 0, mean train loss:" in out
-    assert "Epoch: 1, Time Spent:" in out and "Accuracy:" in out.splitlines()[-1]
+    lines = out.splitlines()
+    assert "Epoch: 1, Time Spent:" in out and "Accuracy:" in lines[-2]
+    assert re.fullmatch(r"final model hash: [0-9a-f]{40}", lines[-1])
     assert tcli.main(argv + ["--fused-run", "--model", "mnist-mlp"]) == 0
     out = capsys.readouterr().out
     assert "Epoch: 0, Accuracy:" in out and "Epoch: 0, mean train loss:" in out
