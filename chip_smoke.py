@@ -137,7 +137,38 @@ in phases:
    step-8 snapshot resumed on the CPU with the same hash, both finished
    and held within the cross-engine class. Each leg prints its hashes,
    launches, saves, a snapshot's bytes, the save's wall (sync; async: on
-   the step path) and its seconds.
+   the step path) and its seconds. 10a also runs DP=2 x PP=2 x V=2
+   interleaved through the flag entries (B5/B7);
+11. the schedule lattice on phase 6's split, one epoch a leg unless
+   stated: 11a interleaved virtual stages through the flag entries
+   (``schedule="interleaved"``, ``kernel_backend="pallas"``) for the
+   flagship at PP=2 x V=2, DP=2 x PP=2 x V=2 and PP=4 x V=2 (8 stages, the
+   last without a Linear) and mlp-deep at PP=4 x V=2 for 2 steps (B6/B8 at
+   2048 wide): each entry's launches exactly dp x 4 x Linears a step and no
+   other kernel, params within the cross-engine class of the CPU path (and
+   the loss), within the cross-layout class of the card's sequential run
+   (PP=4 x V=2: of the flat PP=8 GPipe run of the same 8-stage model), a
+   leaf moved >= 10 allowed differences, a second card run bitwise; 11b
+   the split backward on the plain backend at PP=4 GPipe, PP=4 PipeDream
+   and DP=2 x PP=4 GPipe with a clip of 0.01, each bitwise the unsplit run
+   (weights, loss, ``model_hash()``); 11c recompute at flagship PP=4 GPipe
+   and mlp-deep PP=4 GPipe (2 steps), each bitwise the stashed run, with
+   ``torch.cuda.max_memory_allocated`` of both; 11d the gelu family
+   (``model="transformer"``) at PP=4 GPipe and DP=2 x PP=2 PipeDream
+   within the cross-layout class of the card's sequential transformer;
+   11e a ``ServingEngine`` on a PP=2 x V=2 pallas session, 40 seeded
+   requests, every response bitwise a direct ``predict()`` and within 1e-6
+   of the CPU's;
+12. the learning gate: a synthetic split at the size of ``prepare_data.py
+   --source digits`` (51,933 train and 9,165 validation rows); the run
+   kernel (B11) once for 20 epochs and again as 20 one-epoch launches with
+   ``accuracy()`` after each (bitwise the same run), and the 4-microbatch
+   path (B1/B3) for 2 epochs, each held to the CPU path epoch for epoch
+   (each epoch's loss and accuracy within the range of the CPU's curve
+   over half an epoch either side, widened by the cross-engine class for
+   the loss and 0.003 for the accuracy) and to the margins calibrated on
+   the CPU (``LEARN_*``); where sklearn is
+   importable, the digits split too (``prepare_data.py``), 2 epochs.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -151,8 +182,9 @@ over one flagship slot's six relu layers at 8 rows for the forward, one
 flagship microbatch's at 32 rows for the backward, and for the fused kernel
 one launch of its mode: a step, a 16-batch epoch, a 2-epoch run, with no
 library call; the flag entries' ``launches`` over phase 9b's five card
-drives and their times summed over one DP=2 x PP=4 microbatch's 7 slots at
-16 rows; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
+drives and phase 11's interleaved ones (11a, 11e), and their times summed
+over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
+to the B1/B3 kernels' and the run mode's ``launches``; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
 9a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before either; so does a machine without CUDA, or a directory without the
 package.
@@ -1252,7 +1284,7 @@ def flag_drives():
     """``(tag, executor_slots)`` of every drive of phases 9b and 9c: each
     config's training microbatch (B=128, M=4, rows B/M/dp per replica), the
     DP=2xPP=4 session's eval and predict slots (``slot_rows / dp`` rows per
-    replica) and mlp-deep at PP=4."""
+    replica) and mlp-deep at PP=4; then phase 11's (``interleaved_drives``)."""
     from shallowspeed_tpu_torch.serving.slots import default_slot_rows
 
     B, M = 128, 4
@@ -1260,7 +1292,7 @@ def flag_drives():
     dp, pp = MAIN_MESH["dp"], MAIN_MESH["pp"]
     drives.append(("DP=2xPP=4 eval", executor_slots("mnist-mlp", pp, default_slot_rows(dp) // dp)))
     drives.append(("mlp-deep PP=4", executor_slots("mlp-deep", 4, B // M)))
-    return drives
+    return drives + interleaved_drives()
 
 
 def _flag_operands(torch, gen, rows, k, n, in_d, out_d):
@@ -1593,6 +1625,10 @@ RECOVERY_PATHS = (
         "DP=2 x PP=4 GPipe pallas (B5/B7)",
         dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"),
     ),
+    (
+        "DP=2 x PP=2 x V=2 interleaved pallas (B5/B7)",
+        dict(dp=2, pp=2, schedule="interleaved", virtual_stages=2, kernel_backend="pallas"),
+    ),
 )
 
 
@@ -1832,6 +1868,442 @@ def phase_recovery(torch, cuda_ops, TrainingSession, data_dir, card):
     )
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the schedule lattice — interleaved virtual stages through the
+# flag kernels (B5-B8), the split backward, recompute, the gelu family
+# ---------------------------------------------------------------------------
+
+# 11a: interleaved layouts through the flag kernels: (label, options,
+# steps (None = one epoch), the layout its params are held to within the
+# cross-layout class). PP=4 x V=2 cuts the flagship into 8 stages, the last
+# without a Linear, so its final Linear keeps its relu (the reference's
+# quirk): it is held to the flat PP=8 GPipe run of the same 8-stage model
+# instead of the sequential one
+INTERLEAVED = dict(schedule="interleaved", kernel_backend="pallas")
+INTERLEAVED_CONFIGS = (
+    ("flagship PP=2xV=2", dict(dp=1, pp=2, virtual_stages=2), None, dict()),
+    ("DP=2xPP=2xV=2", dict(dp=2, pp=2, virtual_stages=2), None, dict()),
+    (
+        "PP=4xV=2 (empty last stage)", dict(dp=1, pp=4, virtual_stages=2), None,
+        dict(pp=8, schedule="gpipe", kernel_backend="pallas"),
+    ),
+    ("mlp-deep PP=4xV=2", dict(model="mlp-deep", dp=1, pp=4, virtual_stages=2), 2,
+     dict(model="mlp-deep")),
+)
+# 11b: the split backward (xla), each bitwise the unsplit run on the card
+SPLIT_CONFIGS = (
+    ("PP=4 GPipe", dict(pp=4, schedule="gpipe")),
+    ("PP=4 PipeDream", dict(pp=4, schedule="pipedream")),
+    ("DP=2xPP=4 GPipe clip 0.01", dict(dp=2, pp=4, schedule="gpipe", clip_norm=0.01)),
+)
+# 11c: recompute (xla), each bitwise the stashed run: (label, options, steps)
+RECOMPUTE_CONFIGS = (
+    ("flagship PP=4 GPipe", dict(pp=4, schedule="gpipe"), None),
+    ("mlp-deep PP=4 GPipe", dict(model="mlp-deep", pp=4, schedule="gpipe"), 2),
+)
+# 11d: the gelu family (xla) against the card's sequential transformer
+GELU_CONFIGS = (
+    ("transformer PP=4 GPipe", dict(pp=4, schedule="gpipe")),
+    ("transformer DP=2xPP=2 PipeDream", dict(dp=2, pp=2, schedule="pipedream")),
+)
+
+
+def interleaved_drives():
+    """``(tag, executor_slots)`` of every flag-kernel drive of phase 11 and
+    of 10's interleaved leg: each 11a layout's training microbatch over its
+    ``pp * V`` model stages, and 11e's serving slots."""
+    from shallowspeed_tpu_torch.serving.slots import default_slot_rows
+
+    B, M = 128, 4
+    drives = []
+    for label, kw, _, _ in INTERLEAVED_CONFIGS:
+        stages = kw["pp"] * kw["virtual_stages"]
+        drives.append((label, executor_slots(kw.get("model", "mnist-mlp"), stages, B // M // kw["dp"])))
+    drives.append(("PP=2xV=2 serving", executor_slots("mnist-mlp", 4, default_slot_rows(1))))
+    return drives
+
+
+def _train_card(TrainingSession, steps, device="cuda", **kw):
+    """A session from init (on the card unless ``device``): one epoch
+    (``steps`` None) or ``steps`` steps. Returns (session, init params,
+    loss or None, wall)."""
+    s = TrainingSession(device=device, **kw)
+    init = s.params()
+    t0 = time.perf_counter()
+    if steps is None:
+        loss = s.train_epoch()
+    else:
+        s.train_steps(steps)
+        loss = None
+    return s, init, loss, time.perf_counter() - t0
+
+
+def _card_counts(torch, cuda_ops, fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns
+    (its result, the counts just after)."""
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(cuda_ops.LAUNCHES)
+
+
+def _train_measured(torch, TrainingSession, steps, **kw):
+    """``_train_card`` with the step's peak device memory: ``(session,
+    loss, wall, peak MiB, peak MiB above what was allocated once the
+    session was built)`` — the latter the training's own working set
+    (gradient accumulators, stashes, temporaries)."""
+    s = TrainingSession(device="cuda", **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = None
+    if steps is None:
+        loss = s.train_epoch()
+    else:
+        s.train_steps(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return s, loss, wall, peak / 2**20, (peak - base) / 2**20
+
+
+def phase_lattice(torch, cuda_ops, TrainingSession, engine_mod, loadgen, data_dir):
+    """11: the schedule lattice on phase 6's split. Returns the flag
+    entries' launches over its flag-kernel drives (11a, 11e)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    B, M = 128, 4
+    drive = {"linear_flag_fwd": 0, "linear_flag_bwd": 0}
+    lines = []
+
+    # 11a: interleaved, pallas
+    seq = _sequential_card_params(TrainingSession, data_dir, (1,))[1]
+    for label, kw, steps, ref in INTERLEAVED_CONFIGS:
+        kw = dict(kw, data_dir=data_dir, **INTERLEAVED)
+        (gpu, init, loss, wall), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_card(TrainingSession, steps, **kw)
+        )
+        n_lin = len(gpu.spec.sizes) - 1
+        n_steps = TRAIN_BATCHES if steps is None else steps
+        want = kw["dp"] * M * n_lin * n_steps
+        if counts["linear_flag_fwd"] != want or counts["linear_flag_bwd"] != want:
+            fail(
+                f"11a {label}: flag launches fwd {counts['linear_flag_fwd']} / bwd "
+                f"{counts['linear_flag_bwd']}, want {kw['dp']} x {M} x {n_lin} x {n_steps} = {want}"
+            )
+        others = {k: v for k, v in counts.items() if v and not k.startswith("linear_flag")}
+        if others:
+            fail(f"11a {label}: the interleaved path launched {others}")
+        for k in drive:
+            drive[k] += counts[k]
+        cpu, _, closs, _ = _train_card(TrainingSession, steps, device="cpu", **kw)
+        worst = _params_close(gpu, cpu, f"11a {label}")
+        if loss is not None and abs(loss - closs) > TRAIN_ATOL + TRAIN_RTOL * abs(closs):
+            fail(f"11a {label}: loss {loss} on the card, {closs} on the CPU")
+        most = max(_moved(init, gpu, cpu))
+        if most < MIN_MOVE:
+            fail(f"11a {label}: moved at most {most:.2f} x its allowed difference")
+        if ref:
+            want_params = _train_card(TrainingSession, steps, data_dir=data_dir, **ref)[0].params()
+            ref_label = "PP=8 GPipe" if "pp" in ref else "sequential"
+        else:
+            want_params, ref_label = seq, "sequential"
+        seq_diff = _params_close_to(gpu.params(), want_params, SEQ_RTOL, SEQ_ATOL, f"11a {label} vs {ref_label}")
+        again, _, loss2, _ = _train_card(TrainingSession, steps, **kw)
+        if loss2 != loss or not _bitwise_equal(again, gpu):
+            fail(f"11a {label}: a second card run is not bitwise equal to the first")
+        lines.append(
+            f"11a {label}: {n_steps} steps, {want} fwd / {want} bwd flag launches "
+            f"(= {kw['dp']} x {M} x {n_lin} x {n_steps}); card vs CPU {worst:.3e}"
+            + (f", loss {loss:.7f} (CPU {closs:.7f})" if loss is not None else "")
+            + f", vs the card's {ref_label} run {seq_diff:.3e}, largest move {most:.2f}; second "
+            f"card run bitwise; {n_steps * B / wall:.1f} samples/s (wall {wall * 1e3:.1f} ms)"
+        )
+
+    # 11b: the split backward, bitwise the unsplit run
+    for label, kw in SPLIT_CONFIGS:
+        kw = dict(kw, data_dir=data_dir, kernel_backend="xla")
+        (plain, _, ploss, _), _ = _card_counts(torch, cuda_ops, lambda: _train_card(TrainingSession, None, **kw))
+        (split, _, sloss, swall), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_card(TrainingSession, None, backward_split=True, **kw)
+        )
+        if any(counts.values()):
+            fail(f"11b {label}: the xla path launched {counts}")
+        if sloss != ploss or split.model_hash() != plain.model_hash() or not _bitwise_equal(
+            split, plain
+        ):
+            fail(f"11b {label}: split loss {sloss} / hash {split.model_hash()} vs unsplit {ploss} / {plain.model_hash()}")
+        lines.append(
+            f"11b split {label}: loss {sloss:.7f}, hash {split.model_hash()[:12]}, weights "
+            f"bitwise the unsplit run's; {TRAIN_BATCHES * B / swall:.1f} samples/s"
+        )
+
+    # 11c: recompute, bitwise the stashed run; peak device memory of both
+    for label, kw, steps in RECOMPUTE_CONFIGS:
+        kw = dict(kw, data_dir=data_dir, kernel_backend="xla")
+        stashed, sloss, _, s_peak, s_delta = _train_measured(torch, TrainingSession, steps, **kw)
+        rec, rloss, rwall, r_peak, r_delta = _train_measured(
+            torch, TrainingSession, steps, recompute=True, **kw
+        )
+        if rloss != sloss or rec.model_hash() != stashed.model_hash() or not _bitwise_equal(
+            rec, stashed
+        ):
+            fail(f"11c {label}: recompute loss {rloss} / hash {rec.model_hash()} vs stashed {sloss} / {stashed.model_hash()}")
+        n_steps = TRAIN_BATCHES if steps is None else steps
+        lines.append(
+            f"11c recompute {label}: {n_steps} steps, hash {rec.model_hash()[:12]} bitwise the "
+            f"stashed run's; torch.cuda.max_memory_allocated stashed {s_peak:.2f} MiB, "
+            f"{s_delta:.2f} above the built session; recompute {r_peak:.2f} MiB, "
+            f"{r_delta:.2f} above; {n_steps * B / rwall:.1f} samples/s"
+        )
+
+    # 11d: the gelu family on the mesh vs the card's sequential transformer
+    tseq = _train_card(TrainingSession, None, data_dir=data_dir, model="transformer")[0].params()
+    for label, kw in GELU_CONFIGS:
+        kw = dict(kw, data_dir=data_dir, model="transformer", kernel_backend="xla")
+        (gpu, init, loss, wall), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_card(TrainingSession, None, **kw)
+        )
+        if any(counts.values()) or not math.isfinite(loss):
+            fail(f"11d {label}: loss {loss}, launches {counts}")
+        diff = _params_close_to(gpu.params(), tseq, SEQ_RTOL, SEQ_ATOL, f"11d {label} vs sequential")
+        lines.append(
+            f"11d gelu {label}: loss {loss:.7f}, vs the card's sequential transformer "
+            f"{diff:.3e}; {TRAIN_BATCHES * B / wall:.1f} samples/s"
+        )
+
+    # 11e: serving on an interleaved mesh: every response a direct predict()
+    session = TrainingSession(device="cuda", pp=2, virtual_stages=2, **INTERLEAVED)
+    engine = engine_mod.ServingEngine(session, slo_ms=200.0)
+    n_req = 40
+    payloads = loadgen.request_payloads(n_req, session.spec.in_dim, seed=1, rows_choices=tuple(range(1, 9)))
+    engine.warm_ladder()
+    done, counts = _card_counts(
+        torch, cuda_ops,
+        lambda: loadgen.run_open_loop(engine, payloads, loadgen.poisson_arrivals(400.0, n_req, seed=1)),
+    )
+    ok = [r for r in done if r.verdict == "ok"]
+    if len(ok) != n_req:
+        fail(f"11e: {len(ok)}/{n_req} ok")
+    n_lin = len(session.spec.sizes) - 1
+    if counts["linear_flag_fwd"] == 0 or counts["linear_flag_fwd"] % n_lin or counts["linear_act_fwd"]:
+        fail(f"11e: launches {counts}, want a multiple of {n_lin} flag forwards and nothing else")
+    drive["linear_flag_fwd"] += counts["linear_flag_fwd"]
+    cpu = TrainingSession(device="cpu", pp=2, virtual_stages=2, **INTERLEAVED)
+    worst = 0.0
+    for r in ok:
+        if not np.array_equal(r.result, session.predict(payloads[r.id])):
+            fail(f"11e: response {r.id} differs from a direct predict()")
+        worst = max(worst, float(np.abs(r.result - cpu.predict(payloads[r.id])).max()))
+    if worst > 1e-6:
+        fail(f"11e: card vs CPU interleaved predict differ by {worst} > 1e-6")
+    lines.append(
+        f"11e serving on PP=2xV=2 pallas: {len(ok)}/{n_req} ok, every response bitwise a "
+        f"direct predict(), {counts['linear_flag_fwd']} flag forward launches, card vs CPU "
+        f"{worst:.3e}"
+    )
+    for line in lines:
+        say(f"  {line}")
+    say(
+        f"phase 11 schedule lattice: ok: {len(INTERLEAVED_CONFIGS)} interleaved layouts "
+        f"through the flag kernels ({drive['linear_flag_fwd']} fwd / {drive['linear_flag_bwd']} "
+        f"bwd launches with 11e), split bitwise unsplit on {len(SPLIT_CONFIGS)}, recompute "
+        f"bitwise stashed on {len(RECOMPUTE_CONFIGS)}, gelu on {len(GELU_CONFIGS)}, serving on "
+        f"an interleaved mesh; {time.perf_counter() - t_phase:.2f} s"
+    )
+    return drive
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the learning gate at MNIST scale
+# ---------------------------------------------------------------------------
+
+# the synthetic split at the size of prepare_data.py --source digits
+LEARN_TRAIN, LEARN_VAL = 51933, 9165
+LEARN_EPOCHS = 20  # the run kernel's leg (B11)
+# Card vs CPU, epoch for epoch: each epoch's loss and accuracy on the card
+# within the range the CPU's curve (linear between epochs) spans from
+# LEARN_SHIFT epochs before to LEARN_SHIFT after, widened by a base
+# tolerance (the loss: the cross-engine class TRAIN_RTOL/ATOL; the
+# accuracy: 0.003, ~27 rows crossing the argmax boundary). The loss falls
+# 0.90 -> 0.005 over the 20 epochs, most of it at epochs 9-14, where the
+# curve is ill-conditioned: on the CPU alone, inputs one float32 rounding
+# up move epoch 11's accuracy by 0.015 and epoch 13's loss by 0.012 (15%),
+# and the card, whose summation orders differ at every operation, ran up
+# to 0.32 of an epoch ahead of or behind the CPU there (this phase on an
+# NVIDIA H100 80GB HBM3 at 700 W; elsewhere within 0.05). So the card is
+# held to be the CPU's curve to within half an epoch of training, and to
+# the base tolerance where the curve is flat
+LEARN_ACC_TOL = 0.003
+LEARN_SHIFT = 0.5
+# the margins, calibrated on the CPU path (0.899 -> 0.00504 and 0.101 ->
+# 0.9995 over 20 epochs; 4 microbatches 0.89904 -> 0.89724 and 0.101 ->
+# 0.174 over 2): the run kernel must end at a loss <= 0.05 and an accuracy
+# >= 0.95; the 4-microbatch leg's loss must fall >= 0.001 and its accuracy
+# rise >= 0.05 over the initial one
+LEARN_RUN_LOSS, LEARN_RUN_ACC = 0.05, 0.95
+LEARN_MB_DROP, LEARN_MB_RISE = 0.001, 0.05
+
+
+def _epochs_with_eval(session, epochs, run_kernel):
+    """The initial accuracy, then per epoch the mean loss and accuracy:
+    one run-kernel launch of one epoch each (``run_kernel``) or one
+    ``train_epoch``."""
+    acc0 = session.accuracy()
+    losses, accs = [], []
+    for _ in range(epochs):
+        if run_kernel:
+            losses.append(session.train_run(1, with_eval=False)[0][0])
+        else:
+            losses.append(session.train_epoch())
+        accs.append(session.accuracy())
+    return acc0, losses, accs
+
+
+def _curve_str(curve):
+    acc0, losses, accs = curve
+    return (
+        "losses " + " ".join(f"{v:.5f}" for v in losses)
+        + f"; accuracy {acc0:.4f} -> " + " ".join(f"{v:.4f}" for v in accs)
+    )
+
+
+def _shift_band(cpu, e, tol):
+    """The range of ``cpu`` (per-epoch values, linear between epochs) over
+    epochs ``[e - LEARN_SHIFT, e + LEARN_SHIFT]``, widened by ``tol``."""
+    import numpy as np
+
+    lo, hi = max(0.0, e - LEARN_SHIFT), min(len(cpu) - 1.0, e + LEARN_SHIFT)
+    points = [lo, hi] + [k for k in range(len(cpu)) if lo < k < hi]
+    vals = np.interp(points, np.arange(len(cpu)), cpu)
+    return float(vals.min()) - tol, float(vals.max()) + tol
+
+
+def _hold_curves(label, card, cpu):
+    """The card's curve (initial accuracy, per-epoch losses and
+    accuracies) against the CPU's within ``_shift_band``, epoch for epoch."""
+    acc0, losses, accs = card
+    cacc0, closses, caccs = cpu
+    if abs(acc0 - cacc0) > LEARN_ACC_TOL:
+        fail(f"12 {label}: initial accuracy {acc0} on the card, {cacc0} on the CPU")
+    for e, (a, x) in enumerate(zip(losses, accs)):
+        lo, hi = _shift_band(closses, e, TRAIN_ATOL + TRAIN_RTOL * abs(closses[e]))
+        if not (math.isfinite(a) and lo <= a <= hi):
+            fail(f"12 {label}: epoch {e} loss {a} on the card, outside the CPU's [{lo}, {hi}]")
+        lo, hi = _shift_band(caccs, e, LEARN_ACC_TOL)
+        if not lo <= x <= hi:
+            fail(f"12 {label}: epoch {e} accuracy {x} on the card, outside the CPU's [{lo}, {hi}]")
+
+
+def phase_learning(torch, cuda_ops, TrainingSession, tmp):
+    """12: the learning gate on a synthetic split at MNIST scale, and the
+    digits split where sklearn is importable. Returns the launch counts of
+    its card drives."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    data_dir = Path(tmp) / "learn"
+    data_dir.mkdir()
+    write_split(data_dir, LEARN_TRAIN, LEARN_VAL, seed=0)
+    lines, launches = [], {}
+    run_kw = dict(data_dir=data_dir, fuse_mubatches=True, run_kernel=True)
+
+    # the run kernel (B11): one launch of 20 epochs, then 20 launches of one
+    # epoch with an accuracy after each, bitwise the same run
+    whole = TrainingSession(device="cuda", **run_kw)
+    (run_losses, _), counts = _card_counts(
+        torch, cuda_ops, lambda: whole.train_run(LEARN_EPOCHS, with_eval=False)
+    )
+    if counts["fused_train"] != 1:
+        fail(f"12 run kernel: {counts} launches for {LEARN_EPOCHS} epochs, want 1 fused_train")
+    launches["fused_train"] = 1
+    card = TrainingSession(device="cuda", **run_kw)
+    t0 = time.perf_counter()
+    curve, counts = _card_counts(torch, cuda_ops, lambda: _epochs_with_eval(card, LEARN_EPOCHS, True))
+    card_s = time.perf_counter() - t0
+    say(f"  12 run kernel on the card: {_curve_str(curve)}")
+    if counts["fused_train"] != LEARN_EPOCHS:
+        fail(f"12 run kernel: {counts['fused_train']} launches, want one per epoch")
+    launches["fused_train"] += counts["fused_train"]
+    launches["linear_act_fwd"] = counts["linear_act_fwd"]  # the evals' forwards
+    if curve[1] != run_losses or card.model_hash() != whole.model_hash():
+        fail("12 run kernel: 20 one-epoch launches are not bitwise one 20-epoch launch")
+    t0 = time.perf_counter()
+    cpu_curve = _epochs_with_eval(TrainingSession(device="cpu", **run_kw), LEARN_EPOCHS, True)
+    cpu_s = time.perf_counter() - t0
+    say(f"  12 run kernel on the CPU: {_curve_str(cpu_curve)}")
+    _hold_curves("run kernel", curve, cpu_curve)
+    acc0, losses, accs = curve
+    if not (losses[-1] <= LEARN_RUN_LOSS and accs[-1] >= LEARN_RUN_ACC):
+        fail(f"12 run kernel: loss {losses[-1]}, accuracy {accs[-1]} after {LEARN_EPOCHS} epochs")
+    lines.append(
+        f"12 run kernel (B11), {LEARN_EPOCHS} epochs of {LEARN_TRAIN // 128} batches: loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, accuracy {acc0:.4f} -> {accs[-1]:.4f}, each "
+        f"epoch within {LEARN_SHIFT} epoch of the CPU's curve; one 20-epoch launch bitwise "
+        f"20 one-epoch launches; card {card_s:.2f} s, CPU {cpu_s:.2f} s"
+    )
+
+    # the 4-microbatch path (B1/B3), 2 epochs
+    mb = TrainingSession(device="cuda", data_dir=data_dir)
+    curve, counts = _card_counts(torch, cuda_ops, lambda: _epochs_with_eval(mb, 2, False))
+    for k in ("linear_act_fwd", "linear_act_bwd"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    cpu_curve = _epochs_with_eval(TrainingSession(device="cpu", data_dir=data_dir), 2, False)
+    say(f"  12 4 microbatches on the card: {_curve_str(curve)}; CPU: {_curve_str(cpu_curve)}")
+    _hold_curves("4 microbatches", curve, cpu_curve)
+    acc0, losses, accs = curve
+    if not (losses[0] - losses[1] >= LEARN_MB_DROP and accs[1] >= acc0 + LEARN_MB_RISE):
+        fail(f"12 4 microbatches: losses {losses}, accuracy {acc0} -> {accs}")
+    lines.append(
+        f"12 4 microbatches (B1/B3), 2 epochs: losses {losses[0]:.7f} -> {losses[1]:.7f} "
+        f"(CPU {cpu_curve[1][0]:.7f} -> {cpu_curve[1][1]:.7f}), accuracy {acc0:.4f} -> "
+        f"{accs[0]:.4f} -> {accs[1]:.4f} (CPU {cpu_curve[2][0]:.4f} -> {cpu_curve[2][1]:.4f}); "
+        f"{counts['linear_act_bwd']} backward launches"
+    )
+
+    # the digits recipe, where sklearn is importable (prepare_data.py needs it)
+    splits = [f"synthetic {LEARN_TRAIN}/{LEARN_VAL}"]
+    if importlib.util.find_spec("sklearn") is None:
+        lines.append("12 digits: skipped: no sklearn")
+    else:
+        digits = Path(tmp) / "digits"
+        root = Path(__file__).resolve().parent
+        proc = subprocess.run(
+            [sys.executable, str(root / "prepare_data.py"), "--save-dir", str(digits),
+             "--source", "digits"],
+            cwd=root, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            fail(f"12 digits: prepare_data.py exited {proc.returncode}: {proc.stderr[-500:]}")
+        curve, counts = _card_counts(
+            torch, cuda_ops,
+            lambda: _epochs_with_eval(TrainingSession(device="cuda", data_dir=digits), 2, False),
+        )
+        for k in ("linear_act_fwd", "linear_act_bwd"):
+            launches[k] += counts[k]
+        cpu_curve = _epochs_with_eval(TrainingSession(device="cpu", data_dir=digits), 2, False)
+        _hold_curves("digits", curve, cpu_curve)
+        acc0, losses, accs = curve
+        if accs[1] < acc0 + 0.15:
+            fail(f"12 digits: accuracy {acc0} -> {accs}, want a rise >= 0.15 by epoch 2")
+        splits.append("digits")
+        lines.append(
+            f"12 digits, 4 microbatches, 2 epochs: losses {losses}, accuracy {acc0:.4f} -> "
+            f"{accs[0]:.4f} -> {accs[1]:.4f} (CPU {cpu_curve[2]})"
+        )
+    for line in lines:
+        say(f"  {line}")
+    say(
+        f"phase 12 learning: ok: splits {', '.join(splits)}; card within the stated "
+        f"tolerances of the CPU path epoch for epoch, margins met; "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
+    return launches
+
+
 def main():
     import torch
 
@@ -1867,19 +2339,29 @@ def main():
             flag_launches, _ = phase_pipeline_training(torch, cuda_ops, TrainingSession, tmp)
             phase_pipeline_predict(torch, cuda_ops, TrainingSession)
             phase_recovery(torch, cuda_ops, TrainingSession, tmp, card)
+            lattice = phase_lattice(torch, cuda_ops, TrainingSession, engine_mod, loadgen, tmp)
         if not seen or seen - checked:
-            fail(f"phases 9b, 9c and 10 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
-        say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b, 9c and 10 launched was checked in 9a")
+            fail(f"phases 9b, 9c, 10 and 11 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
+        say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b, 9c, 10 and 11 launched was checked in 9a")
+        learning = phase_learning(torch, cuda_ops, TrainingSession, tmp)
+    # launches: each path's drive, counted from 0 just before it; phase 12's
+    # drives add to the B1/B3 kernels and the run mode, phase 11's to the
+    # flag entries
     entries = [
-        ("linear_act_fwd", "linear_act_fwd", serving["linear_act_fwd"], fwd_err, slot),
-        ("linear_act_bwd", "linear_act_bwd", training["linear_act_bwd"], bwd_err, mub),
+        ("linear_act_fwd", "linear_act_fwd",
+         serving["linear_act_fwd"] + learning["linear_act_fwd"], fwd_err, slot),
+        ("linear_act_bwd", "linear_act_bwd",
+         training["linear_act_bwd"] + learning["linear_act_bwd"], bwd_err, mub),
     ]
+    fused_launches["run"] += learning["fused_train"]
     for mode in FUSED_MODES:
         # no single PyTorch call computes a training step
         t = dict(fused[mode], library_ms=None)
         entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
     for entry in ("linear_flag_fwd", "linear_flag_bwd"):
-        entries.append((entry, entry, flag_launches[entry], flag_errs[entry], flag_sums[entry]))
+        entries.append(
+            (entry, entry, flag_launches[entry] + lattice[entry], flag_errs[entry], flag_sums[entry])
+        )
     kernels = []
     for name, source_name, launches, err, t in entries:
         kernels.append(

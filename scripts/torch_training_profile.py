@@ -13,7 +13,11 @@ B1/B3 kernels and torch ops), ``megakernel`` the fused train kernel once per
 batch, ``epoch_kernel`` once per epoch; then the five pipeline executor
 configs with ``kernel_backend="pallas"`` (every slot through the flag
 kernels, B5-B8): ``dp4-naive``, ``pp4-naive``, ``pp4-gpipe``,
-``dp2pp4-gpipe`` and ``pp4-pipedream``. It trains one epoch to warm up,
+``dp2pp4-gpipe`` and ``pp4-pipedream``; then the schedule lattice: the
+interleaved ``pp2v2-interleaved`` and ``dp2pp2v2-interleaved`` through the
+flag kernels, and on the plain backend ``pp4-gpipe-xla`` beside its split
+backward (``pp4-gpipe-split``) and recompute (``pp4-gpipe-recompute``)
+twins, and the gelu family (``transformer-pp4-gpipe``). It trains one epoch to warm up,
 times one unprofiled epoch (samples/s, host clock around ``train_epoch``,
 which returns after the device), then traces one more epoch with CPU and
 CUDA activity and reports over that epoch's window: the wall time, the
@@ -70,6 +74,19 @@ PATHS = {
     "pp4-gpipe": dict(dp=1, pp=4, schedule="gpipe", kernel_backend="pallas"),
     "dp2pp4-gpipe": dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"),
     "pp4-pipedream": dict(dp=1, pp=4, schedule="pipedream", kernel_backend="pallas"),
+    # the schedule lattice: interleaved virtual stages through the flag
+    # kernels; the split backward, recompute and the gelu family on the
+    # plain backend, beside the plain backend's unsplit, stashed run
+    "pp2v2-interleaved": dict(
+        dp=1, pp=2, schedule="interleaved", virtual_stages=2, kernel_backend="pallas"
+    ),
+    "dp2pp2v2-interleaved": dict(
+        dp=2, pp=2, schedule="interleaved", virtual_stages=2, kernel_backend="pallas"
+    ),
+    "pp4-gpipe-xla": dict(dp=1, pp=4, schedule="gpipe", kernel_backend="xla"),
+    "pp4-gpipe-split": dict(dp=1, pp=4, schedule="gpipe", backward_split=True),
+    "pp4-gpipe-recompute": dict(dp=1, pp=4, schedule="gpipe", recompute=True),
+    "transformer-pp4-gpipe": dict(model="transformer", dp=1, pp=4, schedule="gpipe"),
 }
 
 

@@ -10,13 +10,21 @@
 
     mesh = TrainingSession(dp=2, pp=4, schedule="gpipe",
                            kernel_backend="pallas", data_dir=...)
+    chunks = TrainingSession(pp=2, schedule="interleaved", virtual_stages=2,
+                             kernel_backend="pallas", data_dir=...)
 
-Two layouts. The sequential one (dp = pp = 1) and a ``dp`` x ``pp`` mesh
-run by the lockstep pipeline executor (``parallel/executor.py``): the
-schedule's lowered tick tables over a virtual mesh whose ranks all live on
-the session's device, with ``kernel_backend="pallas"`` putting every slot
-of every tick through the flag kernels (TPU kernels B5-B8; ``"xla"`` is
-plain torch). Training: the reference's
+Two layouts. The sequential one (dp = pp = virtual_stages = 1) and a ``dp``
+x ``pp`` mesh run by the lockstep pipeline executor
+(``parallel/executor.py``): the schedule's lowered tick tables over a
+virtual mesh whose ranks all live on the session's device, with
+``kernel_backend="pallas"`` putting every slot of every tick through the
+flag kernels (TPU kernels B5-B8; ``"xla"`` is plain torch). The mesh runs
+the JAX session's schedule lattice: ``schedule="interleaved"`` with
+``virtual_stages`` model stages per device (stacked in
+``executor.interleave_order``), ``backward_split`` (2BP, bitwise the
+unsplit run), ``recompute`` (bitwise the stashed run) and the gelu family
+(``model="transformer"``); the last three on the ``"xla"`` backend, as in
+the JAX package. Training: the reference's
 recipe (global batch 128 in 4 microbatches, SGD at lr 0.006) or momentum /
 Adam, with decoupled weight decay, global-norm clipping and fused
 microbatches, driven per step (``train_steps``), per epoch
@@ -31,7 +39,7 @@ other calls take the epoch kernel). A session built without
 checkpoint (``resume=``, any layout's snapshot), and ``predict`` exactly as
 the JAX session's branches — rows packed into fixed ``slot_rows``-row
 slots, one slot-shaped forward per OCCUPIED slot on the sequential layout,
-one ``InferenceSchedule`` program per ladder rung on the mesh (slots packed
+one inference program per ladder rung on the mesh (slots packed
 with ``serving/slots.pack_slots``). A fixed slot shape is what makes a
 request's rows give the same bits whatever rides beside them, which the
 serving engine's "response == direct predict()" contract needs.
@@ -44,9 +52,8 @@ checksummed, rotating step snapshots in the JAX package's format;
 step or save; ``model_hash`` is the reference's weight hash.
 
 Not in this slice, and refused with a pointer to their ROADMAP.md item:
-the multi-card runtime (``runtime="mpmd"``), tp, ZeRO, gradient buckets,
-the split backward, recompute, interleaved schedules, gelu models on the
-mesh, and metrics/health/digests.
+ZeRO, gradient buckets and tp (§A item 3), the multi-card runtime
+(``runtime="mpmd"``, item 7), and metrics/health/digests (item 4).
 """
 
 import threading
@@ -83,24 +90,23 @@ FLAGSHIP_MUBATCHES = 4
 FLAGSHIP_LR = 0.006
 
 
-def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, backward_split,
-                     recompute, virtual_stages, schedule, runtime, metrics,
-                     health, digests):
+def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime, metrics, health,
+                     digests):
     lattice = [
-        (tp != 1, f"tp={tp}: tensor parallelism"),
-        (bool(zero1) or bool(zero), f"zero={zero if zero is not None else int(bool(zero1))}: ZeRO"),
-        (bool(grad_bucket_bytes), "grad_bucket_bytes: the bucketed gradient sync"),
-        (bool(backward_split), "backward_split: the split backward"),
-        (bool(recompute), "recompute: activation recompute"),
-        (virtual_stages != 1 or schedule == "interleaved",
-         f"virtual_stages={virtual_stages}, schedule={schedule!r}: interleaved schedules"),
+        (bool(zero1) or bool(zero),
+         f"zero={zero if zero is not None else int(bool(zero1))}: ZeRO (next: "
+         "stages 1-2 with the gradient buckets, then stage 3)"),
+        (bool(grad_bucket_bytes),
+         "grad_bucket_bytes: the bucketed gradient sync (it comes with ZeRO "
+         "stages 1-2)"),
+        (tp != 1, f"tp={tp}: tensor parallelism (after ZeRO)"),
     ]
     for on, what in lattice:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet; the port's executor runs dp x pp "
-                "with the naive, gpipe and pipedream schedules (ROADMAP.md §A "
-                "item 3)"
+                "with the naive, gpipe, pipedream and interleaved schedules, "
+                "the split backward and recompute (ROADMAP.md §A item 3)"
             )
     if runtime != "lockstep":
         raise NotImplementedError(
@@ -144,15 +150,20 @@ class TrainingSession:
     plan, its spec string, or None to read ``SHALLOWSPEED_FAULTS``
     (``faults.py``). ``predict_slot_rows``/
     ``predict_slot_ladder``: the slot geometry (``serving/slots.py``).
-    ``dp``/``pp``/``schedule`` (naive|gpipe|pipedream): the mesh layout,
-    run by the lockstep pipeline executor over a virtual mesh on the
-    session's device; ``kernel_backend``: the executor's per-slot unit,
-    ``"xla"`` (plain torch) or ``"pallas"`` (the flag kernels, B5-B8; mesh
-    layouts only, as in the JAX package). ``tp``, ``zero``/``zero1``,
-    ``grad_bucket_bytes``, ``backward_split``, ``recompute``,
-    ``virtual_stages`` and ``runtime`` are the JAX session's names for
-    layouts the port does not run yet, and ``metrics``, ``health`` and
-    ``digests`` its observability; anything but their defaults raises.
+    ``dp``/``pp``/``schedule`` (naive|gpipe|pipedream|interleaved): the
+    mesh layout, run by the lockstep pipeline executor over a virtual mesh
+    on the session's device; ``virtual_stages``: model stages per device
+    (> 1 needs ``schedule="interleaved"``; the model is cut into ``pp *
+    virtual_stages`` stages); ``backward_split``: the two-stage backward
+    (B-input at the relay tick, B-weight deferred); ``recompute``: stash
+    only each stage's input and re-run its forward before the backward;
+    ``kernel_backend``: the executor's per-slot unit, ``"xla"`` (plain
+    torch) or ``"pallas"`` (the flag kernels, B5-B8; mesh layouts of the
+    relu family only, without split or recompute, as in the JAX package).
+    ``tp``, ``zero``/``zero1``, ``grad_bucket_bytes`` and ``runtime`` are
+    the JAX session's names for layouts the port does not run yet, and
+    ``metrics``, ``health`` and ``digests`` its observability; anything but
+    their defaults raises.
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -212,8 +223,7 @@ class TrainingSession:
                 f"schedule must be one of {sorted(S.SCHEDULES)}, got {schedule!r}"
             )
         _refuse_unported(
-            tp, zero1, zero, grad_bucket_bytes, backward_split, recompute,
-            virtual_stages, schedule, runtime, metrics, health, digests,
+            tp, zero1, zero, grad_bucket_bytes, runtime, metrics, health, digests
         )
         if checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
@@ -237,17 +247,24 @@ class TrainingSession:
             sizes, act = Mo.resolve_model(model)
         else:
             act = "relu"
-        dp, pp = int(dp), int(pp)
+        dp, pp, V = int(dp), int(pp), int(virtual_stages)
         if dp < 1 or pp < 1:
             raise ValueError(f"dp and pp must be >= 1, got dp={dp}, pp={pp}")
+        if V < 1:
+            raise ValueError("virtual_stages must be >= 1")
+        if V > 1 and schedule != "interleaved":
+            raise ValueError(
+                "virtual_stages > 1 requires schedule='interleaved' (the flat "
+                "schedules place exactly one stage per device)"
+            )
         if global_batch_size % dp != 0:
             raise ValueError("global batch size must be divisible by dp")
         local_batch = global_batch_size // dp
         if mubatches < 1 or local_batch % mubatches != 0:
             raise ValueError("mubatches must divide the local batch")
-        self.dp, self.pp, self.tp = dp, pp, 1
+        self.dp, self.pp, self.tp, self.V = dp, pp, 1, V
         self.schedule = schedule
-        self._sequential = dp == 1 and pp == 1
+        self._sequential = dp == 1 and pp == 1 and V == 1
         if fuse_mubatches and not self._sequential:
             raise ValueError(
                 "fuse_mubatches applies to the sequential path only; in the "
@@ -288,20 +305,60 @@ class TrainingSession:
         if kernel_backend == "pallas" and self._sequential:
             raise ValueError(
                 "kernel_backend='pallas' selects the pipeline executor's "
-                "flag-operand kernels and needs a mesh layout (dp/pp > 1); on "
-                "the sequential path the CUDA kernels run already — use "
-                "megakernel=True for the fused train kernel"
+                "flag-operand kernels and needs a mesh layout (dp/pp > 1 or "
+                "virtual_stages > 1); on the sequential path the CUDA kernels "
+                "run already — use megakernel=True for the fused train kernel"
             )
-        if act != "relu" and not self._sequential:
-            raise NotImplementedError(
-                f"the {model!r} model (act={act!r}) on a mesh layout: the port's "
-                "executor runs the relu family only (ROADMAP.md §A item 3)"
-            )
+        # the split backward and recompute: the JAX session's refusals, in
+        # its words
+        self._backward_split = bool(backward_split)
+        if self._backward_split:
+            if self._sequential:
+                raise ValueError(
+                    "backward_split is a pipeline-schedule property (B-input "
+                    "at the relay tick, B-weight deferred into bubbles); the "
+                    "sequential path has no schedule — use dp/pp > 1"
+                )
+            if V > 1:
+                raise ValueError(
+                    "backward_split is not supported with interleaved "
+                    "virtual stages (the chunked steady state interleaves "
+                    "its own bubbles; splitting its backward is future work)"
+                )
+            if kernel_backend == "pallas":
+                raise ValueError(
+                    "backward_split needs the XLA per-slot backward; the "
+                    "fused pallas flag kernel has no split halves"
+                )
+        self._recompute = bool(recompute)
+        if self._recompute:
+            if self._sequential:
+                raise ValueError(
+                    "recompute drops pipeline activation stashes and "
+                    "re-runs the stage forward at the backward tick; the "
+                    "sequential path holds no cross-tick stash — use "
+                    "dp/pp > 1"
+                )
+            if V > 1:
+                raise ValueError(
+                    "recompute is not supported with interleaved virtual "
+                    "stages (the chunked stash rotation is its own "
+                    "lifetime discipline; recomputing it is future work)"
+                )
+            if kernel_backend == "pallas":
+                raise ValueError(
+                    "recompute re-runs the XLA per-slot forward inside "
+                    "the backward tick; the fused pallas flag kernel has "
+                    "no recompute branch"
+                )
         self._kernel_backend = kernel_backend
         self.B, self.M = int(global_batch_size), int(mubatches)
         if clip_norm is not None and clip_norm <= 0:
             raise ValueError("clip_norm must be positive (or None to disable)")
-        self.spec = Mo.make_model_spec(sizes, pp, self.B, act=act)
+        n_model_stages = pp * V
+        self.spec = Mo.make_model_spec(sizes, n_model_stages, self.B, act=act)
+        # device-major stage placement for virtual chunks (identity otherwise)
+        self._order = E.interleave_order(n_model_stages, pp) if V > 1 else None
         self._opt = make_optimizer(optimizer, lr, momentum, weight_decay)
         self._opt_config = {
             "name": optimizer,
@@ -332,11 +389,11 @@ class TrainingSession:
                 # assemble from the arrays discovery read and checksummed:
                 # one read, and nothing can rot or rotate away in between
                 host_params, loaded_spec, meta, host_opt_state = assemble_checkpoint(
-                    resume, *verified, pp, self.B, with_opt_state=True
+                    resume, *verified, n_model_stages, self.B, with_opt_state=True
                 )
             else:
                 host_params, loaded_spec, meta, host_opt_state = load_checkpoint(
-                    resume, pp, self.B, with_opt_state=True
+                    resume, n_model_stages, self.B, with_opt_state=True
                 )
             self.resumed_from = str(resume)
             self._check_compatible(loaded_spec, "the requested model")
@@ -369,15 +426,19 @@ class TrainingSession:
             # decides each tick's work on the host)
             self.mesh = VirtualMesh(dp, pp, self.device)
             self._stacked, self._flags = convert.stacked_from_numpy(
-                host_params, self.spec, self.device
+                host_params, self.spec, self.device, order=self._order
             )
             if stateful:
                 self._opt_state = convert.stacked_opt_state_from_numpy(
-                    self._opt, host_opt_state, self.spec, self.device
+                    self._opt, host_opt_state, self.spec, self.device,
+                    order=self._order,
                 )
             else:
                 self._opt_state = self._opt.init(self._stacked)
-            self._prog = lower_schedule(S.SCHEDULES[schedule], self.M, pp)
+            self._prog = lower_schedule(
+                S.SCHEDULES[schedule], self.M, pp, virtual=V,
+                backward_split=self._backward_split, recompute=self._recompute,
+            )
             self._mubatch_local = local_batch // self.M
             self._run_kwargs = dict(clip_norm=clip_norm, kernel_backend=kernel_backend)
             self._epoch_fn = E.make_pipeline_epoch(
@@ -657,9 +718,7 @@ class TrainingSession:
                     # the whole padded split as one microbatch, one row
                     # block per dp replica (the JAX session's fused-run eval)
                     kwargs.update(
-                        eval_prog=lower_schedule(
-                            S.InferenceSchedule, 1, self.pp, training=False
-                        ),
+                        eval_prog=self._lower_inference_prog(),
                         eval_mubatch_size=self._vx_padded.shape[0] // self.dp,
                     )
                 self._run_fns[with_eval] = E.make_pipeline_run(
@@ -722,7 +781,8 @@ class TrainingSession:
 
     @property
     def sequential(self):
-        """True on the single-device reference layout (dp = pp = 1)."""
+        """True on the single-device reference layout (dp = pp =
+        virtual_stages = 1)."""
         return self._sequential
 
     def predict(self, x):
@@ -731,8 +791,8 @@ class TrainingSession:
         slots in chunks of at most the top rung's slots. On the sequential
         layout each occupied slot runs one forward of the fixed slot shape;
         on the mesh the chunk's slots round up the ladder and run as one
-        ``InferenceSchedule`` program of that rung (``pack_slots`` gives
-        each dp replica its rows of every slot)."""
+        inference program of that rung (``_lower_inference_prog``;
+        ``pack_slots`` gives each dp replica its rows of every slot)."""
         x = np.asarray(x, np.float32)
         if x.ndim != 2 or x.shape[1] != self.spec.in_dim:
             raise ValueError(
@@ -774,13 +834,24 @@ class TrainingSession:
         slots, built once per rung."""
         step = self._predict_cache.get(n_slots)
         if step is None:
-            prog = lower_schedule(S.InferenceSchedule, n_slots, self.pp, training=False)
+            prog = self._lower_inference_prog(n_slots)
             step = E.make_pipeline_step(
                 self.mesh, self.spec, prog, self._slot_rows // self.dp,
                 kernel_backend=self._kernel_backend,
             )
             self._predict_cache[n_slots] = step
         return step
+
+    def _lower_inference_prog(self, mubatches=1):
+        """The layout's inference program (interleaved-aware): a ladder
+        rung's ``mubatches`` slots for predict, one whole-split microbatch
+        for the run's eval."""
+        if self.V > 1:
+            return lower_schedule(
+                S.InterleavedInferenceSchedule, mubatches, self.pp,
+                training=False, virtual=self.V,
+            )
+        return lower_schedule(S.InferenceSchedule, mubatches, self.pp, training=False)
 
     def inference_latency_bound(self):
         """The analytical latency floor of one slot. Not known on this card
@@ -795,7 +866,7 @@ class TrainingSession:
         never touch), the JAX pytree layout."""
         if self._sequential:
             return convert.params_to_numpy(self._params)
-        return convert.stacked_to_numpy(self._stacked, self.spec)
+        return convert.stacked_to_numpy(self._stacked, self.spec, order=self._order)
 
     def opt_state_logical(self):
         """Stateful-optimizer state in the JAX package's logical form:
@@ -803,7 +874,9 @@ class TrainingSession:
         {key: float}}``; None for a stateless optimizer."""
         if self._sequential:
             return convert.opt_state_to_numpy(self._opt, self._opt_state)
-        return convert.stacked_opt_state_to_numpy(self._opt, self._opt_state, self.spec)
+        return convert.stacked_opt_state_to_numpy(
+            self._opt, self._opt_state, self.spec, order=self._order
+        )
 
     def load_weights(self, path):
         """Swap this session's weights from a checkpoint between dispatches.
@@ -811,13 +884,15 @@ class TrainingSession:
         Weights only: the optimizer state and the cursor are untouched.
         Returns the metadata; unreadable or corrupt files raise
         ``CheckpointError`` before any state changes."""
-        host_params, loaded_spec, meta = load_checkpoint(path, self.pp, self.B)
+        host_params, loaded_spec, meta = load_checkpoint(path, self.spec.n_stages, self.B)
         self._check_compatible(loaded_spec, "this session")
         if self._sequential:
             self._params = convert.params_from_numpy(host_params, self.device)
         else:
             # the session's flags stay: only the weight planes swap
-            self._stacked = convert.stacked_from_numpy(host_params, self.spec, self.device)[0]
+            self._stacked = convert.stacked_from_numpy(
+                host_params, self.spec, self.device, order=self._order
+            )[0]
         return meta
 
     def model_hash(self) -> str:

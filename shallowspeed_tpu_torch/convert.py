@@ -96,28 +96,32 @@ def opt_state_to_numpy(opt, state):
 # ---------------------------------------------------------------------------
 
 
-def stacked_from_numpy(params_list, spec, device):
+def stacked_from_numpy(params_list, spec, device, order=None):
     """Per-stage ``[{"W","b"}, ...]`` numpy -> ``(stacked, flags)``: the
-    JAX package's ``E.stack_params`` layout as contiguous float32 tensors on
-    ``device`` (private copies), and its flags as host numpy."""
-    stacked_np, flags = E.stack_params(params_list, spec)
+    JAX package's ``E.stack_params`` layout (rows in ``order``, identity by
+    default) as contiguous float32 tensors on ``device`` (private copies),
+    and its flags as host numpy."""
+    stacked_np, flags = E.stack_params(params_list, spec, order=order)
     return E.put_stacked(stacked_np, device), flags
 
 
-def stacked_to_numpy(stacked, spec):
+def stacked_to_numpy(stacked, spec, order=None):
     """Stacked tensors -> the per-stage ``[{"W","b"}, ...]`` numpy lists
-    (``E.unstack_params``)."""
-    return E.unstack_params(stacked, spec)
+    in model-stage order (``E.unstack_params``)."""
+    return E.unstack_params(stacked, spec, order=order)
 
 
-def stacked_opt_state_from_numpy(opt, logical, spec, device):
+def stacked_opt_state_from_numpy(opt, logical, spec, device, order=None):
     """The logical optimizer state (per-stage params mirrors, scalars) ->
     ``opt``'s state over the stacked tree on ``device``: each part stacked
-    as the params are (``E.stack_params`` per part, as the JAX session
-    does), scalars as 0-d float32 tensors."""
+    as the params are (``E.stack_params`` per part in the same ``order``,
+    as the JAX session does), scalars as 0-d float32 tensors."""
     if is_stateless(opt):
         return ()
-    parts = {k: stacked_from_numpy(v, spec, device)[0] for k, v in logical["parts"].items()}
+    parts = {
+        k: stacked_from_numpy(v, spec, device, order=order)[0]
+        for k, v in logical["parts"].items()
+    }
     scalars = {
         k: torch.tensor(np.float32(v), dtype=torch.float32, device=device)
         for k, v in logical["scalars"].items()
@@ -125,12 +129,12 @@ def stacked_opt_state_from_numpy(opt, logical, spec, device):
     return join_state(opt, parts, scalars)
 
 
-def stacked_opt_state_to_numpy(opt, state, spec):
+def stacked_opt_state_to_numpy(opt, state, spec, order=None):
     """``opt``'s stacked state -> the logical form (None when stateless)."""
     if is_stateless(opt):
         return None
     parts, scalars = split_state(opt, state)
     return {
-        "parts": {k: stacked_to_numpy(v, spec) for k, v in parts.items()},
+        "parts": {k: stacked_to_numpy(v, spec, order=order) for k, v in parts.items()},
         "scalars": {k: float(v) for k, v in scalars.items()},
     }

@@ -51,9 +51,33 @@ Python bool. Per slot unit, two backends:
   of a non-noop cell, on CPU tensors their plain versions, so on the CPU
   the two backends give the same bits.
 
-Masks stay ``torch.bool`` in the stash. Not ported here, and refused by
-``make_pipeline_step``: virtual stages (interleaved), the split backward,
-recompute and the gelu family (``ROADMAP.md`` §A item 3).
+The schedule lattice, as the JAX executor runs it:
+
+- virtual stages (``prog.num_chunks`` = V > 1, interleaved schedules): the
+  stacked rows are in the device-major ``interleave_order``, so device
+  ``s`` owns rows ``s*V .. s*V+V-1`` and a cell of chunk ``ck`` (the
+  ``chunk`` table) computes row ``s*V + ck``; the ring relay's wrap from the
+  last device to device 0 is then a stage boundary;
+- the split backward (``prog.backward_split``): ``OP_BWD`` cells are
+  B-inputs (``_stage_bwd_input``: the dgrad chain, peeking the activation
+  stash and parking each slot's effective output-grad in the grad stash),
+  ``OP_BWD_W`` cells the deferred B-weights (``_stage_bwd_weight``), whose
+  wgrads the lowering orders as the B-inputs, so the accumulators see the
+  unsplit run's sums in its order (bitwise the unsplit ``"xla"`` run);
+- activation recompute (``prog.recompute``): a forward parks only its
+  stage input (``xin``; global stage 0 reloads its microbatch instead), and
+  ``OP_RECOMPUTE`` re-runs the same ``_stage_fwd`` from it into the stash
+  the backward reads (bitwise the stashed run);
+- the gelu family (``spec.act == "gelu"``): the mask slot holds the f32
+  ``gelu_grad_mult(z)`` (None where the flag is off), residual adds go
+  forward and their skip grads backward, on the ``"xla"`` backend.
+
+Masks stay ``torch.bool`` in the stash for the relu family. Stash, grad
+stash and input-stash slots are dropped when the lowering frees them, so a
+tensor lives as long as the TPU program's buffer slot holds it. The JAX
+executor's refusals hold: the pallas backend runs neither the split
+backward, recompute nor the gelu family, and the lowering refuses virtual
+stages with either of the first two.
 """
 
 import functools
@@ -65,14 +89,19 @@ import torch.nn.functional as F
 from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
 from shallowspeed_tpu_torch.optimizer import clip_tree
-from shallowspeed_tpu_torch.parallel.lowering import OP_BWD, OP_FWD, OP_NOOP
+from shallowspeed_tpu_torch.parallel.lowering import (
+    OP_BWD,
+    OP_BWD_W,
+    OP_FWD,
+    OP_NOOP,
+    OP_RECOMPUTE,
+)
 
 KERNEL_BACKENDS = ("xla", "pallas")
 
 
 # ---------------------------------------------------------------------------
-# The stacked layout (host numpy; the JAX package's functions at identity
-# order, tp = 1)
+# The stacked layout (host numpy; the JAX package's functions at tp = 1)
 # ---------------------------------------------------------------------------
 
 
@@ -132,33 +161,60 @@ def relay_width(spec: ModelSpec) -> int:
     return max((s.in_dim for s in spec.stages[1:]), default=1)
 
 
-def stack_params(params_list, spec: ModelSpec):
+def interleave_order(n_stages: int, n_devices: int):
+    """Device-major stacked-row order for interleaved layouts
+    (``executor.interleave_order``): stacked row ``r = device * V + chunk``
+    holds model stage ``chunk * P + device``, so device ``d`` owns rows
+    ``d*V .. d*V+V-1``, its V virtual chunks."""
+    if n_devices < 1 or n_stages % n_devices:
+        raise ValueError(
+            f"{n_stages} model stages do not split over {n_devices} devices"
+        )
+    V = n_stages // n_devices
+    return [(r % V) * n_devices + (r // V) for r in range(n_stages)]
+
+
+def _order(order, S):
+    order = list(range(S)) if order is None else [int(s) for s in order]
+    if sorted(order) != list(range(S)):
+        raise ValueError(f"order must permute 0..{S - 1}, got {order}")
+    return order
+
+
+def stack_params(params_list, spec: ModelSpec, order=None):
     """Per-stage ragged params (host numpy) -> per-slot zero-padded stacks
     and flags, all host numpy (``executor.stack_params``):
 
       stacked = {"W": tuple_l of (S, out_l, in_l), "b": tuple_l of (S, out_l)}
       flags   = {"active": (S, L), "relu": (S, L), "residual": (S, L),
                  "head_mask": (S, out_last)}
-    """
+
+    ``relu[r, l]`` is the slot's activation flag (the spec's family, relu
+    or gelu), ``residual[r, l]`` the gelu family's skip add (all False for
+    the relu family). ``order[r]`` names the model stage stored at stacked
+    row ``r`` (identity by default; ``interleave_order`` for virtual
+    stages)."""
     dims = slot_shapes(spec)
     S = spec.n_stages
     L = len(dims)
+    order = _order(order, S)
     Ws = [np.zeros((S, o, i), np.float32) for o, i in dims]
     bs = [np.zeros((S, o), np.float32) for o, _ in dims]
     active = np.zeros((S, L), np.bool_)
     relu = np.zeros((S, L), np.bool_)
     residual = np.zeros((S, L), np.bool_)
     head_mask = np.zeros((S, dims[-1][0]), np.bool_)
-    for s, (sspec, sparams) in enumerate(zip(spec.stages, params_list)):
+    for r, s in enumerate(order):
+        sspec, sparams = spec.stages[s], params_list[s]
         for l, layer in enumerate(sparams):
             out_d, in_d = np.shape(layer["W"])
-            Ws[l][s, :out_d, :in_d] = np.asarray(layer["W"])
-            bs[l][s, :out_d] = np.asarray(layer["b"]).reshape(-1)
-            active[s, l] = True
-            relu[s, l] = sspec.relu_flags[l]
-            residual[s, l] = sspec.res_flags[l]
+            Ws[l][r, :out_d, :in_d] = np.asarray(layer["W"])
+            bs[l][r, :out_d] = np.asarray(layer["b"]).reshape(-1)
+            active[r, l] = True
+            relu[r, l] = sspec.relu_flags[l]
+            residual[r, l] = sspec.res_flags[l]
         if sspec.has_head:
-            head_mask[s, : sspec.out_dim] = True
+            head_mask[r, : sspec.out_dim] = True
     return (
         {"W": tuple(Ws), "b": tuple(bs)},
         {"active": active, "relu": relu, "residual": residual, "head_mask": head_mask},
@@ -169,21 +225,23 @@ def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def unstack_params(stacked, spec: ModelSpec):
+def unstack_params(stacked, spec: ModelSpec, order=None):
     """The logical per-stage params back out of a stacked tree (tensors or
-    numpy), as host numpy with ``b`` as ``(1, out)`` (``executor.
-    unstack_params``)."""
+    numpy), in model-stage order (inverting ``order``), as host numpy with
+    ``b`` as ``(1, out)`` (``executor.unstack_params``)."""
     Ws = [_host(w) for w in stacked["W"]]
     bs = [_host(b) for b in stacked["b"]]
+    row_of = {s: r for r, s in enumerate(_order(order, spec.n_stages))}
     out = []
     for s, sspec in enumerate(spec.stages):
+        r = row_of[s]
         layers = []
         for l in range(sspec.n_linears):
             in_d, out_d = sspec.local_sizes[l], sspec.local_sizes[l + 1]
             layers.append(
                 {
-                    "W": Ws[l][s, :out_d, :in_d].copy(),
-                    "b": bs[l][s, :out_d].reshape(1, -1).copy(),
+                    "W": Ws[l][r, :out_d, :in_d].copy(),
+                    "b": bs[l][r, :out_d].reshape(1, -1).copy(),
                 }
             )
         out.append(layers)
@@ -199,10 +257,10 @@ def put_stacked(stacked_np, device):
     }
 
 
-def init_stacked(spec: ModelSpec, mesh):
-    """The deterministic init, stacked: ``(stacked tensors on the mesh's
-    device, host flags)``."""
-    stacked, flags = stack_params(init_model(spec), spec)
+def init_stacked(spec: ModelSpec, mesh, order=None):
+    """The deterministic init, stacked in ``order``: ``(stacked tensors on
+    the mesh's device, host flags)``."""
+    stacked, flags = stack_params(init_model(spec), spec, order=order)
     return put_stacked(stacked, mesh.device), flags
 
 
@@ -223,47 +281,116 @@ def _fit(a, width):
     return F.pad(a, (0, width - cur))
 
 
-def _stage_fwd(Ws, bs, active, relu, dims, x, kernel_backend):
+def _stage_fwd(Ws, bs, active, relu, residual, dims, x, kernel_backend, act):
     """Forward of one stage through the per-slot stacks (``Ws[l]``/``bs[l]``
-    its rows); ``active``/``relu`` are the stage's host flags. Returns
-    ``(out, xs, masks)``; an inactive slot passes ``_fit(x, out_l)`` on and
-    stashes nothing (its backward is a passthrough with zero gradients)."""
+    its row); ``active``/``relu``/``residual`` are the row's host flags.
+    Returns ``(out, xs, masks)``; an inactive slot passes ``_fit(x, out_l)``
+    on and stashes nothing (its backward is a passthrough with zero
+    gradients).
+
+    The relu family runs the flag entry (``kernel_backend="pallas"``) or its
+    plain version per slot. The gelu family (``act="gelu"``, plain torch,
+    the JAX executor's expressions) stashes the f32 ``gelu_grad_mult(z)`` as
+    the slot's mask (None where the flag is off) and adds the residual
+    flags' skip connections, ``y_l += x_{l-1}``."""
     fwd = (
         cuda_ops.linear_flag_fwd if kernel_backend == "pallas"
         else cuda_ops.linear_flag_fwd_reference
     )
     xs, masks = [], []
+    x_prev = None
     for l, (o, i) in enumerate(dims):
         x_l = _fit(x, i)
         if not active[l]:
             xs.append(None)
             masks.append(None)
             x = _fit(x_l, o)
-            continue
-        x, mask = fwd(x_l, Ws[l], bs[l].reshape(1, -1), relu[l])
-        xs.append(x_l)
-        masks.append(mask)
+        elif act == "gelu":
+            z = ops.linear(x_l, Ws[l], bs[l])
+            if relu[l]:
+                mask, x = ops.gelu_grad_mult(z), ops.gelu(z)
+            else:
+                mask, x = None, z
+            if l > 0 and residual[l]:
+                x = x + _fit(x_prev, o)
+            xs.append(x_l)
+            masks.append(mask)
+        else:
+            x, mask = fwd(x_l, Ws[l], bs[l].reshape(1, -1), relu[l])
+            xs.append(x_l)
+            masks.append(mask)
+        x_prev = x_l
     return x, xs, masks
 
 
-def _stage_bwd(Ws, active, relu, dims, xs, masks, g, kernel_backend, gW, gb):
+def _stage_bwd(Ws, active, relu, residual, dims, xs, masks, g, kernel_backend, gW, gb):
     """Backward of one stage through the per-slot stacks: accumulates each
-    active slot's dW/db into ``gW[l]``/``gb[l]`` (the stage's rows of the
-    replica's accumulators, in place) and returns the input gradient."""
+    active slot's dW/db into ``gW[l]``/``gb[l]`` (the row's slots of the
+    replica's accumulators, in place) and returns the input gradient. A
+    residual at slot ``l + 1`` adds its incoming grad to slot ``l``'s dx
+    (its input fed both the Linear and the skip)."""
     bwd = (
         cuda_ops.linear_flag_bwd if kernel_backend == "pallas"
         else cuda_ops.linear_flag_bwd_reference
     )
-    for l in reversed(range(len(dims))):
+    L = len(dims)
+    g_prev = None
+    for l in reversed(range(L)):
         o, i = dims[l]
         g_l = _fit(g, o)
         if not active[l]:
             g = _fit(g_l, i)
-            continue
-        g, dw, db2 = bwd(g_l, masks[l], xs[l], Ws[l], relu[l])
-        gW[l].add_(dw)
-        gb[l].add_(db2.reshape(-1))
+        else:
+            g, dw, db2 = bwd(g_l, masks[l], xs[l], Ws[l], relu[l])
+            gW[l].add_(dw)
+            gb[l].add_(db2.reshape(-1))
+            if l + 1 < L and residual[l + 1]:
+                g = g + _fit(g_prev, i)
+        g_prev = g_l
     return g
+
+
+def _g_eff(g, mask, flag):
+    """A slot's effective output-grad: ``cuda_ops.linear_act_bwd_reference``'s
+    expression, character for character (a multiply by the mask, so NaN at
+    a masked position stays NaN)."""
+    return g * mask.to(g.dtype) if flag else g
+
+
+def _stage_bwd_input(Ws, active, relu, residual, dims, masks, g):
+    """The relay-critical half of the split backward (``executor.
+    _stage_bwd_input``): the dgrad chain only. Returns ``(dx, g_effs)``, the
+    input gradient and each active slot's effective output-grad, which the
+    deferred B-weight consumes. ``_g_eff`` and ``ops.linear_grad_input`` are
+    the plain unsplit backward's expressions and torch calls, so dx is its
+    dx bit for bit."""
+    L = len(dims)
+    g_effs = [None] * L
+    g_prev = None
+    for l in reversed(range(L)):
+        o, i = dims[l]
+        g_l = _fit(g, o)
+        if not active[l]:
+            g = _fit(g_l, i)
+        else:
+            g_effs[l] = _g_eff(g_l, masks[l], relu[l])
+            g = ops.linear_grad_input(g_effs[l], Ws[l])
+            if l + 1 < L and residual[l + 1]:
+                g = g + _fit(g_prev, i)
+        g_prev = g_l
+    return g, g_effs
+
+
+def _stage_bwd_weight(active, xs, g_effs, gW, gb):
+    """The deferred half of the split backward (``executor.
+    _stage_bwd_weight``): each active slot's ``(dW, db)`` from the stashed
+    input and effective output-grad (``ops.linear_grad_weight``, the plain
+    unsplit backward's calls), accumulated in place."""
+    for l, on in enumerate(active):
+        if on:
+            dw, db = ops.linear_grad_weight(g_effs[l], xs[l])
+            gW[l].add_(dw)
+            gb[l].add_(db)
 
 
 # ---------------------------------------------------------------------------
@@ -291,27 +418,30 @@ def dp_sum(trees):
 
 
 def _check_program(mesh, spec, prog, kernel_backend):
+    """The JAX executor's refusals, in its words, and the layout's shape."""
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel_backend {kernel_backend!r}")
-    if spec.act != "relu":
-        raise NotImplementedError(
-            f"act={spec.act!r}: the port's executor runs the relu family only "
-            "(the gelu family on the mesh is ROADMAP.md §A item 3)"
-        )
-    for what, on in (
-        ("virtual stages (interleaved)", prog.num_chunks != 1),
-        ("backward_split", prog.backward_split),
-        ("recompute", prog.recompute),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"{what}: not ported to the port's executor yet (ROADMAP.md §A "
-                "item 3)"
+    if kernel_backend == "pallas":
+        if prog.backward_split:
+            raise ValueError(
+                "backward_split needs the XLA per-slot backward (the fused "
+                "pallas flag kernel computes dgrad+wgrad in one unit and has "
+                "no split halves); use kernel_backend='xla'"
             )
-    if prog.num_stages != mesh.pp or spec.n_stages != mesh.pp:
+        if spec.act != "relu":
+            raise ValueError(
+                f"the fused pallas flag kernels implement the relu family only; "
+                f"use kernel_backend='xla' for act={spec.act!r} models"
+            )
+        if prog.recompute:
+            raise ValueError(
+                "recompute re-runs the stage forward through the XLA slot "
+                "functions; use kernel_backend='xla' with --recompute"
+            )
+    if prog.num_stages != mesh.pp or spec.n_stages != mesh.pp * prog.num_chunks:
         raise ValueError(
-            f"program has {prog.num_stages} stages and the model {spec.n_stages}, "
-            f"the mesh pp={mesh.pp}"
+            f"program has {prog.num_stages} devices x {prog.num_chunks} chunks "
+            f"and the model {spec.n_stages} stages, the mesh pp={mesh.pp}"
         )
 
 
@@ -329,20 +459,24 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     Inference:
         ``step(stacked, flags, x) -> preds`` ``(global_eval_batch, out_width)``.
 
-    ``flags``: the HOST numpy flags of ``stack_params``. ``clip_norm``: the
-    global-norm clip on the post-sync gradient. ``kernel_backend``:
-    ``"xla"`` (plain torch) or ``"pallas"`` (the flag kernels)."""
+    ``stacked``/``flags``: the ``stack_params`` layout, rows in
+    ``interleave_order`` when ``prog.num_chunks > 1``; ``flags`` are HOST
+    numpy. ``clip_norm``: the global-norm clip on the post-sync gradient.
+    ``kernel_backend``: ``"xla"`` (plain torch) or ``"pallas"`` (the flag
+    kernels)."""
     _check_program(mesh, spec, prog, kernel_backend)
     training = prog.is_training
     if training and opt is None:
         raise ValueError("training program needs an optimizer")
+    act = spec.act
+    split_bwd, rec = bool(prog.backward_split), bool(prog.recompute)
     dims = slot_shapes(spec)
-    L = len(dims)
     D_in, D_out = dims[0][1], dims[-1][0]
     W_rel = relay_width(spec)
-    P, dp = mesh.pp, mesh.dp
+    P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
     M, mb_sz = prog.num_micro_batches, mubatch_size
     Kf, Kb, Ks = prog.n_fwd_slots, prog.n_bwd_slots, prog.n_stash_slots
+    Kg, Kx = prog.n_gstash_slots, prog.n_xin_slots
     B_global = spec.global_batch_size
     # the tick tables as host lists, read cell by cell
     tab = {
@@ -350,7 +484,9 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         for k, a in dict(
             op="op", mb="mb", rf="read_fwd_slot", rb="read_bwd_slot",
             inf="in_fwd_slot", inb="in_bwd_slot", sf="send_fwd", sb="send_bwd",
-            sw="stash_write", sr="stash_read", li="load_in", ih="is_head",
+            sw="stash_write", sr="stash_read", ck="chunk", li="load_in",
+            ih="is_head", sp="stash_peek", gw="gstash_write", gr="gstash_read",
+            xw="xin_write", xr="xin_read",
         ).items()
     }
     head_masks = {}  # device copies of the head-mask rows, keyed by content
@@ -360,7 +496,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         key = (hm.tobytes(), hm.shape, str(device))
         if key not in head_masks:
             rows = torch.from_numpy(hm.copy()).to(device)
-            head_masks[key] = [rows[s].reshape(1, -1) for s in range(hm.shape[0])]
+            head_masks[key] = [rows[r].reshape(1, -1) for r in range(hm.shape[0])]
         return head_masks[key]
 
     def run_ticks(stacked, flags, X, Y, dev):
@@ -368,13 +504,19 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         gradient accumulators and loss tallies (training) or predictions."""
         active = np.asarray(flags["active"]).tolist()
         relu = np.asarray(flags["relu"]).tolist()
+        residual = np.asarray(flags["residual"]).tolist()
         hm = head_mask_rows(flags, dev)
-        Ws = [[w[s] for w in stacked["W"]] for s in range(P)]
-        bs = [[b[s] for b in stacked["b"]] for s in range(P)]
+        Ws = [[w[r] for w in stacked["W"]] for r in range(P * V)]
+        bs = [[b[r] for b in stacked["b"]] for r in range(P * V)]
         fwd_mail = [[[None] * (Kf + 1) for _ in range(P)] for _ in range(dp)]
         bwd_mail = [[[None] * (Kb + 1) for _ in range(P)] for _ in range(dp)]
         if training:
+            # per rank: the activation stash, the split backward's grad
+            # stash and recompute's input stash (lowering-assigned slots,
+            # the last one the trash slot)
             stash = [[[None] * (Ks + 1) for _ in range(P)] for _ in range(dp)]
+            gstash = [[[None] * (Kg + 1) for _ in range(P)] for _ in range(dp)]
+            xin = [[[None] * (Kx + 1) for _ in range(P)] for _ in range(dp)]
             acc = [
                 {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
                 for _ in range(dp)
@@ -382,6 +524,17 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             loss = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(dp)]
         else:
             preds = [[None] * (M + 1) for _ in range(dp)]
+
+        def fwd(r, x_in):
+            return _stage_fwd(
+                Ws[r], bs[r], active[r], relu[r], residual[r], dims, x_in, kernel_backend, act
+            )
+
+        def head_or_mail(d, s, t, r, z, mb_r):
+            if tab["ih"][t][s] == 1:
+                return ops.softmax_mse_head_grad(z, Y[d, mb_r], B_global, valid_mask=hm[r])
+            return bwd_mail[d][s][tab["rb"][t][s]]
+
         for t in range(prog.num_ticks):
             op, mbt = tab["op"][t], tab["mb"][t]
             sends = []  # (mailbox, slot, payload) delivered at the tick's end
@@ -390,42 +543,67 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     continue
                 mb_i = mbt[s]
                 mb_r = min(mb_i, M - 1)
+                r = s * V + tab["ck"][t][s]  # the active chunk's stacked row
                 is_head = tab["ih"][t][s] == 1
+                load_in = tab["li"][t][s] == 1
                 for d in range(dp):
                     if op[s] == OP_FWD:
-                        if tab["li"][t][s] == 1:
+                        if load_in:
                             x_in = X[d, mb_r]
                         else:
                             x_in = _fit(fwd_mail[d][s][tab["rf"][t][s]], D_in)
-                        out, xs_l, masks_l = _stage_fwd(
-                            Ws[s], bs[s], active[s], relu[s], dims, x_in, kernel_backend
-                        )
+                        out, xs_l, masks_l = fwd(r, x_in)
                         if training:
-                            stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
+                            if rec:
+                                # park the stage input only (global stage 0
+                                # reloads its microbatch; its slot is trash)
+                                xin[d][s][tab["xw"][t][s]] = x_in
+                            else:
+                                stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
                             if is_head:
-                                p = ops.softmax(out, valid_mask=hm[s])
+                                p = ops.softmax(out, valid_mask=hm[r])
                                 loss[d] = loss[d] + ops.mse_loss(p, Y[d, mb_r], B_global)
                         elif is_head:
-                            preds[d][mb_i] = ops.softmax(out, valid_mask=hm[s])
+                            preds[d][mb_i] = ops.softmax(out, valid_mask=hm[r])
                         if tab["sf"][t][s] == 1:
-                            r = (s + 1) % P
-                            sends.append((fwd_mail[d][r], tab["inf"][t][r], _fit(out, W_rel)))
+                            n = (s + 1) % P
+                            sends.append((fwd_mail[d][n], tab["inf"][t][n], _fit(out, W_rel)))
+                    elif op[s] == OP_RECOMPUTE:
+                        # the forward again, from the same input bits through
+                        # the same _stage_fwd: the stashed run's residuals
+                        xr = tab["xr"][t][s]
+                        x_in = X[d, mb_r] if load_in else _fit(xin[d][s][xr], D_in)
+                        xin[d][s][xr] = None
+                        out, xs_l, masks_l = fwd(r, x_in)
+                        stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
                     elif op[s] == OP_BWD:
-                        xs_r, masks_r, z_r = stash[d][s][tab["sr"][t][s]]
-                        if is_head:
-                            g_in = ops.softmax_mse_head_grad(
-                                z_r, Y[d, mb_r], B_global, valid_mask=hm[s]
+                        if split_bwd:
+                            # B-input: peek the stash (the B-weight frees it)
+                            _, masks_r, z_r = stash[d][s][tab["sp"][t][s]]
+                            dx, g_effs = _stage_bwd_input(
+                                Ws[r], active[r], relu[r], residual[r], dims, masks_r,
+                                head_or_mail(d, s, t, r, z_r, mb_r),
                             )
+                            gstash[d][s][tab["gw"][t][s]] = g_effs
                         else:
-                            g_in = bwd_mail[d][s][tab["rb"][t][s]]
-                        dx = _stage_bwd(
-                            Ws[s], active[s], relu[s], dims, xs_r, masks_r, g_in,
-                            kernel_backend,
-                            [w[s] for w in acc[d]["W"]], [b[s] for b in acc[d]["b"]],
-                        )
+                            sr = tab["sr"][t][s]
+                            xs_r, masks_r, z_r = stash[d][s][sr]
+                            stash[d][s][sr] = None
+                            dx = _stage_bwd(
+                                Ws[r], active[r], relu[r], residual[r], dims, xs_r, masks_r,
+                                head_or_mail(d, s, t, r, z_r, mb_r), kernel_backend,
+                                [w[r] for w in acc[d]["W"]], [b[r] for b in acc[d]["b"]],
+                            )
                         if tab["sb"][t][s] == 1:
-                            r = (s - 1) % P
-                            sends.append((bwd_mail[d][r], tab["inb"][t][r], _fit(dx, W_rel)))
+                            n = (s - 1) % P
+                            sends.append((bwd_mail[d][n], tab["inb"][t][n], _fit(dx, W_rel)))
+                    elif op[s] == OP_BWD_W:
+                        sr, gr = tab["sr"][t][s], tab["gr"][t][s]
+                        _stage_bwd_weight(
+                            active[r], stash[d][s][sr][0], gstash[d][s][gr],
+                            [w[r] for w in acc[d]["W"]], [b[r] for b in acc[d]["b"]],
+                        )
+                        stash[d][s][sr] = gstash[d][s][gr] = None
                     else:
                         raise ValueError(f"tick {t} stage {s}: op code {op[s]} not ported")
             for mailbox, slot, payload in sends:
@@ -496,8 +674,9 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
 
     Without eval: ``run(stacked, flags, opt_state, X, Y, n_epochs) ->
     (stacked, opt_state, losses[n_epochs])``. With ``eval_prog`` (an
-    ``InferenceSchedule`` program of one microbatch over the padded
-    validation rows): ``run(stacked, flags, opt_state, X, Y, vx_padded,
+    ``InferenceSchedule`` program, or ``InterleavedInferenceSchedule`` on an
+    interleaved layout, of one microbatch over the padded validation
+    rows): ``run(stacked, flags, opt_state, X, Y, vx_padded,
     vy_labels, n_epochs) -> (stacked, opt_state, losses, accs)``, each epoch
     followed by the whole split's argmax accuracy."""
     epoch = make_pipeline_epoch(

@@ -5,6 +5,10 @@
     python -m shallowspeed_tpu_torch.train --fuse-mubatches --epoch-kernel
     python -m shallowspeed_tpu_torch.train --dp 2 --pp 4 --schedule gpipe \
         --kernel-backend pallas
+    python -m shallowspeed_tpu_torch.train --pp 2 --schedule interleaved \
+        --virtual-stages 2 --kernel-backend pallas
+    python -m shallowspeed_tpu_torch.train --pp 4 --schedule gpipe \
+        --backward-split --recompute --model transformer
 
 The reference's recipe by default: the flagship MLP, 20 epochs, global
 batch 128 in 4 microbatches, SGD at lr 0.006, with the validation accuracy
@@ -16,7 +20,10 @@ through the fused train kernel: one launch per batch, per epoch, or per
 ``--fused-run --no-eval`` run. ``--dp``/``--pp``/``--schedule`` train a
 mesh layout through the lockstep pipeline executor (every rank on the one
 device), and ``--kernel-backend pallas`` puts its slots through the flag
-kernels.
+kernels; ``--schedule interleaved --virtual-stages V``, ``--backward-split``
+and ``--recompute`` are the root CLI's schedule lattice, and ``--model
+transformer`` takes a mesh layout too (the last three on ``--kernel-backend
+xla``, as in the root CLI).
 
 Preemption-safe runs, as the root ``train.py``'s::
 
@@ -47,8 +54,35 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas")
     ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
     ap.add_argument(
-        "--schedule", choices=["naive", "gpipe", "pipedream"], default="naive",
-        help="pipeline schedule (ignored unless --pp > 1)",
+        "--schedule", choices=["naive", "gpipe", "pipedream", "interleaved"],
+        default="naive",
+        help="pipeline schedule (ignored unless --pp > 1); 'interleaved' is "
+        "Megatron-style virtual-stage 1F1B (use with --virtual-stages)",
+    )
+    ap.add_argument(
+        "--virtual-stages", type=int, default=1,
+        help="virtual stages per device for --schedule interleaved: the model "
+        "is cut into pp x V stages, stage s on device s %% pp — the "
+        "pipeline-fill bubble shrinks ~V-fold (beyond the reference)",
+    )
+    ap.add_argument(
+        "--backward-split", action="store_true",
+        help="pipeline schedules (gpipe/pipedream/naive): two-stage backward "
+        "— each microbatch's backward is split into the relay-critical "
+        "B-input (d(loss)/d(input), at exactly the tick the combined "
+        "backward would run, so upstream stages never wait longer) and a "
+        "deferred B-weight (dW/db from the stashed activation + output-"
+        "grad) packed into otherwise-idle bubble ticks (2BP, arXiv "
+        "2405.18047). Bitwise-identical weights (the weight-grad "
+        "accumulation order is preserved)",
+    )
+    ap.add_argument(
+        "--recompute", action="store_true",
+        help="pipeline schedules: activation recompute — forwards stash "
+        "only the stage INPUT, and the stage forward re-runs inside the "
+        "backward tick (OP_RECOMPUTE), shrinking the activation-stash "
+        "lifetime from fwd->bwd to recompute->bwd. Bitwise-identical "
+        "weights vs stashed training; mesh layouts only, not interleaved",
     )
     ap.add_argument(
         "--kernel-backend", choices=["xla", "pallas"], default="xla",
@@ -175,6 +209,18 @@ def main(argv=None):
         )
     if args.keep < 1:
         ap.error("--keep must be >= 1")
+    if args.recompute and (args.dp, args.pp) == (1, 1):
+        ap.error(
+            "--recompute drops pipeline activation stashes; the "
+            "sequential path holds no cross-tick stash — use a mesh "
+            "layout (dp/pp/tp > 1)"
+        )
+    if args.recompute and args.virtual_stages > 1:
+        ap.error(
+            "--recompute is not supported with interleaved virtual "
+            "stages (the chunked stash rotation is its own lifetime "
+            "discipline)"
+        )
     faults_env = os.environ.get("SHALLOWSPEED_FAULTS", "")
     if args.fused_run and any(p.strip() for p in faults_env.split(",")):
         ap.error(
@@ -194,6 +240,9 @@ def main(argv=None):
             dp=args.dp,
             pp=args.pp,
             schedule=args.schedule,
+            virtual_stages=args.virtual_stages,
+            backward_split=args.backward_split,
+            recompute=args.recompute,
             kernel_backend=args.kernel_backend,
             model=args.model,
             global_batch_size=args.global_batch_size,
@@ -236,6 +285,8 @@ def main(argv=None):
             note = " no resumable checkpoint found — fresh start"
     if run.sequential:
         layout = "sequential"
+    elif args.virtual_stages > 1:
+        layout = f"interleaved pipeline, V={args.virtual_stages}"
     elif args.pp > 1:
         layout = f"{args.schedule} pipeline"
     else:

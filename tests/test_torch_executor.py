@@ -131,23 +131,34 @@ def test_mesh_shape_and_refusals(monkeypatch):
     with pytest.raises(ValueError, match="pp must be a positive int"):
         VirtualMesh(1, 2.0)
     spec = TM.make_model_spec(SMALL, 4, B)
+    # the JAX executor's pallas refusals, in its words (executor.py:1392-1409)
     for kw, match in (
-        (dict(virtual=2), "virtual stages"),
-        (dict(backward_split=True), "backward_split"),
-        (dict(recompute=True), "recompute"),
+        (dict(backward_split=True), "backward_split needs the XLA per-slot backward"),
+        (dict(recompute=True), "recompute re-runs the stage forward through the XLA"),
     ):
-        cls = TS.InterleavedSchedule if "virtual" in kw else TS.GPipeSchedule
-        prog = tlower(cls, 4, 4 if "virtual" not in kw else 2, **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            TE.make_pipeline_step(VirtualMesh(1, prog.num_stages, "cpu"), spec, prog, 16, make_optimizer("sgd", LR))
+        prog = tlower(TS.GPipeSchedule, 4, 4, **kw)
+        with pytest.raises(ValueError, match=match):
+            TE.make_pipeline_step(
+                VirtualMesh(1, 4, "cpu"), spec, prog, 16, make_optimizer("sgd", LR),
+                kernel_backend="pallas",
+            )
+    # virtual stages: the model's stages must be the mesh's pp x V
+    with pytest.raises(ValueError, match="2 devices x 2 chunks"):
+        TE.make_pipeline_step(
+            VirtualMesh(1, 2, "cpu"), TM.make_model_spec(SMALL, 2, B),
+            tlower(TS.InterleavedSchedule, 4, 2, virtual=2), 16, make_optimizer("sgd", LR),
+        )
     prog = tlower(TS.GPipeSchedule, 4, 4)
     with pytest.raises(ValueError, match="kernel_backend"):
         TE.make_pipeline_step(VirtualMesh(1, 4, "cpu"), spec, prog, 16, make_optimizer("sgd", LR), kernel_backend="triton")
     with pytest.raises(ValueError, match="needs an optimizer"):
         TE.make_pipeline_step(VirtualMesh(1, 4, "cpu"), spec, prog, 16)
     gelu = TM.make_model_spec((784, 256, 256, 10), 2, B, act="gelu")
-    with pytest.raises(NotImplementedError, match="relu family"):
-        TE.make_pipeline_step(VirtualMesh(1, 2, "cpu"), gelu, tlower(TS.GPipeSchedule, 4, 2), 16, make_optimizer("sgd", LR))
+    with pytest.raises(ValueError, match="relu family only; use kernel_backend='xla'"):
+        TE.make_pipeline_step(
+            VirtualMesh(1, 2, "cpu"), gelu, tlower(TS.GPipeSchedule, 4, 2), 16,
+            make_optimizer("sgd", LR), kernel_backend="pallas",
+        )
 
 
 # ---------------------------------------------------------------------------

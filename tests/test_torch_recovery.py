@@ -9,8 +9,10 @@ whole epochs, and a v2 snapshot holds the whole resumable state (params,
 optimizer state, step cursor), so a killed-and-resumed run's weight hash is
 its twin's. Here on the four training paths of the port — the microbatch
 loop, the fused train kernel's plain version per batch (Adam, with its
-mirrors and step count) and per epoch, and the DP=2 x PP=4 executor through
-the flag entries — and through the CLI with a real SIGKILL.
+mirrors and step count) and per epoch, the DP=2 x PP=4 executor through
+the flag entries and the interleaved DP=2 x PP=2 x V=2 one (whose stacked
+rows are in the device-major order, and whose snapshots are logical) — and
+through the CLI with a real SIGKILL.
 """
 
 import os
@@ -49,6 +51,9 @@ PATHS = {
     ),
     "fused-epoch-kernel": dict(fuse_mubatches=True, epoch_kernel=True),
     "dp2xpp4-pallas": dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"),
+    "dp2xpp2xv2-interleaved-pallas": dict(
+        dp=2, pp=2, schedule="interleaved", virtual_stages=2, kernel_backend="pallas"
+    ),
 }
 
 
@@ -261,6 +266,36 @@ def test_round_trip_between_the_frameworks(split, tmp_path):
     js.train_steps(BATCHES)
     ts.train_steps(BATCHES)
     assert ts.epoch == js.epoch == 1
+    np.testing.assert_allclose(_flat(ts.params()), _flat(js.params()), rtol=RTOL, atol=ATOL)
+
+
+def test_interleaved_checkpoints_round_trip_between_the_frameworks(split, tmp_path):
+    """An interleaved DP=2 x PP=2 x V=2 checkpoint, both ways: JAX writes
+    an epoch snapshot (momentum state included) and the port resumes it
+    with the same hash and state, then the port writes a mid-epoch step
+    snapshot and JAX resumes that; each next stretch stays within the
+    cross-engine class."""
+    kw = dict(PATHS["dp2xpp2xv2-interleaved-pallas"], optimizer="momentum")
+    js = _session(split, cls=JaxSession, **kw)
+    js.train_epoch()
+    js.save(tmp_path / "jax.npz")
+    ts = _session(split, resume=tmp_path / "jax.npz", **kw)
+    assert ts.model_hash() == js.model_hash() and ts.epoch == js.epoch == 1
+    assert _flat(ts.opt_state_logical()["parts"][""]).tobytes() == _flat(
+        js.opt_state_logical()["parts"][""]
+    ).tobytes()
+    js.train_epoch()
+    ts.train_epoch()
+    np.testing.assert_allclose(_flat(ts.params()), _flat(js.params()), rtol=RTOL, atol=ATOL)
+
+    ts = _session(split, checkpoint_dir=tmp_path / "ck", **kw)
+    ts.train_steps(3)
+    path = ts.save_step_checkpoint()
+    js = _session(split, cls=JaxSession, resume=path, **kw)
+    assert js.model_hash() == ts.model_hash()
+    assert (js.epoch, js.step_in_epoch) == (ts.epoch, ts.step_in_epoch) == (0, 3)
+    js.train_steps(BATCHES)
+    ts.train_steps(BATCHES)
     np.testing.assert_allclose(_flat(ts.params()), _flat(js.params()), rtol=RTOL, atol=ATOL)
 
 

@@ -177,7 +177,7 @@ def test_serving_session_refuses_training_and_unported_options(split, tmp_path):
     for kw, match in (
         (dict(tp=2), "§A item 3"),
         (dict(zero=1), "§A item 3"),
-        (dict(virtual_stages=2), "§A item 3"),
+        (dict(grad_bucket_bytes=1024), "§A item 3"),
         (dict(metrics=object()), "§A item 4"),
         (dict(health="warn"), "§A item 4"),
         (dict(digests=True), "§A item 4"),
