@@ -168,7 +168,28 @@ in phases:
    over half an epoch either side, widened by the cross-engine class for
    the loss and 0.003 for the accuracy) and to the margins calibrated on
    the CPU (``LEARN_*``); where sklearn is
-   importable, the digits split too (``prepare_data.py``), 2 epochs.
+   importable, the digits split too (``prepare_data.py``), 2 epochs;
+13. observability on phase 6's split: 13a the 4-microbatch path (B1/B3)
+   and 13b DP=2 x PP=4 GPipe pallas (B5/B7), one epoch each with a JSONL
+   recorder, ``health="record"`` and ``digests=True``: 16 step records
+   within the cross-engine class of the CPU session's, the last digest's
+   checksums bitwise ``utils.layer_digests`` of the card's params, the
+   ``cost_model`` naming the card with its fp32 peak, 0 < ``mfu`` <= 1,
+   the launches exactly the same drive's without telemetry (and the
+   weights bitwise it), ``inference_latency_bound`` the slot's FLOPs over
+   the peak; 13c the epoch kernel (B10) one epoch and the run kernel (B11)
+   2 eval-free epochs with health: epoch records only, 1 launch each; 13d
+   ``nan@step=5`` with ``health="halt"`` on the 4-microbatch path with a
+   step checkpoint every 4 steps: the halt at step 5, its flushed step-8
+   snapshot non-finite, ``resume="auto"`` back at step 4 and finished
+   bitwise on the uninjected twin's hash; 13e ``capture()`` around one
+   4-microbatch epoch (device events, ``linear_act_*`` kernels named),
+   then per path (4 microbatches, fused microbatches, the megakernel, the
+   epoch kernel, DP=2 x PP=4) 2 recorded epochs and
+   ``measure_dispatch_overhead`` (window valid, device events): the
+   steady epoch's samples/s and ``mfu`` beside ``dispatch_overhead`` and
+   the profiled device ops per step; then the CLI with ``--metrics-out
+   --health warn`` and the report CLI over its file.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -184,7 +205,8 @@ one launch of its mode: a step, a 16-batch epoch, a 2-epoch run, with no
 library call; the flag entries' ``launches`` over phase 9b's five card
 drives and phase 11's interleaved ones (11a, 11e), and their times summed
 over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
-to the B1/B3 kernels' and the run mode's ``launches``; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
+to the B1/B3 kernels' and the run mode's ``launches``, and phase 13's to
+every kernel's (its CLI subprocess counts in its own process, not here); ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
 9a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before either; so does a machine without CUDA, or a directory without the
 package.
@@ -2304,6 +2326,296 @@ def phase_learning(torch, cuda_ops, TrainingSession, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: observability — the metrics stream, the health halt, digests,
+# the cost model's MFU, trace capture and the dispatch probe
+# ---------------------------------------------------------------------------
+
+# the per-path yardsticks of 13e: (label, the session's options); each
+# trains 2 epochs with a recorder and record_steps=False (epoch records
+# only: the uninstrumented program), then measure_dispatch_overhead
+# dispatches 2 + 2 more epochs
+OBS_PATHS = (
+    ("4 microbatches (B1/B3)", dict()),
+    ("fused microbatches (B1/B3)", dict(fuse_mubatches=True)),
+    ("megakernel (B9)", dict(fuse_mubatches=True, megakernel=True)),
+    ("epoch kernel (B10)", dict(fuse_mubatches=True, epoch_kernel=True)),
+    ("DP=2 x PP=4 GPipe pallas (B5/B7)", dict(MAIN_MESH)),
+)
+
+
+def _records(path, kind, name=None):
+    from shallowspeed_tpu_torch.observability import read_jsonl
+
+    return [
+        r for r in read_jsonl(path)
+        if r["kind"] == kind and (name is None or r["name"] == name)
+    ]
+
+
+def _timed_epoch(s):
+    """``s.train_epoch()``; returns its host wall (it waits for the device)."""
+    t0 = time.perf_counter()
+    s.train_epoch()
+    return time.perf_counter() - t0
+
+
+def _recorded_epoch(torch, cuda_ops, TrainingSession, device, path, **kw):
+    """A session from init with a JSONL recorder, ``health="record"`` and
+    ``digests=True``, one ``train_epoch``; returns (session, launch counts
+    of the epoch, its wall)."""
+    from shallowspeed_tpu_torch.observability import JsonlMetrics
+
+    rec = JsonlMetrics(path)
+    s = TrainingSession(device=device, metrics=rec, health="record", digests=True, **kw)
+    if device == "cuda":
+        wall, counts = _card_counts(torch, cuda_ops, lambda: _timed_epoch(s))
+    else:
+        wall, counts = _timed_epoch(s), None
+    s.close()
+    rec.close()
+    return s, counts, wall
+
+
+def _hold_stream(label, card_path, cpu_path, card, want_counts, counts, peak):
+    """13a/13b's checks of one recorded card epoch against the CPU's."""
+    from shallowspeed_tpu_torch import utils
+
+    steps, cpu_steps = _records(card_path, "step"), _records(cpu_path, "step")
+    if len(steps) != TRAIN_BATCHES or len(cpu_steps) != TRAIN_BATCHES:
+        fail(f"13 {label}: {len(steps)} step records on the card, {len(cpu_steps)} on the CPU")
+    worst = 0.0
+    for a, b in zip(steps, cpu_steps):
+        for k in ("loss", "grad_norm", "param_norm"):
+            d = abs(a[k] - b[k])
+            worst = max(worst, d / (TRAIN_ATOL + TRAIN_RTOL * abs(b[k])))
+            if not (math.isfinite(a[k]) and d <= TRAIN_ATOL + TRAIN_RTOL * abs(b[k])):
+                fail(f"13 {label}: step {a['step']} {k} {a[k]} on the card, {b[k]} on the CPU")
+    digests = _records(card_path, "digest")
+    want = utils.layer_digests(card.params())
+    if len(digests) != TRAIN_BATCHES or any(
+        digests[-1][k] != [d[k] for d in want] for k in ("crc_w", "crc_b")
+    ):
+        fail(f"13 {label}: the last digest record is not the card params' layer_digests")
+    (cm,) = _records(card_path, "event", "cost_model")
+    if cm["device_name"] != card._device_name or cm["peak_flops_per_chip"] != peak:
+        fail(f"13 {label}: cost_model {cm}, want the card and peak {peak}")
+    (ep,) = _records(card_path, "event", "epoch")
+    if not (ep.get("mfu") and 0 < ep["mfu"] <= 1 and ep.get("includes_compile")):
+        fail(f"13 {label}: epoch record {ep}")
+    if counts != want_counts:
+        fail(f"13 {label}: launches {counts}, the uninstrumented drive's {want_counts}")
+    if _records(card_path, "health"):
+        fail(f"13 {label}: health findings {_records(card_path, 'health')}")
+    return worst, ep
+
+
+def phase_observability(torch, cuda_ops, TrainingSession, data_dir):
+    """13: the port's observability on phase 6's split. Returns the launch
+    counts of its card drives and the per-path rows of 13e."""
+    from shallowspeed_tpu_torch import checkpoint as ckpt
+    from shallowspeed_tpu_torch.observability import HealthError, JsonlMetrics, capture, trace_stats
+    from shallowspeed_tpu_torch.observability.costmodel import CUDA_FP32_PEAKS
+
+    t_phase = time.perf_counter()
+    obs = Path(data_dir) / "obs"
+    obs.mkdir()
+    name = torch.cuda.get_device_name(0)
+    if name not in CUDA_FP32_PEAKS:
+        fail(f"13: no fp32 peak for {name!r} in the cost model")
+    peak = CUDA_FP32_PEAKS[name][0]
+    launches = dict.fromkeys(cuda_ops.LAUNCHES, 0)
+    fused = {"step": 0, "epoch": 0, "run": 0}
+    lines = []
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 13a/13b: the 4-microbatch path and DP=2 x PP=4 GPipe pallas, each with
+    # the same drive uninstrumented first (its launches are the reference)
+    for tag, label, kw in (
+        ("13a", "4 microbatches (B1/B3)", dict()),
+        ("13b", "DP=2 x PP=4 GPipe pallas (B5/B7)", dict(MAIN_MESH)),
+    ):
+        plain = TrainingSession(device="cuda", data_dir=data_dir, **kw)
+        plain_wall, want = _card_counts(torch, cuda_ops, lambda: _timed_epoch(plain))
+        card_path, cpu_path = obs / f"{tag}.jsonl", obs / f"{tag}-cpu.jsonl"
+        card, counts, card_wall = _recorded_epoch(
+            torch, cuda_ops, TrainingSession, "cuda", card_path, data_dir=data_dir, **kw
+        )
+        _recorded_epoch(torch, cuda_ops, TrainingSession, "cpu", cpu_path, data_dir=data_dir, **kw)
+        add(want)
+        add(counts)
+        if not _bitwise_equal(card, plain):
+            fail(f"{tag} {label}: the recorded epoch is not bitwise the uninstrumented one")
+        worst, ep = _hold_stream(f"{tag} {label}", card_path, cpu_path, card, want, counts, peak)
+        bound = card.inference_latency_bound()
+        if bound["seconds"] != bound["flops"] / peak or name not in bound["peak_source"]:
+            fail(f"{tag}: inference_latency_bound {bound}")
+        lines.append(
+            f"{tag} {label}: {TRAIN_BATCHES} step and digest records, steps within the "
+            f"cross-engine class of the CPU's (worst {worst:.3f} of the allowed "
+            f"difference), last checksums bitwise layer_digests, launches "
+            f"{ {k: v for k, v in counts.items() if v} } = the uninstrumented drive's, "
+            f"weights bitwise it; epoch wall {plain_wall * 1e3:.2f} ms plain, "
+            f"{card_wall * 1e3:.2f} ms recorded; mfu {ep['mfu']:.3e} (the session's "
+            f"first dispatch); slot floor {bound['seconds'] * 1e6:.4f} us "
+            f"({bound['flops']:.0f} FLOP)"
+        )
+
+    # 13c: the epoch kernel (B10) and the run kernel (B11) with health
+    for mode, kw, drive in (
+        ("epoch", dict(epoch_kernel=True), lambda s: s.train_epoch()),
+        ("run", dict(run_kernel=True), lambda s: s.train_run(2, with_eval=False)),
+    ):
+        path = obs / f"13c-{mode}.jsonl"
+        rec = JsonlMetrics(path)
+        s = TrainingSession(device="cuda", data_dir=data_dir, fuse_mubatches=True, metrics=rec,
+                            health="record", **kw)
+        _, counts = _card_counts(torch, cuda_ops, lambda: drive(s))
+        rec.close()
+        add(counts)
+        fused[mode] += counts["fused_train"]
+        if {k: v for k, v in counts.items() if v} != {"fused_train": 1}:
+            fail(f"13c {mode} kernel: launches {counts}, want 1 fused_train")
+        eps = _records(path, "event", "epoch")
+        if _records(path, "step") or _records(path, "digest") or len(eps) != (1 if mode == "epoch" else 2):
+            fail(f"13c {mode} kernel: {len(eps)} epoch records and step/digest records")
+        if not all(0 < e["mfu"] <= 1 for e in eps):
+            fail(f"13c {mode} kernel: mfu {[e['mfu'] for e in eps]}")
+        lines.append(
+            f"13c {mode} kernel: 1 launch, {len(eps)} epoch record(s), no step or digest "
+            f"record, mfu {eps[-1]['mfu']:.3e}"
+        )
+
+    # 13d: the health halt on nan@step=5, its flush, and the recovery
+    def grid(session, every=RECOVERY_EVERY):
+        nb = session.batches_per_epoch
+        while session.epoch < 2:
+            session.train_steps(min(every - session.global_step % every, nb - session.step_in_epoch))
+            if session.global_step % every == 0:
+                session.save_step_checkpoint()
+
+    ck = obs / "halt"
+    halted = TrainingSession(device="cuda", data_dir=data_dir, health="halt",
+                             faults="nan@step=5", checkpoint_dir=ck)
+    try:
+        _, counts = _card_counts(torch, cuda_ops, lambda: grid(halted))
+    except HealthError as e:
+        finding = str(e)
+        torch.cuda.synchronize()
+        add(dict(cuda_ops.LAUNCHES))
+    else:
+        fail("13d: nan@step=5 with health='halt' did not halt")
+    snaps = [gs for gs, _ in ckpt.list_step_checkpoints(ck)]
+    meta = ckpt.verify_checkpoint(ckpt.step_checkpoint_path(ck, 8))
+    if "step 5" not in finding or halted.global_step != 8 or snaps != [4, 8] or meta["all_finite"]:
+        fail(f"13d: halt {finding!r} at step {halted.global_step}, snapshots {snaps}, meta {meta}")
+    resumed = TrainingSession(device="cuda", data_dir=data_dir, checkpoint_dir=ck, resume="auto")
+    if resumed.global_step != 4:
+        fail(f"13d: resume='auto' landed on step {resumed.global_step}, want 4")
+    twin = TrainingSession(device="cuda", data_dir=data_dir)
+    for s in (resumed, twin):
+        _, counts = _card_counts(torch, cuda_ops, lambda: grid(s, every=10**6))
+        add(counts)
+    if resumed.model_hash() != twin.model_hash():
+        fail(f"13d: resumed hash {resumed.model_hash()}, twin {twin.model_hash()}")
+    lines.append(
+        f"13d health halt: {finding!r}; snapshots {snaps}, step 8 all_finite false; "
+        f"resume='auto' at step 4, finished bitwise the twin ({twin.model_hash()})"
+    )
+
+    # 13e: a trace of one 4-microbatch epoch, then per path MFU and the
+    # dispatch probe from the session's own records, then the CLI
+    s = TrainingSession(device="cuda", data_dir=data_dir)
+    _, counts = _card_counts(torch, cuda_ops, s.train_epoch)
+    add(counts)
+    cap = capture(obs / "trace", cuda=True)
+    with cap:
+        _, counts = _card_counts(torch, cuda_ops, s.train_epoch)
+    add(counts)
+    summary = trace_stats.summarize(cap.path)
+    top = summary.get("top_ops", {})
+    if not summary["device_ops"] or not {"linear_act_fwd_kernel", "linear_act_bwd_kernel"} <= set(top):
+        fail(f"13e: the captured trace's device ops {summary}")
+    lines.append(
+        f"13e capture: {summary['device_ops']} device events over {summary['span_ms']} ms, "
+        f"busy {summary['busy_ms']} ms; top {top}"
+    )
+    rows = []
+    for label, kw in OBS_PATHS:
+        path = obs / f"13e-{len(rows)}.jsonl"
+        rec = JsonlMetrics(path)
+        s = TrainingSession(device="cuda", data_dir=data_dir, metrics=rec, record_steps=False, **kw)
+
+        def drive():
+            s.train_epoch()
+            s.train_epoch()
+            return s.measure_dispatch_overhead(repeats=2)
+
+        probe, counts = _card_counts(torch, cuda_ops, drive)
+        rec.close()
+        add(counts)
+        if kw.get("megakernel"):
+            fused["step"] += counts["fused_train"]
+        elif kw.get("epoch_kernel"):
+            fused["epoch"] += counts["fused_train"]
+        if not probe["window_valid"] or probe["op_source"] != "device":
+            fail(f"13e {label}: dispatch probe {probe}")
+        eps = _records(path, "event", "epoch")
+        steady = [e for e in eps if not e.get("includes_compile")]
+        row = dict(
+            label=label,
+            mfu=steady[0]["mfu"],
+            samples_per_sec=steady[0]["samples_per_sec"],
+            dispatch_overhead=probe["dispatch_overhead"],
+            device_busy_ms_per_step=probe["device_busy_s"] * 1e3 / (2 * TRAIN_BATCHES),
+            events_per_step=probe["events_per_batch"],
+            profiler_inflation=probe["profiler_inflation"],
+        )
+        rows.append(row)
+        lines.append(
+            f"13e {label}: steady epoch {row['samples_per_sec']:.1f} samples/s, mfu "
+            f"{row['mfu']:.4e}; dispatch_overhead {row['dispatch_overhead']:.4f} "
+            f"(device busy {row['device_busy_ms_per_step']:.4f} ms/step, "
+            f"{row['events_per_step']:.1f} profiled device ops/step, profiler "
+            f"inflation {row['profiler_inflation']:.2f}x)"
+        )
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
+    env["PYTHONPATH"] = str(root)
+    jsonl = obs / "cli.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
+         "--epochs", "1", "--metrics-out", str(jsonl), "--health", "warn"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 0 or f"telemetry written: {jsonl}" not in proc.stdout:
+        fail(f"13e CLI: exit {proc.returncode}, {proc.stdout[-300:]} {proc.stderr[-500:]}")
+    rep = subprocess.run(
+        [sys.executable, "-m", "shallowspeed_tpu_torch.observability.report", str(jsonl)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120,
+    )
+    if rep.returncode != 0 or "| MFU |" not in rep.stdout or "| throughput |" not in rep.stdout:
+        fail(f"13e report: exit {rep.returncode}, {rep.stdout[-500:]} {rep.stderr[-500:]}")
+    lines.append(
+        "13e CLI --metrics-out --health warn: exit 0, telemetry written; the report: "
+        + " / ".join(l for l in rep.stdout.splitlines() if l.startswith("| MFU") or l.startswith("| throughput"))
+    )
+    for line in lines:
+        say(f"  {line}")
+    say(f"  13 rows: {json.dumps(rows)}")
+    say(
+        f"phase 13 observability: ok: step, digest, cost_model and epoch records on the "
+        f"card within the stated tolerances of the CPU's, instrumentation adds no launch, "
+        f"the kernel paths record epochs only, the halt flushes and resumes to the twin, "
+        f"the trace holds the kernels, every probe window valid; "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
+    return launches, fused, rows
+
+
 def main():
     import torch
 
@@ -2344,23 +2656,29 @@ def main():
             fail(f"phases 9b, 9c, 10 and 11 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
         say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b, 9c, 10 and 11 launched was checked in 9a")
         learning = phase_learning(torch, cuda_ops, TrainingSession, tmp)
+        observed, observed_fused, _ = phase_observability(torch, cuda_ops, TrainingSession, tmp)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
     entries = [
         ("linear_act_fwd", "linear_act_fwd",
-         serving["linear_act_fwd"] + learning["linear_act_fwd"], fwd_err, slot),
+         serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"],
+         fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd",
-         training["linear_act_bwd"] + learning["linear_act_bwd"], bwd_err, mub),
+         training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"],
+         bwd_err, mub),
     ]
     fused_launches["run"] += learning["fused_train"]
+    for mode in FUSED_MODES:
+        fused_launches[mode] += observed_fused[mode]
     for mode in FUSED_MODES:
         # no single PyTorch call computes a training step
         t = dict(fused[mode], library_ms=None)
         entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
     for entry in ("linear_flag_fwd", "linear_flag_bwd"):
         entries.append(
-            (entry, entry, flag_launches[entry] + lattice[entry], flag_errs[entry], flag_sums[entry])
+            (entry, entry, flag_launches[entry] + lattice[entry] + observed[entry],
+             flag_errs[entry], flag_sums[entry])
         )
     kernels = []
     for name, source_name, launches, err, t in entries:

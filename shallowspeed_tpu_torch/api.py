@@ -51,17 +51,37 @@ checksummed, rotating step snapshots in the JAX package's format;
 (or ``SHALLOWSPEED_FAULTS``) kills, poisons or corrupts the run at a pinned
 step or save; ``model_hash`` is the reference's weight hash.
 
+Telemetry, as the JAX session's (``observability/``, schema v13):
+``metrics=JsonlMetrics(path)`` records the construction spans, the
+``cost_model`` (model FLOPs against the card's fp32 peak), one ``epoch``
+record per epoch with samples/s and ``mfu``, per-step ``step`` records from
+the flight recorder, ``checkpoint``/``recovery`` records and live
+``rollup``/``alert`` windows; ``health="record"|"warn"|"halt"`` checks
+every step for non-finite values, loss divergence and gradient spikes
+(``halt`` flushes a synchronous snapshot, then raises ``HealthError``);
+``digests=True`` streams per-step per-layer checksums and norms
+(``digest`` records) for ``observability.divergence``. The per-step aux
+stays on the device and is read once per dispatch; with ``NullMetrics``,
+no monitor and ``record_steps`` unset, every path issues exactly the GPU
+work it issues uninstrumented. ``measure_dispatch_overhead`` splits an
+epoch's host wall into device-busy and host time under ``torch.profiler``;
+``inference_latency_bound`` is the slot's FLOPs over the card's peak.
+
 Not in this slice, and refused with a pointer to their ROADMAP.md item:
-ZeRO, gradient buckets and tp (§A item 3), the multi-card runtime
-(``runtime="mpmd"``, item 7), and metrics/health/digests (item 4).
+ZeRO, gradient buckets and tp (§A item 3) and the multi-card runtime
+(``runtime="mpmd"``, item 7).
 """
 
+import sys
+import tempfile
 import threading
+import time
 
 import numpy as np
 import torch
 
 from shallowspeed_tpu_torch import convert, resolve_device, trainer, utils
+from shallowspeed_tpu_torch.analysis import analyze_program
 from shallowspeed_tpu_torch import faults as F
 from shallowspeed_tpu_torch import model as Mo
 from shallowspeed_tpu_torch import schedules as S
@@ -77,9 +97,18 @@ from shallowspeed_tpu_torch.checkpoint import (
     step_checkpoint_path,
 )
 from shallowspeed_tpu_torch.data import Dataset
+from shallowspeed_tpu_torch.observability import NullMetrics, costmodel
+from shallowspeed_tpu_torch.observability.flight import FlightRecorder
+from shallowspeed_tpu_torch.observability.health import HealthError, make_monitor
+from shallowspeed_tpu_torch.observability.slo import LiveTelemetry, default_training_rules
+from shallowspeed_tpu_torch.observability.spans import capture
 from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
-from shallowspeed_tpu_torch.parallel.lowering import lower_schedule
+from shallowspeed_tpu_torch.parallel.lowering import (
+    lower_schedule,
+    program_flops,
+    program_stats,
+)
 from shallowspeed_tpu_torch.parallel.mesh import VirtualMesh
 from shallowspeed_tpu_torch.serving import slots as serving_slots
 
@@ -90,8 +119,7 @@ FLAGSHIP_MUBATCHES = 4
 FLAGSHIP_LR = 0.006
 
 
-def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime, metrics, health,
-                     digests):
+def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime):
     lattice = [
         (bool(zero1) or bool(zero),
          f"zero={zero if zero is not None else int(bool(zero1))}: ZeRO (next: "
@@ -114,11 +142,6 @@ def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime, metrics, healt
             "over torch.distributed) is not ported yet; the port runs the "
             "lockstep executor over a virtual mesh on one device (ROADMAP.md "
             "§A item 7)"
-        )
-    if metrics is not None or health is not None or digests:
-        raise NotImplementedError(
-            "metrics, health and digests come with the port's observability "
-            "(ROADMAP.md §A item 4)"
         )
 
 
@@ -160,10 +183,15 @@ class TrainingSession:
     ``kernel_backend``: the executor's per-slot unit, ``"xla"`` (plain
     torch) or ``"pallas"`` (the flag kernels, B5-B8; mesh layouts of the
     relu family only, without split or recompute, as in the JAX package).
+    ``metrics``: a recorder (``observability.JsonlMetrics``; None = the
+    zero-cost ``NullMetrics``). ``health``: None, ``"record"``, ``"warn"``,
+    ``"halt"`` or a ``HealthMonitor``. ``record_steps``: the per-step
+    flight aux (None = on whenever a recorder or a monitor consumes it;
+    refused on the kernel paths). ``digests``: per-step per-layer digest
+    records (opt-in; refused on the kernel paths).
     ``tp``, ``zero``/``zero1``, ``grad_bucket_bytes`` and ``runtime`` are
-    the JAX session's names for layouts the port does not run yet, and
-    ``metrics``, ``health`` and ``digests`` its observability; anything but
-    their defaults raises.
+    the JAX session's names for layouts the port does not run yet; anything
+    but their defaults raises.
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -199,6 +227,7 @@ class TrainingSession:
         kernel_backend="xla",
         metrics=None,
         health=None,
+        record_steps=None,
         digests=False,
         faults=None,
         checkpoint_dir=None,
@@ -210,6 +239,14 @@ class TrainingSession:
         device=None,
     ):
         self.device = resolve_device(device)
+        # telemetry: NullMetrics records nothing and costs nothing; the
+        # live rollup windows and alert rules are fed only inside
+        # metrics-enabled blocks
+        self._metrics = metrics if metrics is not None else NullMetrics()
+        self._telemetry = LiveTelemetry(
+            "train", metrics=self._metrics, rules=default_training_rules()
+        )
+        self._health = make_monitor(health)
         if precision == "default":
             raise ValueError(
                 "precision='default' (the TPU's bf16-input MXU passes) has no "
@@ -222,9 +259,7 @@ class TrainingSession:
             raise ValueError(
                 f"schedule must be one of {sorted(S.SCHEDULES)}, got {schedule!r}"
             )
-        _refuse_unported(
-            tp, zero1, zero, grad_bucket_bytes, runtime, metrics, health, digests
-        )
+        _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime)
         if checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
         if checkpoint_queue < 1:
@@ -243,6 +278,10 @@ class TrainingSession:
         self._save_seq = 0
         self._faults = F.make_plan(faults)
         self.resumed_from = None  # path of the restored snapshot, if any
+        self._recovery = None  # the recovery record's fields, if resume ran
+        # per-epoch aggregation across train_steps() chunks
+        self._epoch_wall = 0.0
+        self._epoch_first_dispatch = False
         if model is not None:
             sizes, act = Mo.resolve_model(model)
         else:
@@ -383,7 +422,12 @@ class TrainingSession:
         host_opt_state = None
         verified = None  # (meta, arrays) of the snapshot discovery verified
         if resume == "auto":
-            resume, verified = self._discover_resume()
+            resume, verified, skipped = self._discover_resume()
+            self._recovery = {
+                "verdict": "fresh_start" if resume is None else "resumed",
+                "resumed_from": None if resume is None else str(resume),
+                "skipped": [{"path": str(p), "cause": c} for p, c in skipped],
+            }
         if resume is not None:
             if verified is not None:
                 # assemble from the arrays discovery read and checksummed:
@@ -404,8 +448,59 @@ class TrainingSession:
             host_params = Mo.init_model(self.spec)
         stateful = host_opt_state is not None and not is_stateless(self._opt)
         self._run_fns = {}  # whole-run functions, keyed by with_eval
+        # telemetry aux (the JAX session's rules and words): the pre-clip
+        # grad norm when recording with a clip; the per-step flight aux
+        # when a recorder or a monitor consumes it (record_steps=None) or
+        # when forced; the digests when asked. The kernel paths keep the
+        # gradient inside the fused train kernel, so they have none of it
+        kernel_path = bool(megakernel or epoch_kernel or run_kernel)
+        self._gnorm_aux = self._metrics.enabled and clip_norm is not None and not kernel_path
+        if record_steps is None:
+            record_steps = self._metrics.enabled or self._health is not None
+        elif record_steps and kernel_path:
+            raise ValueError(
+                "record_steps is unavailable on the kernel paths: the "
+                "gradient never leaves the Pallas kernel's VMEM"
+            )
+        if digests and kernel_path:
+            raise ValueError(
+                "digests is unavailable on the kernel paths: params/grads "
+                "never leave the Pallas kernel's VMEM, so the per-layer "
+                "digest aux cannot be threaded out"
+            )
+        self._digests = bool(digests)
+        if self._digests and self._metrics.enabled:
+            # replay provenance for the bisect CLI (observability/
+            # divergence.py --bisect): the JAX record's fields, with its
+            # scan unroll factors at their neutral 1
+            self._metrics.event(
+                "digest_config",
+                sizes=list(self.spec.sizes), model=model, dp=dp, pp=pp, tp=1,
+                schedule=schedule, global_batch_size=self.B,
+                mubatches=self.M, lr=lr, precision=precision,
+                optimizer=optimizer, momentum=momentum,
+                virtual_stages=V, zero1=bool(zero1),
+                zero=0 if zero is None else int(zero),
+                grad_bucket_bytes=grad_bucket_bytes,
+                backward_split=self._backward_split, recompute=self._recompute,
+                scan_unroll=1, tick_unroll=1, weight_decay=weight_decay,
+                clip_norm=clip_norm, fuse_mubatches=fuse_mubatches,
+                data_dir=None if data_dir is None else str(data_dir),
+                faults=",".join(repr(f) for f in self._faults.faults),
+            )
+        self._step_aux = bool(record_steps) and not kernel_path
+        self.flight = FlightRecorder() if self._step_aux else None
+        if self.flight is not None:
+            # resumed step records continue the global numbering
+            self.flight.total_steps = self.global_step
+        self._epoch_dispatched = False  # the first dispatch includes the build
+        aux = dict(
+            with_grad_norm=self._gnorm_aux, with_step_stats=self._step_aux,
+            with_digests=self._digests,
+        )
         if self._sequential:
-            self._params = convert.params_from_numpy(host_params, self.device)
+            with self._metrics.span("device_put"):
+                self._params = convert.params_from_numpy(host_params, self.device)
             if stateful:
                 self._opt_state = convert.opt_state_from_numpy(
                     self._opt, host_opt_state, self.device
@@ -415,7 +510,7 @@ class TrainingSession:
             kernels = dict(megakernel=megakernel, epoch_kernel=epoch_kernel or run_kernel)
             self._epoch_fn = trainer.make_train_epoch(
                 self.spec, self._opt, fuse_mubatches=fuse_mubatches,
-                clip_norm=clip_norm, **kernels,
+                clip_norm=clip_norm, **kernels, **aux,
             )
             self._run_kwargs = dict(
                 fuse_mubatches=fuse_mubatches, clip_norm=clip_norm, **kernels
@@ -425,9 +520,50 @@ class TrainingSession:
             # the stacked layout; the flags stay host numpy (the executor
             # decides each tick's work on the host)
             self.mesh = VirtualMesh(dp, pp, self.device)
-            self._stacked, self._flags = convert.stacked_from_numpy(
-                host_params, self.spec, self.device, order=self._order
-            )
+            if self._metrics.enabled:
+                # placement provenance: every virtual rank on one device
+                self._metrics.event(
+                    "mesh_layout", dp=dp, pp=pp, tp=1, layout="virtual", n_devices=1,
+                )
+            with self._metrics.span("schedule_lower"):
+                self._prog = lower_schedule(
+                    S.SCHEDULES[schedule], self.M, pp, virtual=V,
+                    backward_split=self._backward_split, recompute=self._recompute,
+                )
+            self._mubatch_local = local_batch // self.M
+            if self._metrics.enabled:
+                # the lowered program's static passes (send/recv match,
+                # deadlock freedom, stash lifetimes), as the JAX session
+                # records them; a violated contract raises here
+                verdict = analyze_program(self._prog, program="epoch_program")
+                self._metrics.static_analysis(
+                    "epoch_program", **{k: v for k, v in verdict.items() if k != "program"}
+                )
+                # the lowered program's static tick stats, recorded once
+                stats = program_stats(
+                    self._prog, spec=self.spec, mubatch_size=self._mubatch_local
+                )
+                if self._recompute:
+                    # the stashed twin's footprint beside it, as the JAX
+                    # session records it
+                    twin = program_stats(
+                        lower_schedule(
+                            S.SCHEDULES[schedule], self.M, pp, virtual=V,
+                            backward_split=self._backward_split, recompute=False,
+                        ),
+                        spec=self.spec, mubatch_size=self._mubatch_local,
+                    )
+                    stats["stash_bytes_peak_stashed_twin"] = twin["stash_bytes_peak"]
+                    stats["stash_slots_stashed_twin"] = twin["stash_slots"]
+                self._metrics.event(
+                    "pipeline_program", schedule=schedule, dp=dp, pp=pp, tp=1,
+                    virtual=V, model=model, **stats,
+                )
+                self._metrics.gauge("pipeline.bubble_fraction", stats["bubble_fraction"])
+            with self._metrics.span("device_put"):
+                self._stacked, self._flags = convert.stacked_from_numpy(
+                    host_params, self.spec, self.device, order=self._order
+                )
             if stateful:
                 self._opt_state = convert.stacked_opt_state_from_numpy(
                     self._opt, host_opt_state, self.spec, self.device,
@@ -435,15 +571,10 @@ class TrainingSession:
                 )
             else:
                 self._opt_state = self._opt.init(self._stacked)
-            self._prog = lower_schedule(
-                S.SCHEDULES[schedule], self.M, pp, virtual=V,
-                backward_split=self._backward_split, recompute=self._recompute,
-            )
-            self._mubatch_local = local_batch // self.M
             self._run_kwargs = dict(clip_norm=clip_norm, kernel_backend=kernel_backend)
             self._epoch_fn = E.make_pipeline_epoch(
                 self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
-                **self._run_kwargs,
+                **self._run_kwargs, **aux,
             )
             self._predict_cache = {}  # inference programs, keyed by ladder rung
 
@@ -461,13 +592,45 @@ class TrainingSession:
             if predict_slot_ladder is not None
             else serving_slots.DEFAULT_SLOT_LADDER
         )
+        # the FLOP ledger and the card's peak (observability/costmodel):
+        # padded hardware FLOPs from the lowered tick tables on the mesh.
+        # Every rank of the port's mesh runs on the session's one device
+        self._device_name = (
+            torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else None
+        )
+        self._cost_model = costmodel.CostModel(
+            sizes=self.spec.sizes,
+            global_batch=self.B,
+            batches_per_epoch=self.batches_per_epoch,
+            n_devices=1,
+            platform=self.device.type,
+            precision=precision,
+            padded_flops_per_batch=None if self._sequential else (
+                program_flops(self._prog, self.spec, self._mubatch_local) * dp
+            ),
+            device_name=self._device_name,
+        )
+        if self._recovery is not None and self._metrics.enabled:
+            # one recovery record per resume decision
+            self._metrics.recovery(
+                self._recovery["verdict"],
+                resumed_from=self._recovery["resumed_from"],
+                epoch=self.epoch,
+                step_in_epoch=self.step_in_epoch,
+                global_step=self.global_step,
+                skipped=self._recovery["skipped"],
+            )
+        if self._metrics.enabled:
+            self._metrics.event("cost_model", **self._cost_model.as_record())
+            self._metrics.gauge("model_flops", self._cost_model.flops_per_epoch)
 
     def _discover_resume(self):
         """``resume="auto"``: the newest step snapshot in the checkpoint
         directory that verifies (checksum, finiteness), as ``(path, (meta,
-        arrays))``, or ``(None, None)`` for an empty or missing directory
-        (a fresh start). Corrupt, torn and non-finite snapshots are skipped;
-        when snapshots exist and none verifies, ``CheckpointError`` names
+        arrays), skipped)``, or ``(None, None, skipped)`` for an empty or
+        missing directory (a fresh start); ``skipped`` lists ``(path,
+        cause)`` of each corrupt, torn or non-finite snapshot passed over.
+        When snapshots exist and none verifies, ``CheckpointError`` names
         each one's cause."""
         if self._ckpt_dir is None:
             raise ValueError(
@@ -484,8 +647,8 @@ class TrainingSession:
                 "directory to start fresh)",
             )
         if path is None:
-            return None, None
-        return path, (meta, arrays)
+            return None, None, skipped
+        return path, (meta, arrays), skipped
 
     def _load_train(self, data_dir):
         ds = Dataset(data_dir, self.B, mubatch_size=self.B // self.M)
@@ -501,8 +664,9 @@ class TrainingSession:
             # the executor splits each (B, dim) batch over dp itself
             Xb = Xb.reshape(nb, self.B, -1)
             Yb = Yb.reshape(nb, self.B, -1)
-        self._X = torch.from_numpy(Xb).to(self.device)
-        self._Y = torch.from_numpy(Yb).to(self.device)
+        with self._metrics.span("device_put"):
+            self._X = torch.from_numpy(Xb).to(self.device)
+            self._Y = torch.from_numpy(Yb).to(self.device)
         self.batches_per_epoch = nb
 
     def _restore_cursor(self, meta):
@@ -592,6 +756,13 @@ class TrainingSession:
         weights it reads); a later fault inside the chunk cuts the chunk at
         its step, so it fires at the start of the next call.
 
+        Telemetry, per chunk as ``train_epoch`` per epoch: the chunk's
+        digest and step records and health checks, and the ``epoch`` record
+        on the call that completes the epoch (``chunked``; after a
+        mid-epoch resume with ``steps_counted``). Under health policy
+        ``halt`` a finding flushes a snapshot (with a checkpoint directory),
+        then raises ``HealthError``.
+
         Returns ``(steps_trained, epoch_mean_loss_or_None)``: the mean loss
         is reported on the call that completes the epoch, the chunks' means
         recombined sample-weighted (over the steps this session trained)."""
@@ -601,8 +772,8 @@ class TrainingSession:
         nb = self.batches_per_epoch
         k0 = self.step_in_epoch
         k1 = min(k0 + n, nb)
+        g0 = self.epoch * nb + k0
         if self._faults:
-            g0 = self.epoch * nb + k0
             fault = self._faults.first_in(g0, g0 + (k1 - k0))
             while fault is not None and fault.step == g0:
                 if fault.kind == "die":
@@ -616,24 +787,69 @@ class TrainingSession:
                 fault = self._faults.first_in(g0, g0 + (k1 - k0))
             if fault is not None:
                 k1 = k0 + (fault.step - g0)  # the fault lands on a boundary
-        loss = float(self._run_epoch_fn(k0, k1))  # waits for the device
+        epoch_index = self.epoch
+        first_dispatch = self._metrics.enabled and not self._epoch_dispatched
+        t0 = time.perf_counter()
+        with self._metrics.span("train_steps"):
+            loss_t, aux = self._dispatch(k0, k1)
+            loss = float(loss_t)  # waits for the device
+        wall = time.perf_counter() - t0
+        if self._digests and self._metrics.enabled:
+            self._record_digests(epoch_index, g0, aux["digests"])
+        self._epoch_dispatched = True
         steps = k1 - k0
         self.step_in_epoch = k1
         self._epoch_loss_sum += loss * steps
+        self._epoch_wall += wall
         self._epoch_steps_counted += steps
+        self._epoch_first_dispatch = self._epoch_first_dispatch or first_dispatch
+        if self._metrics.enabled:
+            self._metrics.counter("samples_trained", steps * self.B)
         epoch_loss = None
         if k1 == nb:
-            epoch_loss = self._epoch_loss_sum / self._epoch_steps_counted
+            # loss and samples/s over the steps THIS session trained: after a
+            # mid-epoch resume that is the epoch's tail, and the record says so
+            counted = self._epoch_steps_counted
+            epoch_loss = self._epoch_loss_sum / counted
+            if self._metrics.enabled:
+                ew = self._epoch_wall
+                sps = counted * self.B / ew if ew > 0 else 0.0
+                record = dict(
+                    epoch=epoch_index, loss=epoch_loss, samples_per_sec=sps,
+                    wall_s=ew, chunked=True,
+                )
+                if counted < nb:
+                    record["steps_counted"] = counted
+                if self._epoch_first_dispatch:
+                    record["includes_compile"] = True
+                mfu = self._record_utilization(sps)
+                if mfu is not None:
+                    record["mfu"] = mfu
+                self._metrics.event("epoch", **record)
+                self._metrics.counter("epochs_trained")
+                self._telemetry.note_step(
+                    time.perf_counter(), loss=epoch_loss, step_s=ew,
+                    throughput=sps, mfu=mfu,
+                )
             self.epoch += 1
             self.step_in_epoch = 0
             self._epoch_loss_sum = 0.0
+            self._epoch_wall = 0.0
             self._epoch_steps_counted = 0
+            self._epoch_first_dispatch = False
+        # flight + health LAST: session state is consistent if 'halt' raises
+        self._check_health(epoch_index, loss, aux)
         return steps, epoch_loss
 
     def train_epoch(self) -> float:
         """One epoch over the training split; returns the mean batch
         training loss (the global-batch-scaled MSE of each batch under its
-        pre-update params, averaged over the epoch)."""
+        pre-update params, averaged over the epoch).
+
+        With a recorder: a ``train_epoch`` span and one ``epoch`` record
+        (loss, samples/s, wall, ``mfu``; the grad norm when clipping). The
+        first dispatch's record carries ``includes_compile``: its wall holds
+        the lazy kernel build and the CUDA context's start."""
         self._require_data("train_epoch")
         self._refuse_pending_faults("train_epoch")
         if self.step_in_epoch != 0:
@@ -641,9 +857,55 @@ class TrainingSession:
                 f"epoch {self.epoch} is mid-flight at step {self.step_in_epoch} "
                 "(resumed or chunked) — use train_steps() to finish it"
             )
-        loss = float(self._run_epoch_fn(0, self.batches_per_epoch))  # waits for the device
+        first_dispatch = self._metrics.enabled and not self._epoch_dispatched
+        epoch_index = self.epoch
+        nb = self.batches_per_epoch
+        t0 = time.perf_counter()
+        with self._metrics.span("train_epoch"):
+            loss_t, aux = self._dispatch(0, nb)
+            loss = float(loss_t)  # waits for the device
+        if self._digests and self._metrics.enabled:
+            self._record_digests(epoch_index, epoch_index * nb, aux["digests"])
+        if self._metrics.enabled:
+            wall = time.perf_counter() - t0
+            samples = nb * self.B
+            sps = samples / wall if wall > 0 else 0.0
+            record = dict(epoch=epoch_index, loss=loss, samples_per_sec=sps, wall_s=wall)
+            if self._gnorm_aux:
+                record["grad_norm"] = float(aux["grad_norm"])
+            if first_dispatch:
+                record["includes_compile"] = True
+            mfu = self._record_utilization(sps)
+            if mfu is not None:
+                record["mfu"] = mfu
+            self._metrics.event("epoch", **record)
+            if not first_dispatch:  # steady state only
+                self._metrics.observe("epoch.seconds", wall)
+            self._metrics.counter("epochs_trained")
+            self._metrics.counter("samples_trained", samples)
+            self._telemetry.note_step(
+                time.perf_counter(), loss=loss, step_s=wall, throughput=sps, mfu=mfu,
+            )
+        self._epoch_dispatched = True
         self.epoch += 1
+        self._check_health(epoch_index, loss, aux)
         return loss
+
+    def _check_health(self, epoch_index, loss, aux):
+        """The flight recorder and the health checks of one dispatch: per
+        step from the flight aux, else (kernel paths, or record_steps=False)
+        on the dispatch's mean loss. A ``halt`` finding flushes the halt
+        snapshot before the ``HealthError`` propagates."""
+        try:
+            if self._step_aux:
+                self._record_flight(epoch_index, aux)
+            elif self._health is not None:
+                findings = self._health.check_epoch(epoch_index, [loss])
+                self._note_health_findings(findings)
+                self._health.dispatch(findings, self._metrics)
+        except HealthError:
+            self._flush_halt_checkpoint()
+            raise
 
     @property
     def faults_active(self):
@@ -677,12 +939,111 @@ class TrainingSession:
             self._stacked = params
         self._opt_state = opt_state
 
-    def _run_epoch_fn(self, k0, k1):
+    def _dispatch(self, k0, k1):
         """The epoch function over batches ``[k0, k1)``; returns the mean
-        loss (a 0-d tensor)."""
+        loss (a 0-d tensor) and the telemetry aux dict (None when the
+        function was built without one)."""
         out = self._epoch_fn(*self._state_args(), self._X[k0:k1], self._Y[k0:k1])
         self._set_state(out[0], out[1])
-        return out[2]
+        return out[2], (out[3] if len(out) > 3 else None)
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _record_utilization(self, samples_per_sec):
+        """The achieved model-FLOP/s and MFU gauges of one dispatch; returns
+        the MFU (None when no peak is known for this device)."""
+        self._metrics.gauge(
+            "achieved_flops_per_sec",
+            self._cost_model.achieved_flops_per_sec(samples_per_sec),
+        )
+        mfu = self._cost_model.mfu(samples_per_sec)
+        if mfu is not None:
+            self._metrics.gauge("mfu", mfu)
+        return mfu
+
+    def _record_flight(self, epoch_index, aux):
+        """The host side of the flight recorder: ONE readback of the
+        dispatch's per-step aux, the ring, the ``step`` records and the
+        per-step health checks (which may raise ``HealthError``)."""
+        losses = aux["step_loss"].double().cpu().numpy()
+        gns = aux["step_grad_norm"].double().cpu().numpy()
+        pns = aux["step_param_norm"].double().cpu().numpy()
+        first = self.flight.total_steps  # the ring owns the global numbering
+        samples = self.flight.record_epoch(epoch_index, losses, gns, pns, first_step=first)
+        if self._metrics.enabled:
+            for rec in samples:
+                self._metrics.step("train", **rec)
+        if self._health is not None:
+            findings = self._health.check_epoch(
+                epoch_index, losses, gns, pns, first_step=first
+            )
+            self._note_health_findings(findings)
+            self._health.dispatch(findings, self._metrics)
+
+    def _record_digests(self, epoch_index, first_step, dig):
+        """One ``digest`` record per step of the dispatch, from ONE readback
+        of its digest aux, with the per-global-layer lists in logical layer
+        order on every layout (the mesh's ``(S, L)`` grids are indexed
+        through the stacked-row order)."""
+        host = {k: v.cpu().numpy() for k, v in dig.items()}
+        rows = self._digest_layer_index()
+        mesh = host["crc_w"].ndim == 3  # (nb, S, L) vs sequential (nb, L)
+        for i in range(host["crc_w"].shape[0]):
+            fields = {}
+            for k, a in host.items():
+                col = a[i]
+                vals = [col[r, l] for r, l in rows] if mesh else list(col)
+                cast = int if k.startswith("crc") else float
+                fields[k] = [cast(v) for v in vals]
+            self._metrics.digest(
+                "train", step=first_step + i, epoch=epoch_index, layers=len(rows),
+                **fields,
+            )
+
+    def _digest_layer_index(self):
+        """Per-global-layer ``(row, slot)`` addresses into the mesh's digest
+        grids, in logical layer order: stage ``s``'s layer ``l`` lives at
+        the stacked row holding ``s`` (``interleave_order`` when virtual
+        stages interleave) and slot ``l``."""
+        idx = getattr(self, "_digest_rows", None)
+        if idx is None:
+            order = self._order or range(self.spec.n_stages)
+            row_of = {s: r for r, s in enumerate(order)}
+            idx = self._digest_rows = [
+                (row_of[s], l)
+                for s in range(self.spec.n_stages)
+                for l in range(self.spec.stages[s].n_linears)
+            ]
+        return idx
+
+    def _note_health_findings(self, findings):
+        """Feed health findings to the alert rules BEFORE the policy
+        dispatch, so the ``training_health`` alert is in the stream when a
+        ``halt`` raises."""
+        if not findings:
+            return
+        t = time.perf_counter()
+        for f in findings:
+            self._telemetry.note_health(t, f["check"])
+
+    def _flush_halt_checkpoint(self):
+        """The halt policy's snapshot, before the ``HealthError`` propagates
+        (with a checkpoint directory): synchronous whatever the session's
+        async setting, after draining the async saves in flight, and not
+        rotated. A non-finite finding writes an ``all_finite: false``
+        snapshot, which ``resume="auto"`` skips, landing on the last healthy
+        step. Best-effort: a failing flush never masks the halt."""
+        if self._ckpt_dir is None:
+            return
+        try:
+            self.drain_checkpoints()
+        except Exception as e:  # noqa: BLE001 — never mask the HealthError
+            print(f"halt checkpoint drain failed: {e}", file=sys.stderr)
+        try:
+            self.save_step_checkpoint(reason="halt", rotate=False, async_=False)
+            self._metrics.flush()
+        except Exception as e:  # noqa: BLE001 — never mask the HealthError
+            print(f"halt checkpoint flush failed: {e}", file=sys.stderr)
 
     def train_run(self, epochs: int, with_eval: bool = True):
         """Train ``epochs`` epochs; returns ``(losses, accuracies)`` as lists
@@ -700,10 +1061,16 @@ class TrainingSession:
                 "(resumed or chunked) — finish it with train_steps() before "
                 "train_run()"
             )
+        if self._digests:
+            raise ValueError(
+                "digests ride the epoch/step scan aux, which the fused "
+                "multi-epoch run program does not thread — drive digest "
+                "sessions with train_epoch()/train_steps()"
+            )
         if with_eval:
             self._load_val()
         if with_eval not in self._run_fns:
-            kwargs = dict(self._run_kwargs)
+            kwargs = dict(self._run_kwargs, with_grad_norm=self._gnorm_aux)
             if self._sequential:
                 if not with_eval and self._run_kernel:
                     # the eval-free run is one launch of the whole-run kernel;
@@ -731,11 +1098,52 @@ class TrainingSession:
                 (self._vx, self._vy) if self._sequential
                 else (self._vx_padded, self._vy_labels)
             )
-        out = self._run_fns[with_eval](*args, epochs)
-        self._set_state(out[0], out[1])
-        losses = [float(v) for v in out[2].cpu()]
-        accs = [float(v) for v in out[3].cpu()] if with_eval else None
+        start = self.epoch
+        first_dispatch = self._metrics.enabled and not self._epoch_dispatched
+        t0 = time.perf_counter()
+        with self._metrics.span("train_run"):
+            out = self._run_fns[with_eval](*args, epochs)
+            self._set_state(out[0], out[1])
+            losses = [float(v) for v in out[2].cpu()]  # waits for the device
+            accs = [float(v) for v in out[3].cpu()] if with_eval else None
+        wall = time.perf_counter() - t0
+        gns = out[-1]["grad_norm"].double().cpu().numpy() if self._gnorm_aux else None
+        self._epoch_dispatched = True
         self.epoch += epochs
+        if self._metrics.enabled:
+            samples = self.batches_per_epoch * self.B
+            # one dispatch: the run-mean samples/s is every epoch's
+            sps = epochs * samples / wall if wall > 0 else 0.0
+            mfu = self._record_utilization(sps)
+            for e, loss in enumerate(losses):
+                record = dict(
+                    epoch=start + e, loss=loss, samples_per_sec=sps,
+                    wall_s=wall / epochs, fused_run=True,
+                )
+                if accs is not None:
+                    record["accuracy"] = accs[e]
+                if gns is not None:
+                    record["grad_norm"] = float(gns[e])
+                if first_dispatch and e == 0:
+                    record["includes_compile"] = True
+                if mfu is not None:
+                    record["mfu"] = mfu
+                self._metrics.event("epoch", **record)
+                self._telemetry.note_step(
+                    time.perf_counter(), loss=loss, step_s=wall / epochs,
+                    throughput=sps, mfu=mfu,
+                )
+            self._metrics.observe("run.seconds", wall)
+            self._metrics.counter("epochs_trained", epochs)
+            self._metrics.counter("samples_trained", epochs * samples)
+        if self._health is not None:
+            # one dispatch: epoch-granular checks (per-epoch mean loss and,
+            # when threaded, mean grad norm)
+            findings = self._health.check_run(
+                start, losses, None if gns is None else [float(v) for v in gns]
+            )
+            self._note_health_findings(findings)
+            self._health.dispatch(findings, self._metrics)
         return losses, accs
 
     # -- evaluation ---------------------------------------------------------
@@ -760,12 +1168,17 @@ class TrainingSession:
         ``predict()`` dispatches, as in the JAX session."""
         self._require_data("accuracy")
         self._load_val()
-        if self._sequential:
-            return trainer.accuracy(self._predict, self._params, self._vx, self._vy)
-        n_val = self._vx.shape[0]
-        preds = self.predict(self._vx.cpu().numpy())
-        correct = int((np.argmax(preds, 1) == self._vy_labels.cpu().numpy()).sum())
-        return correct / max(n_val, 1)
+        with self._metrics.span("eval"):
+            if self._sequential:
+                acc = trainer.accuracy(self._predict, self._params, self._vx, self._vy)
+            else:
+                n_val = self._vx.shape[0]
+                preds = self.predict(self._vx.cpu().numpy())
+                correct = int((np.argmax(preds, 1) == self._vy_labels.cpu().numpy()).sum())
+                acc = correct / max(n_val, 1)
+        if self._metrics.enabled:
+            self._metrics.gauge("val_accuracy", acc)
+        return acc
 
     # -- serving ------------------------------------------------------------
 
@@ -854,10 +1267,118 @@ class TrainingSession:
         return lower_schedule(S.InferenceSchedule, mubatches, self.pp, training=False)
 
     def inference_latency_bound(self):
-        """The analytical latency floor of one slot. Not known on this card
-        yet: the JAX cost model's peaks are TPU numbers and are not carried
-        over, so ``seconds`` is None with source ``"unmeasured"``."""
-        return {"seconds": None, "ticks": None, "peak_source": "unmeasured"}
+        """The analytical latency floor of one request slot through this
+        layout's inference program (``costmodel.serving_latency_bound``):
+        the slot's FLOPs — on the mesh, the lockstep tick model's weighted
+        makespan over the padded slot stack — over the peak of the card
+        the session runs on. ``seconds`` is None where no peak is known."""
+        return costmodel.serving_latency_bound(
+            prog=None if self._sequential else self._lower_inference_prog(1),
+            spec=self.spec,
+            slot_rows=self._slot_rows,
+            dp=self.dp,
+            platform=self._cost_model.platform,
+            precision=self._cost_model.precision,
+            device_name=self._device_name,
+        )
+
+    def measure_dispatch_overhead(self, repeats=2, program="epoch", profile_dir=None):
+        """The measured op-issue share (the JAX session's probe): dispatch
+        ``repeats`` times uninstrumented (the honest wall), then again
+        under ``torch.profiler`` (``spans.capture``; the CUDA activity on a
+        CUDA session, which fails loudly when it records no device event),
+        and split the uninstrumented wall into op execution and the rest:
+
+            dispatch_overhead = 1 - op_busy_union / host_wall
+
+        ``op_busy_union`` is ``trace_stats.dispatch_busy``'s interval union
+        of the device events (kernels, copies, fills), or on the CPU of the
+        ``cpu_op`` events. Instrumented ops only run longer, so the share
+        is a lower bound; the in-window share rides beside it, with
+        ``profiler_inflation``. ``program="epoch"`` dispatches real training
+        epochs (the weights advance by up to one warm-up + ``2 x repeats``
+        epochs); ``"rung"`` predicts the top ladder rung on zeros (weights
+        untouched). ``window_valid`` is False, with its reason, when the
+        trace attributes no op or the instrumented window exceeds the
+        profiler's 5 s budget; ``events_per_batch`` is the op events per
+        dispatched batch. Returns (and records as a ``dispatch_overhead``
+        event) the record."""
+        from shallowspeed_tpu_torch.observability import trace_stats
+
+        if repeats < 1:
+            raise ValueError("repeats must be >= 1")
+        if program not in ("epoch", "rung"):
+            raise ValueError(f"program must be 'epoch' or 'rung', got {program!r}")
+        cuda = self.device.type == "cuda"
+        probe_x = np.zeros((self.slot_ladder[-1] * self._slot_rows, self.spec.in_dim), np.float32)
+        if program == "epoch":
+            dispatch, label = self.train_epoch, "epoch_program"
+            warm = not self._epoch_dispatched
+        else:
+            dispatch, label, warm = (lambda: self.predict(probe_x)), "inference_rung", True
+        if warm:
+            dispatch()  # the kernel build and first launches outside the windows
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            dispatch()
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        host_wall_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="dispatch_probe_") as tmp:
+            cap = capture(profile_dir or tmp, cuda=cuda)
+            with cap:
+                t1 = time.perf_counter()
+                for _ in range(repeats):
+                    dispatch()
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                wall_instrumented_s = time.perf_counter() - t1
+            busy = trace_stats.dispatch_busy(cap.path)
+        share = trace_stats.dispatch_overhead_share(busy["busy_union_s"], host_wall_s)
+        window_budget_s = 5.0  # past this the trace buffer may saturate
+        batches = repeats * (self.batches_per_epoch if program == "epoch" else 1)
+        window_valid, reason = True, None
+        if not busy["op_events"]:
+            window_valid, reason = False, "trace holds no attributable op events"
+        elif wall_instrumented_s > window_budget_s:
+            window_valid = False
+            reason = (
+                f"instrumented window {wall_instrumented_s:.2f}s exceeds the "
+                f"{window_budget_s:g}s profiler budget — the trace buffer may "
+                f"have saturated (undercounted ops inflate the overhead share)"
+            )
+        record = {
+            "program": label,
+            "runtime": "lockstep",
+            "repeats": int(repeats),
+            "host_wall_s": host_wall_s,
+            "host_wall_instrumented_s": wall_instrumented_s,
+            "profiler_inflation": wall_instrumented_s / host_wall_s if host_wall_s else None,
+            "device_busy_s": busy["busy_union_s"],
+            "device_comm_s": busy["comm_union_s"],
+            "device_compute_s": busy["compute_union_s"],
+            "op_events": busy["op_events"],
+            "op_source": busy["source"],
+            "events_per_batch": busy["op_events"] / batches if batches else None,
+            "window_valid": window_valid,
+            "window_invalid_reason": reason,
+            "dispatch_overhead": share,
+            "dispatch_overhead_instrumented": trace_stats.dispatch_overhead_share(
+                busy["busy_union_s"], wall_instrumented_s
+            ),
+            "platform": self._cost_model.platform,
+            "device_name": self._device_name,
+            "provenance": (
+                "torch.profiler (Kineto) trace; op-interval union via "
+                "trace_stats.dispatch_busy over an uninstrumented wall "
+                "(lower bound — instrumented ops only run longer)"
+            ),
+        }
+        if share is None:
+            record["reason"] = "trace holds no attributable op events"
+        if self._metrics.enabled:
+            self._metrics.event("dispatch_overhead", **record)
+        return record
 
     # -- state --------------------------------------------------------------
 
@@ -943,7 +1464,7 @@ class TrainingSession:
             opt_state=self.opt_state_logical(),
         )
 
-    def save_step_checkpoint(self, async_=None):
+    def save_step_checkpoint(self, reason="step", rotate=True, async_=None):
         """Write the resumable snapshot at the current ``global_step`` into
         the checkpoint directory (``step-<global_step>.npz``: params,
         optimizer state, step cursor, content checksum) and rotate down to
@@ -961,7 +1482,13 @@ class TrainingSession:
         Rotation is skipped whenever the snapshot just written is
         non-finite or corrupted: a blown-up run's saves must never rotate
         the last healthy snapshot away (``resume="auto"`` skips non-finite
-        ones). The snapshot just written counts as trusted."""
+        ones). The snapshot just written counts as trusted. ``rotate=False``
+        (the halt flush) skips rotation.
+
+        With a recorder each save emits a ``checkpoint`` record named
+        ``reason``: bytes, the verify and write seconds and ``wall_s``, the
+        step path's cost (async: the host copy and the enqueue, with the
+        queue depth at the enqueue)."""
         if self._ckpt_dir is None:
             raise ValueError("no checkpoint_dir configured on this session")
         if async_ is None:
@@ -970,6 +1497,8 @@ class TrainingSession:
         path = step_checkpoint_path(self._ckpt_dir, gs)
         save_seq = self._save_seq
         self._save_seq += 1
+        rotate_dir = self._ckpt_dir if rotate else None
+        t0 = time.perf_counter()
         # the host copy of the live state: the training steps that follow
         # update the device tensors (in place), never these arrays
         params, opt_state = self.params(), self.opt_state_logical()
@@ -981,34 +1510,62 @@ class TrainingSession:
                 opt_state=opt_state, step_in_epoch=sie, global_step=gs,
             )
 
-        def completion(result):
+        def completion(result, on_path_wall, queue_depth=None):
             # inline (sync) or on the writer thread (async). "trusted", not
             # "all_finite": a corrupt-injected snapshot never verifies
             if result["trusted"]:
                 with self._trusted_lock:
                     self._trusted_snapshots.add(str(path))
+            if self._metrics.enabled:
+                fields = dict(
+                    path=str(path), epoch=epoch, step_in_epoch=sie, global_step=gs,
+                    bytes=result["bytes"], wall_s=on_path_wall,
+                    verify_s=result["verify_s"], write_s=result["write_s"],
+                )
+                if queue_depth is not None:
+                    fields.update(
+                        queue_depth=queue_depth, queued_s=result["queued_s"],
+                        unstack_s=result.get("unstack_s", 0.0),
+                    )
+                fields["async"] = queue_depth is not None
+                self._metrics.checkpoint(reason, **fields)
 
         with self._trusted_lock:
             trusted_now = tuple(self._trusted_snapshots)
         if not async_:
             arrays, meta = build()
-            completion(
-                run_save_stages(
-                    path, arrays, meta, faults=self._faults, save_seq=save_seq,
-                    rotate_dir=self._ckpt_dir, rotate_keep=self._ckpt_keep,
-                    trusted=trusted_now,
-                )
+            result = run_save_stages(
+                path, arrays, meta, faults=self._faults, save_seq=save_seq,
+                rotate_dir=rotate_dir, rotate_keep=self._ckpt_keep,
+                trusted=trusted_now,
             )
+            wall = time.perf_counter() - t0
+            completion(result, wall)
+            if self._metrics.enabled:
+                self._telemetry.note_checkpoint(time.perf_counter(), wall)
             return path
         if self._ckpt_writer is None:
             self._ckpt_writer = AsyncCheckpointWriter(
                 max_in_flight=self._ckpt_queue, faults=self._faults
             )
+        depth = self._ckpt_writer.queue_depth
+        # the record carries the wall measured here, on the step path; the
+        # handshake lets the writer thread's completion wait for it
+        wall_box, measured = {}, threading.Event()
+
+        def job_complete(result):
+            measured.wait(timeout=60)
+            completion(result, wall_box.get("wall", 0.0), queue_depth=depth)
+
         self._ckpt_writer.submit(
             path, None, None, save_seq,
-            rotate_dir=self._ckpt_dir, rotate_keep=self._ckpt_keep,
-            trusted=trusted_now, on_complete=completion, build=build,
+            rotate_dir=rotate_dir, rotate_keep=self._ckpt_keep,
+            trusted=trusted_now, on_complete=job_complete, build=build,
         )
+        wall_box["wall"] = time.perf_counter() - t0
+        measured.set()
+        if self._metrics.enabled:
+            self._telemetry.note_checkpoint(time.perf_counter(), wall_box["wall"])
         return path
 
     def drain_checkpoints(self):
@@ -1019,8 +1576,11 @@ class TrainingSession:
 
     def close(self):
         """Drain and stop the async checkpoint writer, re-raising any writer
-        failure. Idempotent; the session stays usable (a later async save
-        starts a new writer)."""
+        failure, then close the trailing rollup window and flush the
+        metrics sink. Idempotent; the session stays usable (a later async
+        save starts a new writer)."""
         if self._ckpt_writer is not None:
             writer, self._ckpt_writer = self._ckpt_writer, None
             writer.close()
+        self._telemetry.flush()
+        self._metrics.flush()

@@ -88,7 +88,8 @@ import torch.nn.functional as F
 
 from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
-from shallowspeed_tpu_torch.optimizer import clip_tree
+from shallowspeed_tpu_torch.optimizer import clip_tree, global_norm
+from shallowspeed_tpu_torch.trainer import row_crcs, stack_epoch_aux
 from shallowspeed_tpu_torch.parallel.lowering import (
     OP_BWD,
     OP_BWD_W,
@@ -445,8 +446,32 @@ def _check_program(mesh, spec, prog, kernel_backend):
         )
 
 
+def _digest_grids(new_stacked, grads):
+    """The step's digest dict on the stacked layout
+    (``executor.make_pipeline_step``'s ``with_digests`` contract): ``(S,
+    L)`` grids, stacked row x slot, of the post-update checksums
+    (``trainer.row_crcs``; padding is +0.0, whose word is 0, so a row's
+    checksum is its logical block's) and L2 norms, and the post-sync
+    PRE-clip gradient norms. Left on the device."""
+    def grid(fn, leaves):
+        return torch.stack([fn(a) for a in leaves], dim=1)
+
+    def sq(a):
+        return torch.sum((a * a).reshape(a.shape[0], -1), dim=1)
+
+    return {
+        "crc_w": grid(row_crcs, new_stacked["W"]),
+        "crc_b": grid(row_crcs, new_stacked["b"]),
+        "pnorm_w": torch.sqrt(grid(sq, new_stacked["W"])),
+        "pnorm_b": torch.sqrt(grid(sq, new_stacked["b"])),
+        "gnorm_w": torch.sqrt(grid(sq, grads["W"])),
+        "gnorm_b": torch.sqrt(grid(sq, grads["b"])),
+    }
+
+
 def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
-                       clip_norm=None, kernel_backend="xla"):
+                       clip_norm=None, kernel_backend="xla", with_grad_norm=False,
+                       with_step_stats=False, with_digests=False):
     """The step executing one ``TickProgram`` over the virtual mesh
     (``executor.make_pipeline_step`` at tp = 1, zero = 0, no buckets).
 
@@ -463,11 +488,25 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     ``interleave_order`` when ``prog.num_chunks > 1``; ``flags`` are HOST
     numpy. ``clip_norm``: the global-norm clip on the post-sync gradient.
     ``kernel_backend``: ``"xla"`` (plain torch) or ``"pallas"`` (the flag
-    kernels)."""
+    kernels).
+
+    Telemetry aux (training only), the JAX executor's outputs:
+    ``with_grad_norm`` appends the pre-clip global gradient norm of the
+    post-sync tree; ``with_step_stats`` (implies it) then the post-update
+    global parameter norm (padded entries are exactly zero, so the stacked
+    norms are the logical ones); ``with_digests`` appends the
+    ``_digest_grids`` dict last. All stay on the device."""
     _check_program(mesh, spec, prog, kernel_backend)
     training = prog.is_training
     if training and opt is None:
         raise ValueError("training program needs an optimizer")
+    if (with_grad_norm or with_step_stats or with_digests) and not training:
+        raise ValueError(
+            "with_grad_norm/with_step_stats/with_digests apply to training "
+            "programs only"
+        )
+    if with_step_stats:
+        with_grad_norm = True  # step stats carry the grad norm per step
     act = spec.act
     split_bwd, rec = bool(prog.backward_split), bool(prog.recompute)
     dims = slot_shapes(spec)
@@ -630,10 +669,20 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             # pmax over pp picks the head stage, the only one that tallied)
             loss = functools.reduce(torch.add, losses)
             grads = dp_sum(acc)
+            raw = grads
+            if with_grad_norm:
+                gnorm = global_norm(grads)
             if clip_norm is not None:
                 grads = clip_tree(grads, clip_norm)
             stacked, opt_state = opt.apply(stacked, grads, opt_state)
-            return stacked, opt_state, loss
+            outs = (stacked, opt_state, loss)
+            if with_grad_norm:
+                outs += (gnorm,)
+            if with_step_stats:
+                outs += (global_norm(stacked),)
+            if with_digests:
+                outs += (_digest_grids(stacked, raw),)
+            return outs
 
         return step
 
@@ -646,30 +695,56 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
 
 def make_pipeline_epoch(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
-                        kernel_backend="xla"):
+                        kernel_backend="xla", with_grad_norm=False,
+                        with_step_stats=False, with_digests=False):
     """The pipeline train step over every batch of an epoch
     (``executor.make_pipeline_epoch``): ``epoch(stacked, flags, opt_state,
     X, Y) -> (stacked, opt_state, mean_loss)`` over ``X``: ``(num_batches,
     global_batch, in_dim)``, the steps in order, the loss summed from zero
     in batch order and divided by the batch count (the JAX epoch scan's
-    order)."""
+    order). ``with_grad_norm``/``with_step_stats``/``with_digests`` add the
+    sequential trainer's aux dict as a fourth output (``trainer.
+    _make_epoch_core``), the digests as ``(num_batches, S, L)`` grids in
+    stacked-row order."""
     step = make_pipeline_step(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,
-        kernel_backend=kernel_backend,
+        kernel_backend=kernel_backend, with_grad_norm=with_grad_norm,
+        with_step_stats=with_step_stats, with_digests=with_digests,
     )
+    track_gn = with_grad_norm or with_step_stats
 
     def epoch(stacked, flags, opt_state, X, Y):
         loss_sum = torch.zeros((), dtype=torch.float32, device=X.device)
+        gn_sum = torch.zeros((), dtype=torch.float32, device=X.device)
+        steps = {"step_loss": [], "step_grad_norm": [], "step_param_norm": []}
+        digests = []
         for xb, yb in zip(X, Y):
-            stacked, opt_state, loss = step(stacked, flags, opt_state, xb, yb)
+            out = step(stacked, flags, opt_state, xb, yb)
+            stacked, opt_state, loss = out[0], out[1], out[2]
             loss_sum = loss_sum + loss
-        return stacked, opt_state, loss_sum / X.shape[0]
+            if track_gn:
+                gn_sum = gn_sum + out[3]
+            if with_step_stats:
+                steps["step_loss"].append(loss)
+                steps["step_grad_norm"].append(out[3])
+                steps["step_param_norm"].append(out[4])
+            if with_digests:
+                digests.append(out[-1])
+        nb = X.shape[0]
+        if not (with_grad_norm or with_step_stats or with_digests):
+            return stacked, opt_state, loss_sum / nb
+        return stacked, opt_state, loss_sum / nb, stack_epoch_aux(
+            gn_sum / nb if with_grad_norm else None,
+            steps if with_step_stats else None,
+            digests if with_digests else None,
+        )
 
     return epoch
 
 
 def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
-                      eval_prog=None, eval_mubatch_size=None, kernel_backend="xla"):
+                      eval_prog=None, eval_mubatch_size=None, kernel_backend="xla",
+                      with_grad_norm=False):
     """Epochs of the pipeline epoch (``executor.make_pipeline_run``).
 
     Without eval: ``run(stacked, flags, opt_state, X, Y, n_epochs) ->
@@ -678,10 +753,12 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
     interleaved layout, of one microbatch over the padded validation
     rows): ``run(stacked, flags, opt_state, X, Y, vx_padded,
     vy_labels, n_epochs) -> (stacked, opt_state, losses, accs)``, each epoch
-    followed by the whole split's argmax accuracy."""
+    followed by the whole split's argmax accuracy. ``with_grad_norm``
+    appends ``{"grad_norm": (n_epochs,)}``, each epoch's mean pre-clip
+    global gradient norm."""
     epoch = make_pipeline_epoch(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,
-        kernel_backend=kernel_backend,
+        kernel_backend=kernel_backend, with_grad_norm=with_grad_norm,
     )
     eval_step = None
     if eval_prog is not None:
@@ -695,10 +772,13 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
             vx_padded, vy_labels, n_epochs = rest
         else:
             (n_epochs,) = rest
-        losses, accs = [], []
+        losses, accs, gns = [], [], []
         for _ in range(n_epochs):
-            stacked, opt_state, mean_loss = epoch(stacked, flags, opt_state, X, Y)
-            losses.append(mean_loss)
+            out = epoch(stacked, flags, opt_state, X, Y)
+            stacked, opt_state = out[0], out[1]
+            losses.append(out[2])
+            if with_grad_norm:
+                gns.append(out[3]["grad_norm"])
             if eval_step is not None:
                 preds = eval_step(stacked, flags, vx_padded)[: vy_labels.shape[0], :out_dim]
                 hits = torch.argmax(preds, dim=1) == vy_labels
@@ -706,6 +786,8 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
         out = (stacked, opt_state, _stack(losses, X.device))
         if eval_step is not None:
             out += (_stack(accs, X.device),)
+        if with_grad_norm:
+            out += ({"grad_norm": _stack(gns, X.device)},)
         return out
 
     return run

@@ -1,8 +1,8 @@
 """Schedule -> clock-tick lowering: the MPMD-to-SPMD compiler.
 
 The port's copy of ``shallowspeed_tpu/parallel/lowering.py`` (numpy only;
-the cost weights of ``observability/costmodel.PIPELINE_OP_COSTS`` are kept
-here). ``tests/test_torch_lowering.py`` holds every table equal to the JAX
+the per-op cost weights come from their single source,
+``observability/costmodel.PIPELINE_OP_COSTS``, as in the JAX package). ``tests/test_torch_lowering.py`` holds every table equal to the JAX
 package's; the port's executor (``parallel/executor.py``) interprets them
 with buffer moves on one device instead of ``ppermute`` across chips.
 
@@ -41,6 +41,7 @@ from collections import deque
 import numpy as np
 
 from shallowspeed_tpu_torch import schedules as S
+from shallowspeed_tpu_torch.observability.costmodel import PIPELINE_OP_COSTS
 
 # op codes in the tick tables. In a SPLIT program (backward_split) OP_BWD
 # cells are the relay-critical B-input half — same tick the combined
@@ -52,11 +53,6 @@ from shallowspeed_tpu_torch import schedules as S
 # the stash lifetime shrinks from fwd->bwd to recompute->bwd).
 OP_NOOP, OP_FWD, OP_BWD, OP_BWD_W, OP_RECOMPUTE = 0, 1, 2, 3, 4
 
-# per-op FLOP weights in units of one stage forward (the JAX package's
-# ``observability/costmodel.PIPELINE_OP_COSTS``)
-PIPELINE_OP_COSTS = {
-    "fwd": 1.0, "bwd": 2.0, "bwd_in": 1.0, "bwd_w": 1.0, "recompute": 1.0,
-}
 
 
 @dataclasses.dataclass(frozen=True)

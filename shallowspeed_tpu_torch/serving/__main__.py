@@ -4,7 +4,7 @@
         [--checkpoint ck.npz] [--requests 200] [--rate 100] [--seed 0]
         [--rows 1,2,3,4,8] [--slot-rows 8] [--slot-ladder 1,2,4,8,16]
         [--max-slots N] [--closed-loop C] [--deadline-ms D] [--slo-ms S]
-        [--retry-budget 2] [--breaker 3] [--verify]
+        [--retry-budget 2] [--breaker 3] [--verify] [--metrics-out serve.jsonl]
 
 Builds the port's ``TrainingSession`` (the flagship MLP from the
 deterministic init, or ``--checkpoint`` — any checkpoint the JAX package
@@ -14,6 +14,10 @@ drives seeded Poisson load (or a closed-loop population) through it.
 ``session.predict()`` of the same rows and demands bitwise equality.
 Runs on the GPU unless ``--device cpu`` is given; a missing GPU is an
 error, not a fallback.
+
+``--metrics-out`` records what the session records (its construction
+spans and the ``cost_model`` behind the latency floor, schema v13); the
+engine's per-request records come with the rest of serving.
 
 SIGTERM/SIGINT stop admission, drain what was accepted, and exit under the
 normal code contract.
@@ -122,9 +126,14 @@ def main(argv=None):
         help="re-compute every 'ok' response with a direct predict() of the "
         "same rows and demand bitwise equality (exit 1 on any mismatch)",
     )
+    ap.add_argument(
+        "--metrics-out", default=None,
+        help="record the session's telemetry (spans, cost_model) to this JSONL file",
+    )
     args = ap.parse_args(argv)
 
     from shallowspeed_tpu_torch.api import TrainingSession
+    from shallowspeed_tpu_torch.observability import JsonlMetrics
     from shallowspeed_tpu_torch.serving.engine import ServingEngine
     from shallowspeed_tpu_torch.serving.loadgen import (
         poisson_arrivals,
@@ -133,7 +142,9 @@ def main(argv=None):
         run_open_loop,
     )
 
+    metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
     session = TrainingSession(
+        metrics=metrics,
         resume=args.checkpoint,
         predict_slot_rows=args.slot_rows,
         predict_slot_ladder=(
@@ -251,6 +262,10 @@ def main(argv=None):
             + ("" if mismatched == 0 else f" — {mismatched} MISMATCHED")
         )
         failures += mismatched
+    if metrics is not None:
+        session.close()
+        metrics.close()
+        print(f"telemetry written: {metrics.path}")
     if engine.degraded:
         print("serving: engine DEGRADED at exit (breaker open)", file=sys.stderr)
         return 3

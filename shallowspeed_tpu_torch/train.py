@@ -41,9 +41,25 @@ root CLI's, with the accuracy line, ``DP replicas in sync ✓`` at dp > 1,
 and ``final model hash: <sha1>``, so the two runs' hash lines compare.
 Exit code 4 (``CHECKPOINT UNRECOVERABLE:``) when the checkpoint to resume
 from, or every snapshot in the directory, fails verification.
+
+Telemetry, as the root CLI's::
+
+    python -m shallowspeed_tpu_torch.train --device cpu --data-dir D \
+        --epochs 1 --metrics-out m.jsonl --health warn --digests
+    python -m shallowspeed_tpu_torch.observability.report m.jsonl
+
+``--metrics-out`` writes the schema-v13 JSONL (``telemetry written:``
+ends the run), ``--health record|warn|halt`` checks every step (``halt``
+exits 3 with ``HEALTH HALT:``), ``--digests`` streams per-layer digests,
+``--profile-dir`` writes a ``torch.profiler`` trace of one epoch, and
+``--dispatch-probe`` measures the share of an epoch's wall the device is
+idle after the hash line (``--dispatch-probe-out`` also writes it as a
+bench record). ``--audit`` (the XLA program audit) is not ported.
 """
 
 import argparse
+import contextlib
+import json
 import os
 import sys
 import time
@@ -184,6 +200,48 @@ def main(argv=None):
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="cuda (the hand-written kernels) or cpu (the plain PyTorch path)",
     )
+    ap.add_argument(
+        "--metrics-out", default=None,
+        help="record structured training telemetry (per-epoch loss, "
+        "samples/s, MFU, per-step flight records, spans, pipeline program "
+        "stats) to this JSONL file; render it with `python -m "
+        "shallowspeed_tpu_torch.observability.report FILE`",
+    )
+    ap.add_argument(
+        "--health", choices=["record", "warn", "halt"], default=None,
+        help="numerics health monitor over the per-step flight aux "
+        "(NaN/Inf, rolling-window loss divergence, grad-norm spikes): "
+        "'record' emits health records into --metrics-out, 'warn' also "
+        "prints them, 'halt' additionally aborts the run (exit 3) at the "
+        "first finding, naming the blown-up step",
+    )
+    ap.add_argument(
+        "--digests", action="store_true",
+        help="numerics provenance: per-step per-LAYER digests (checksums of "
+        "every post-update (W, b) block + param/grad block norms) streamed "
+        "as digest records to --metrics-out; compare two runs with `python "
+        "-m shallowspeed_tpu_torch.observability.divergence A.jsonl B.jsonl`",
+    )
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of one training epoch to this directory",
+    )
+    ap.add_argument(
+        "--dispatch-probe", action="store_true",
+        help="after training, dispatch extra training epochs under the "
+        "profiler and report the share of host wall NOT covered by op "
+        "execution; it runs after the final model hash is printed (the "
+        "probe TRAINS the epochs it times)",
+    )
+    ap.add_argument(
+        "--dispatch-probe-out", default=None, metavar="JSON",
+        help="also write the probe's measurement as a versioned bench record "
+        "(bench: dispatch_overhead) to this file; implies --dispatch-probe",
+    )
+    ap.add_argument(
+        "--audit", action="store_true",
+        help="the root CLI's XLA program audit; not ported (refused)",
+    )
     args = ap.parse_args(argv)
     # incoherent fault-tolerance flags fail at parse time, before any device
     # or data is touched (the root train.py's checks and words)
@@ -221,6 +279,18 @@ def main(argv=None):
             "stages (the chunked stash rotation is its own lifetime "
             "discipline)"
         )
+    if args.audit:
+        ap.error(
+            "--audit (the compiled-program collective census) is not ported: "
+            "the port compiles no XLA program, and program_audit needs a "
+            "torch design of its own (ROADMAP.md §A item 13)"
+        )
+    if args.digests and args.fused_run:
+        ap.error(
+            "--digests rides the epoch/step scan aux, which the fused "
+            "multi-epoch run program does not thread — drop --fused-run "
+            "(the epoch/step loops stream digest records)"
+        )
     faults_env = os.environ.get("SHALLOWSPEED_FAULTS", "")
     if args.fused_run and any(p.strip() for p in faults_env.split(",")):
         ap.error(
@@ -234,9 +304,14 @@ def main(argv=None):
     from shallowspeed_tpu_torch.api import TrainingSession
     from shallowspeed_tpu_torch.checkpoint import CheckpointError
     from shallowspeed_tpu_torch.data import default_data_dir
+    from shallowspeed_tpu_torch.observability import HealthError, JsonlMetrics
 
+    metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
     try:
         run = TrainingSession(
+            metrics=metrics,
+            health=args.health,
+            digests=args.digests,
             dp=args.dp,
             pp=args.pp,
             schedule=args.schedule,
@@ -268,8 +343,12 @@ def main(argv=None):
         # verification: a distinct exit code, so a caller can tell "restore
         # is impossible" from a crash
         print(f"CHECKPOINT UNRECOVERABLE: {e}", file=sys.stderr)
+        if metrics is not None:
+            metrics.close()
         return 4
     if args.fused_run and run.step_in_epoch > 0:
+        if metrics is not None:
+            metrics.close()
         ap.error(
             f"--resume {args.resume} restored a mid-epoch cursor (epoch "
             f"{run.epoch}, step {run.step_in_epoch}); drop --fused-run to "
@@ -298,7 +377,16 @@ def main(argv=None):
 
     t0 = time.time()
     try:
-        final_acc = _train(run, args, t0)
+        final_acc = _train(run, args, t0, metrics)
+    except HealthError as e:
+        # --health halt fired: the finding is recorded and the halt snapshot
+        # flushed; a distinct exit code tells "numerics blew up" from a crash
+        print(f"HEALTH HALT: {e}", file=sys.stderr)
+        run.close()
+        if metrics is not None:
+            metrics.close()
+            print(f"telemetry written: {metrics.path}")
+        return 3
     except BaseException:
         # every exceptional exit drains the async writer, so no accepted
         # snapshot is stranded in its queue; a drain failure must not mask
@@ -319,17 +407,80 @@ def main(argv=None):
     if args.dp > 1:
         print("DP replicas in sync ✓")
     print("final model hash:", run.model_hash())
+    if args.dispatch_probe or args.dispatch_probe_out:
+        _dispatch_probe(run, args)
+    if metrics is not None:
+        run.close()
+        metrics.close()
+        print(f"telemetry written: {metrics.path}")
     return 0
 
 
-def _train(run, args, t0):
+def _dispatch_probe(run, args):
+    """The measured op-issue share, after the hash line (the probe trains
+    the epochs it times), printed as the root CLI prints it; with
+    ``--dispatch-probe-out`` also written as a bench record."""
+    rec = run.measure_dispatch_overhead()
+    share = rec["dispatch_overhead"]
+    if share is None:
+        print("dispatch overhead: unmeasurable — " + rec.get("reason", "no op events"))
+    else:
+        print(
+            f"dispatch overhead: >= {share * 100:.1f}% of epoch wall is "
+            f"host-side op issue (op busy {rec['device_busy_s'] * 1e3:.1f} ms "
+            f"of {rec['host_wall_s'] * 1e3:.1f} ms uninstrumented wall over "
+            f"{rec['repeats']} epoch(s); {rec['op_events']} op events, source "
+            f"{rec['op_source']}, profiler inflation "
+            f"{rec['profiler_inflation']:.2f}x)"
+        )
+    if not rec["window_valid"]:
+        print("dispatch-probe window INVALID: " + (rec["window_invalid_reason"] or "unknown"))
+    if args.dispatch_probe_out:
+        from shallowspeed_tpu_torch.observability.metrics import json_safe
+
+        bench_rec = {
+            "bench": "dispatch_overhead",
+            "bench_version": 1,
+            "config": {
+                "dp": args.dp, "pp": args.pp, "tp": 1, "schedule": args.schedule,
+                "global_batch_size": args.global_batch_size,
+                "mubatches": args.mubatches, "backward_split": args.backward_split,
+                "grad_bucket_bytes": 0, "platform": rec["platform"],
+                "device_name": rec["device_name"],
+            },
+            "value": share,
+            "unit": "fraction of epoch wall not covered by op execution",
+            **{
+                k: rec[k]
+                for k in (
+                    "program", "runtime", "repeats", "host_wall_s",
+                    "host_wall_instrumented_s", "profiler_inflation",
+                    "device_busy_s", "device_comm_s", "device_compute_s",
+                    "op_events", "op_source", "events_per_batch", "window_valid",
+                    "window_invalid_reason", "dispatch_overhead_instrumented",
+                    "provenance",
+                )
+            },
+        }
+        with open(args.dispatch_probe_out, "w", encoding="utf-8") as f:
+            f.write(json.dumps(json_safe(bench_rec), indent=2, allow_nan=False) + "\n")
+        print(f"dispatch-overhead record written: {args.dispatch_probe_out}")
+
+
+def _train(run, args, t0, metrics):
     """The epochs of the run, printing the root CLI's lines (``t0``: the
-    run's start on the host clock); returns the final accuracy."""
+    run's start on the host clock); returns the final accuracy. With
+    ``--profile-dir`` one epoch after the first (whose wall holds the
+    kernel build) runs under ``capture``."""
+    from shallowspeed_tpu_torch.observability import capture
+
+    cuda = run.device.type == "cuda"
     if args.fused_run and args.epochs > 0:
         if not args.no_eval:
             print(f"Epoch: {run.epoch}, Accuracy: {run.accuracy() * 100:.2f}%")
         start = run.epoch
-        losses, accs = run.train_run(args.epochs, with_eval=not args.no_eval)
+        with capture(args.profile_dir, metrics, cuda=cuda):
+            losses, accs = run.train_run(args.epochs, with_eval=not args.no_eval)
         for e, loss in enumerate(losses):
             print(f"Epoch: {start + e}, mean train loss: {loss:.5f}")
             if not args.no_eval and e < len(losses) - 1:
@@ -344,6 +495,11 @@ def _train(run, args, t0):
     every = args.checkpoint_every_steps
     target = args.epochs if args.resume == "auto" else run.epoch + args.epochs
     nb = run.batches_per_epoch
+    prof_epoch = (
+        run.epoch + min(1, max(target - run.epoch - 1, 0))
+        if args.profile_dir and target > run.epoch
+        else None
+    )
     while run.epoch < target:
         if run.step_in_epoch == 0 and not args.no_eval:
             print(
@@ -354,7 +510,12 @@ def _train(run, args, t0):
             n = min(every - run.global_step % every, nb - run.step_in_epoch)
         else:
             n = nb - run.step_in_epoch
-        _, loss = run.train_steps(n)
+        with (
+            capture(args.profile_dir, metrics, cuda=cuda)
+            if run.epoch == prof_epoch
+            else contextlib.nullcontext()
+        ):
+            _, loss = run.train_steps(n)
         if every > 0 and run.global_step % every == 0:
             run.save_step_checkpoint()
         if loss is not None:

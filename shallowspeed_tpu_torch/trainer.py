@@ -47,10 +47,48 @@ from shallowspeed_tpu_torch.optimizer import (
     tree_map,
 )
 
-_NO_GRAD_NORM = (
-    "with_grad_norm is unavailable on the kernel paths: the gradient never "
-    "leaves the fused train kernel"
+_NO_STEP_AUX = (
+    "with_grad_norm/with_step_stats/with_digests are unavailable on the "
+    "kernel paths: the gradient never leaves the fused train kernel"
 )
+
+# the digest aux's vectors, in the JAX package's key order
+DIGEST_KEYS = ("crc_w", "crc_b", "pnorm_w", "pnorm_b", "gnorm_w", "gnorm_b")
+
+
+def block_crc(a):
+    """The digest checksum of a float32 tensor: the uint32 wrap-around sum
+    of its float32 words, as a 0-d int64 tensor on the tensor's device
+    (``utils.block_checksum``'s number). torch has no uint32 sum, so the
+    words are read as int32 and summed in int64: the signed and unsigned
+    sums differ by a multiple of 2**32, which the final mask removes."""
+    return torch.sum(a.contiguous().view(torch.int32), dtype=torch.int64) & 0xFFFFFFFF
+
+
+def row_crcs(a):
+    """``block_crc`` of each row ``a[r]`` of a stacked tensor: ``(S,)``."""
+    return (
+        torch.sum(a.contiguous().view(torch.int32).reshape(a.shape[0], -1), dim=1,
+                  dtype=torch.int64)
+        & 0xFFFFFFFF
+    )
+
+
+def _digest_aux(params, grads):
+    """The sequential per-layer digest vectors (``trainer._digest_aux``):
+    for every logical (W, b) block in global layer order, the checksum of
+    the POST-update float32 bits (``block_crc``), the post-update L2 norm
+    and the PRE-clip gradient L2 norm — each a ``(n_layers,)`` tensor left
+    on the device (int64 checksums, float32 norms)."""
+    cols = {k: [] for k in DIGEST_KEYS}
+    for stage_p, stage_g in zip(param_tree(params), grads):
+        for lay_p, lay_g in zip(stage_p, stage_g):
+            for key, sfx in (("W", "w"), ("b", "b")):
+                p, g = lay_p[key], lay_g[key]
+                cols[f"crc_{sfx}"].append(block_crc(p))
+                cols[f"pnorm_{sfx}"].append(torch.sqrt(torch.sum(p * p)))
+                cols[f"gnorm_{sfx}"].append(torch.sqrt(torch.sum(g * g)))
+    return {k: torch.stack(v) for k, v in cols.items()}
 
 
 def _kernel_opt_descriptor(opt):
@@ -136,18 +174,19 @@ def _fused_kernel_call(spec, sspec, opt, params, opt_state, X, Y, *, clip_norm,
 
 
 def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
-                     with_grad_norm=False, megakernel=False):
+                     with_grad_norm=False, megakernel=False, with_digests=False):
     """The per-batch body shared by the step and the epoch:
     ``batch_step(params, opt_state, xb, yb) -> (params, opt_state, loss)``,
     plus the pre-clip global gradient norm as a fourth output under
-    ``with_grad_norm``. ``xb``: (M, mubatch, in_dim), ``yb``: (M, mubatch,
-    out_dim) one-hot; ``loss`` is the batch's global-batch-scaled MSE under
-    the pre-update params (a 0-d tensor, left on the device).
-    ``megakernel=True`` runs the whole batch as one launch of the fused
-    train kernel."""
+    ``with_grad_norm`` and the ``_digest_aux`` dict of the new params as
+    the last output under ``with_digests``. ``xb``: (M, mubatch, in_dim),
+    ``yb``: (M, mubatch, out_dim) one-hot; ``loss`` is the batch's
+    global-batch-scaled MSE under the pre-update params (a 0-d tensor, left
+    on the device). ``megakernel=True`` runs the whole batch as one launch
+    of the fused train kernel."""
     if megakernel:
-        if with_grad_norm:
-            raise ValueError(_NO_GRAD_NORM)
+        if with_grad_norm or with_digests:
+            raise ValueError(_NO_STEP_AUX)
         sspec = _validate_megakernel(spec, opt, fuse_mubatches)
 
         def mega_step(params, opt_state, xb, yb):
@@ -159,12 +198,16 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
 
     def finish(params, opt_state, grads, loss):
         gnorm = global_norm(grads) if with_grad_norm else None
+        raw = grads
         if clip_norm is not None:
             grads = clip_tree(grads, clip_norm)
         _, opt_state = opt.apply(param_tree(params), grads, opt_state)
+        outs = (params, opt_state, loss)
         if with_grad_norm:
-            return params, opt_state, loss, gnorm
-        return params, opt_state, loss
+            outs += (gnorm,)
+        if with_digests:
+            outs += (_digest_aux(params, raw),)
+        return outs
 
     def batch_step(params, opt_state, xb, yb):
         if fuse_mubatches:
@@ -205,26 +248,63 @@ def make_train_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
     return step
 
 
-def _make_epoch_core(batch_step, with_grad_norm=False):
+def _make_epoch_core(batch_step, with_grad_norm=False, with_step_stats=False,
+                     with_digests=False):
     """``epoch(params, opt_state, X, Y) -> (params, opt_state, mean_loss)``
-    over X: (num_batches, M, mubatch, in_dim); with ``with_grad_norm`` a
-    fourth output ``{"grad_norm": mean pre-clip global grad norm}``."""
+    over X: (num_batches, M, mubatch, in_dim) — plus an aux dict as a
+    fourth output when instrumented (``trainer._make_epoch_core``):
+    ``{"grad_norm": mean pre-clip global grad norm}`` under
+    ``with_grad_norm``; per-step ``(num_batches,)`` vectors ``step_loss`` /
+    ``step_grad_norm`` (pre-clip) / ``step_param_norm`` (post-update) under
+    ``with_step_stats``; per-step ``(num_batches, n_layers)`` digest
+    vectors under ``"digests"`` with ``with_digests``. The aux stays on the
+    device, stacked once at the epoch's end: the host reads it once per
+    dispatch, never per step. ``batch_step`` must return the grad norm
+    under ``with_grad_norm or with_step_stats`` and the digest dict last
+    under ``with_digests``."""
+    track_gn = with_grad_norm or with_step_stats
 
     def epoch(params, opt_state, X, Y):
         loss_sum = torch.zeros((), dtype=torch.float32, device=X.device)
         gn_sum = torch.zeros((), dtype=torch.float32, device=X.device)
+        steps = {"step_loss": [], "step_grad_norm": [], "step_param_norm": []}
+        digests = []
         for xb, yb in zip(X, Y):
             out = batch_step(params, opt_state, xb, yb)
             params, opt_state = out[0], out[1]
             loss_sum = loss_sum + out[2]
-            if with_grad_norm:
+            if track_gn:
                 gn_sum = gn_sum + out[3]
+            if with_step_stats:
+                steps["step_loss"].append(out[2])
+                steps["step_grad_norm"].append(out[3])
+                # post-update param norm: the "did the step blow the
+                # weights up" scalar the health monitor watches
+                steps["step_param_norm"].append(global_norm(param_tree(params)))
+            if with_digests:
+                digests.append(out[-1])
         nb = X.shape[0]
-        if with_grad_norm:
-            return params, opt_state, loss_sum / nb, {"grad_norm": gn_sum / nb}
-        return params, opt_state, loss_sum / nb
+        if not (with_grad_norm or with_step_stats or with_digests):
+            return params, opt_state, loss_sum / nb
+        return params, opt_state, loss_sum / nb, stack_epoch_aux(
+            gn_sum / nb if with_grad_norm else None,
+            steps if with_step_stats else None,
+            digests if with_digests else None,
+        )
 
     return epoch
+
+
+def stack_epoch_aux(grad_norm, steps, digests):
+    """The epoch's aux dict from its per-step lists, stacked on the device."""
+    aux = {}
+    if grad_norm is not None:
+        aux["grad_norm"] = grad_norm
+    if steps is not None:
+        aux.update({k: torch.stack(v) for k, v in steps.items()})
+    if digests is not None:
+        aux["digests"] = {k: torch.stack([d[k] for d in digests]) for k in DIGEST_KEYS}
+    return aux
 
 
 def _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm):
@@ -242,23 +322,26 @@ def _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm):
 
 
 def make_train_epoch(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
-                     megakernel=False, epoch_kernel=False, with_grad_norm=False):
+                     megakernel=False, epoch_kernel=False, with_grad_norm=False,
+                     with_step_stats=False, with_digests=False):
     """Whole epoch: ``epoch(params, opt_state, X, Y) -> (params, opt_state,
     mean_loss)``, ``mean_loss`` the mean batch training loss (``loss_sum /
-    nb``, a 0-d tensor). ``with_grad_norm`` adds an aux dict
-    ``{"grad_norm": mean pre-clip global gradient norm}`` (not on the kernel
-    paths). ``megakernel``: one fused-kernel launch per batch;
-    ``epoch_kernel``: one for the whole epoch."""
+    nb``, a 0-d tensor). ``with_grad_norm``, ``with_step_stats`` and
+    ``with_digests`` add the telemetry aux dict of ``_make_epoch_core`` as a
+    fourth output (not on the kernel paths). ``megakernel``: one
+    fused-kernel launch per batch; ``epoch_kernel``: one for the whole
+    epoch."""
     if epoch_kernel:
         if megakernel:
             raise ValueError("megakernel and epoch_kernel are exclusive")
-        if with_grad_norm:
-            raise ValueError(_NO_GRAD_NORM)
+        if with_grad_norm or with_step_stats or with_digests:
+            raise ValueError(_NO_STEP_AUX)
         return _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm)
     batch_step = _make_batch_step(
-        spec, opt, fuse_mubatches, clip_norm, with_grad_norm, megakernel
+        spec, opt, fuse_mubatches, clip_norm, with_grad_norm or with_step_stats,
+        megakernel, with_digests,
     )
-    return _make_epoch_core(batch_step, with_grad_norm)
+    return _make_epoch_core(batch_step, with_grad_norm, with_step_stats, with_digests)
 
 
 def make_train_run(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
@@ -274,7 +357,7 @@ def make_train_run(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
     ``make_train_epoch``; ``run_kernel`` (with ``with_eval=False``) runs the
     whole run as ONE launch of the fused train kernel."""
     if with_grad_norm and (megakernel or epoch_kernel or run_kernel):
-        raise ValueError(_NO_GRAD_NORM)
+        raise ValueError(_NO_STEP_AUX)
     if run_kernel:
         if megakernel or epoch_kernel:
             raise ValueError(

@@ -71,8 +71,12 @@ def test_session_surface():
     ts = TorchSession(device="cpu", predict_slot_rows=4, predict_slot_ladder=(1, 3))
     assert ts.slot_rows == 4 and ts.slot_ladder == (1, 3)
     assert ts.spec.sizes == FLAGSHIP_SIZES and ts.device == torch.device("cpu")
+    # the cost model's floor: one 4-row slot's forward FLOPs over the
+    # nominal CPU peak (on the card: its fp32 data-sheet peak)
     bound = ts.inference_latency_bound()
-    assert bound["seconds"] is None and bound["peak_source"] == "unmeasured"
+    assert bound["flops"] == 2 * sum(a * b for a, b in zip(FLAGSHIP_SIZES, FLAGSHIP_SIZES[1:])) * 4
+    assert bound["seconds"] == bound["flops"] / 2e11
+    assert bound["peak_source"] == "nominal-cpu-default"
     with pytest.raises(ValueError, match="ROADMAP"):
         TorchSession(device="cpu", precision="default")
     with pytest.raises(ValueError, match="precision"):
@@ -304,4 +308,4 @@ def test_cli_verify_on_cpu(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "20/20 responses bitwise-equal" in out
-    assert "completed 20/20" in out and "unmeasured" in out
+    assert "completed 20/20" in out and "model floor 0.01 ms (nominal-cpu-default)" in out

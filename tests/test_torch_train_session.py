@@ -178,9 +178,6 @@ def test_serving_session_refuses_training_and_unported_options(split, tmp_path):
         (dict(tp=2), "§A item 3"),
         (dict(zero=1), "§A item 3"),
         (dict(grad_bucket_bytes=1024), "§A item 3"),
-        (dict(metrics=object()), "§A item 4"),
-        (dict(health="warn"), "§A item 4"),
-        (dict(digests=True), "§A item 4"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             TorchSession(device="cpu", data_dir=split, **kw)
