@@ -189,7 +189,25 @@ in phases:
    ``measure_dispatch_overhead`` (window valid, device events): the
    steady epoch's samples/s and ``mfu`` beside ``dispatch_overhead`` and
    the profiled device ops per step; then the CLI with ``--metrics-out
-   --health warn`` and the report CLI over its file.
+   --health warn`` and the report CLI over its file;
+14. ZeRO and the bucketed sync on phase 6's split: 14a flagship DP=2 x
+   PP=4 GPipe through the flag kernels, momentum, one epoch a leg (zero 0,
+   zero 0 with digests, zero 0 with 64 KiB buckets, zero 1, zero 1 with
+   digests, anchor zero 2, bucketed zero 2), each on the card and the CPU:
+   B5/B7 launches exactly the zero-0 drive's, the legs within the
+   cross-engine class of the CPU's, the bitwise contracts (bucketed zero 0
+   = zero 0, zero 1 = zero 0, bucketed zero 2 = zero 1, zero 1's digest
+   checksums = zero 0's; anchor zero 2 within 1e-5 of zero 1, and = zero 1
+   at one microbatch) on both; 14b zero 3 on the plain backend bitwise an
+   anchor zero-2 run there, no flag launch, its ``predict`` of 8 slots
+   bitwise; each leg's samples/s and, from one traced epoch, device busy
+   and GPU operations per step; 14c mlp-deep DP=2 x PP=4, 2 steps a leg
+   (zero 0, 1 and anchor 2 through B6/B8, zero 3 plain): launches exact,
+   ``max_memory_allocated`` over the steps, anchor zero 2's peak below zero
+   1's; 14d a killed anchor zero-2 run resumed to its twin's hash, a zero-3
+   snapshot restored bitwise into a sequential and a DP=4 zero-1 session;
+   14e the CLI's ``--zero 2 --grad-bucket-bytes 65536`` and ``--zero 1``
+   hash lines equal, ``--zero 3 --kernel-backend pallas`` refused.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -205,8 +223,9 @@ one launch of its mode: a step, a 16-batch epoch, a 2-epoch run, with no
 library call; the flag entries' ``launches`` over phase 9b's five card
 drives and phase 11's interleaved ones (11a, 11e), and their times summed
 over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
-to the B1/B3 kernels' and the run mode's ``launches``, and phase 13's to
-every kernel's (its CLI subprocess counts in its own process, not here); ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
+to the B1/B3 kernels' and the run mode's ``launches``, phase 13's to
+every kernel's (its CLI subprocess counts in its own process, not here),
+and phase 14's (14a, 14c) to the flag entries'; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
 9a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before either; so does a machine without CUDA, or a directory without the
 package.
@@ -777,15 +796,20 @@ def _moved(init, gpu, cpu):
     return ratios
 
 
-def _bitwise_equal(a, b):
+def _layers_equal(a, b):
+    """Two per-stage ``[{"W", "b"}, ...]`` trees bit for bit."""
     import numpy as np
 
     return all(
         np.array_equal(la[k], lb[k])
-        for sa, sb in zip(a.params(), b.params())
+        for sa, sb in zip(a, b)
         for la, lb in zip(sa, sb)
         for k in ("W", "b")
     )
+
+
+def _bitwise_equal(a, b):
+    return _layers_equal(a.params(), b.params())
 
 
 def _train_2_epochs(TrainingSession, device, with_eval=True, **kw):
@@ -1306,7 +1330,8 @@ def flag_drives():
     """``(tag, executor_slots)`` of every drive of phases 9b and 9c: each
     config's training microbatch (B=128, M=4, rows B/M/dp per replica), the
     DP=2xPP=4 session's eval and predict slots (``slot_rows / dp`` rows per
-    replica) and mlp-deep at PP=4; then phase 11's (``interleaved_drives``)."""
+    replica) and mlp-deep at PP=4; phase 14's DP=2xPP=4 at one microbatch
+    and mlp-deep at DP=2xPP=4; then phase 11's (``interleaved_drives``)."""
     from shallowspeed_tpu_torch.serving.slots import default_slot_rows
 
     B, M = 128, 4
@@ -1314,6 +1339,9 @@ def flag_drives():
     dp, pp = MAIN_MESH["dp"], MAIN_MESH["pp"]
     drives.append(("DP=2xPP=4 eval", executor_slots("mnist-mlp", pp, default_slot_rows(dp) // dp)))
     drives.append(("mlp-deep PP=4", executor_slots("mlp-deep", 4, B // M)))
+    # phase 14's: one microbatch a replica (14a), mlp-deep at DP=2 (14c)
+    drives.append(("DP=2xPP=4 M=1", executor_slots("mnist-mlp", pp, B // dp)))
+    drives.append(("mlp-deep DP=2xPP=4", executor_slots("mlp-deep", pp, B // M // dp)))
     return drives + interleaved_drives()
 
 
@@ -2616,6 +2644,294 @@ def phase_observability(torch, cuda_ops, TrainingSession, data_dir):
     return launches, fused, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: ZeRO stages 1-3 and the bucketed gradient sync
+# ---------------------------------------------------------------------------
+
+# 14a/14b's recipe: the main mesh with momentum (the root CLI's lr for it)
+ZERO_MESH = dict(MAIN_MESH, optimizer="momentum", lr=0.001)
+ZERO_BUCKET = 65536
+# 14a's legs through the flag kernels: (label, the session's ZeRO options);
+# the digest legs run with a recorder and record_steps=False
+ZERO_LEGS = (
+    ("zero 0", dict()),
+    ("zero 0 + digests", dict(digests=True)),
+    ("zero 0 bucketed", dict(grad_bucket_bytes=ZERO_BUCKET)),
+    ("zero 1", dict(zero=1)),
+    ("zero 1 + digests", dict(zero=1, digests=True)),
+    ("zero 2 anchor", dict(zero=2)),
+    ("zero 2 bucketed", dict(zero=2, grad_bucket_bytes=ZERO_BUCKET)),
+)
+# the legs each one must equal bitwise, on the card and on the CPU
+ZERO_BITWISE = (
+    ("zero 0 bucketed", "zero 0"),
+    ("zero 1", "zero 0"),
+    ("zero 1 + digests", "zero 1"),
+    ("zero 0 + digests", "zero 0"),
+    ("zero 2 bucketed", "zero 1"),
+)
+ZERO_ANCHOR_RTOL, ZERO_ANCHOR_ATOL = 1e-5, 1e-6  # anchor zero 2 vs zero 1 at M > 1
+
+
+def _zero_leg(torch, cuda_ops, TrainingSession, device, data_dir, tmp, label, kw):
+    """One 14a/14b leg: a session from init trained one epoch (with a
+    recorder for the digest legs, left open: the session records on).
+    Returns (session, launches, wall, the digest records, the recorder or
+    None)."""
+    from shallowspeed_tpu_torch.observability import JsonlMetrics
+
+    rec = path = None
+    if kw.get("digests"):
+        path = Path(tmp) / f"14-{device}-{label.replace(' ', '_').replace('+', '')}.jsonl"
+        rec = JsonlMetrics(str(path))
+        kw = dict(kw, metrics=rec, record_steps=False)
+    s = TrainingSession(device=device, data_dir=data_dir, **kw)
+    if device == "cuda":
+        wall, counts = _card_counts(torch, cuda_ops, lambda: _timed_epoch(s))
+    else:
+        wall, counts = _timed_epoch(s), {}
+    digests = []
+    if rec is not None:
+        rec.flush()
+        digests = _records(path, "digest")
+    return s, {k: v for k, v in counts.items() if v}, wall, digests, rec
+
+
+def _trace_leg(s):
+    """Device busy and GPU operations per step from one traced epoch
+    (``measure_dispatch_overhead(repeats=1)``; it trains 2 more epochs)."""
+    probe = s.measure_dispatch_overhead(repeats=1)
+    if not probe["window_valid"] or probe["op_source"] != "device":
+        fail(f"14 dispatch probe {probe}")
+    return dict(
+        device_busy_ms_per_step=probe["device_busy_s"] * 1e3 / TRAIN_BATCHES,
+        events_per_step=probe["events_per_batch"],
+        dispatch_overhead=probe["dispatch_overhead"],
+    )
+
+
+def _digest_crcs(digests):
+    return [(d["step"], d["crc_w"], d["crc_b"]) for d in digests]
+
+
+def phase_zero(torch, cuda_ops, TrainingSession, data_dir):
+    """14: ZeRO stages 1-3 and the bucketed sync on the card. Returns the
+    flag entries' launches over 14a's and 14c's drives and the records."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch import checkpoint as ckpt
+    from shallowspeed_tpu_torch import faults as F
+    from shallowspeed_tpu_torch.model import MODEL_ZOO
+
+    t_phase = time.perf_counter()
+    tmp = Path(data_dir) / "zero"
+    tmp.mkdir(exist_ok=True)
+    drive = {"linear_flag_fwd": 0, "linear_flag_bwd": 0}
+    rows = []
+
+    def note(line):
+        say(f"  {line}")
+    per_epoch = TRAIN_BATCHES * ZERO_MESH["dp"] * 4 * FLAGSHIP_LINEARS
+
+    # 14a: the flag-kernel legs, each on the card and on the CPU
+    card, cpu = {}, {}
+    for label, kw in ZERO_LEGS:
+        kw = dict(ZERO_MESH, **kw)
+        s, counts, wall, dig, rec = _zero_leg(torch, cuda_ops, TrainingSession, "cuda", data_dir, tmp, label, kw)
+        want = {"linear_flag_fwd": per_epoch, "linear_flag_bwd": per_epoch}
+        if counts != want:
+            fail(f"14a {label}: launches {counts}, want the zero-0 drive's {want}")
+        for k in drive:
+            drive[k] += counts[k]
+        card[label] = (s, wall, dig, rec)
+        c, _, _, cdig, crec = _zero_leg(torch, cuda_ops, TrainingSession, "cpu", data_dir, tmp, label, kw)
+        cpu[label] = (c, cdig)
+        if crec is not None:
+            crec.close()
+        worst = _params_close(s, c, f"14a {label}")
+        note(
+            f"14a {label}: {counts['linear_flag_fwd']} / {counts['linear_flag_bwd']} B5/B7 "
+            f"launches, card vs CPU {worst:.3e}, {TRAIN_BATCHES * 128 / wall:.1f} samples/s"
+        )
+    for a, b in ZERO_BITWISE:
+        for side, runs in (("card", card), ("CPU", cpu)):
+            if not _bitwise_equal(runs[a][0], runs[b][0]):
+                fail(f"14a {a} is not bitwise {b} on the {side}")
+    for side, dz0, dz1 in (
+        ("card", card["zero 0 + digests"][2], card["zero 1 + digests"][2]),
+        ("CPU", cpu["zero 0 + digests"][1], cpu["zero 1 + digests"][1]),
+    ):
+        if len(dz1) != TRAIN_BATCHES or _digest_crcs(dz1) != _digest_crcs(dz0):
+            fail(f"14a zero 1's digests are not zero 0's checksums on the {side}")
+    for side, runs in (("card", card), ("CPU", cpu)):
+        worst = _params_close_to(
+            runs["zero 2 anchor"][0].params(), runs["zero 1"][0].params(),
+            ZERO_ANCHOR_RTOL, ZERO_ANCHOR_ATOL, f"14a anchor zero 2 vs zero 1 ({side})",
+        )
+        note(f"14a anchor zero 2 vs zero 1 at M=4 on the {side}: {worst:.3e}")
+    # the anchor tree at one microbatch is zero 1's, bitwise
+    m1 = {}
+    for label, kw in (("zero 1 M=1", dict(zero=1)), ("zero 2 anchor M=1", dict(zero=2))):
+        kw = dict(ZERO_MESH, mubatches=1, **kw)
+        s, counts, wall, _, _ = _zero_leg(torch, cuda_ops, TrainingSession, "cuda", data_dir, tmp, label, kw)
+        want = TRAIN_BATCHES * ZERO_MESH["dp"] * FLAGSHIP_LINEARS
+        if counts != {"linear_flag_fwd": want, "linear_flag_bwd": want}:
+            fail(f"14a {label}: launches {counts}, want {want} each")
+        for k in drive:
+            drive[k] += counts[k]
+        m1[label] = s
+    if not _bitwise_equal(m1["zero 1 M=1"], m1["zero 2 anchor M=1"]):
+        fail("14a anchor zero 2 at mubatches=1 is not bitwise zero 1")
+    note(
+        f"14a bitwise on the card and the CPU: {', '.join(f'{a} = {b}' for a, b in ZERO_BITWISE)}, "
+        f"zero 1's {TRAIN_BATCHES} digest checksums = zero 0's, anchor zero 2 = zero 1 at M=1"
+    )
+
+    # 14b: zero 3 on the plain backend, against anchor zero 2 there
+    xla = dict(ZERO_MESH, kernel_backend="xla")
+    b_runs = {}
+    for label, kw in (("zero 2 anchor xla", dict(xla, zero=2)), ("zero 3 xla", dict(xla, zero=3))):
+        s, counts, wall, _, _ = _zero_leg(torch, cuda_ops, TrainingSession, "cuda", data_dir, tmp, label, kw)
+        if counts:
+            fail(f"14b {label}: flag launches {counts} on the plain backend")
+        b_runs[label] = (s, wall)
+    z2, z3 = b_runs["zero 2 anchor xla"][0], b_runs["zero 3 xla"][0]
+    if not _bitwise_equal(z2, z3):
+        fail("14b zero 3 is not bitwise anchor zero 2 (xla)")
+    x = np.random.RandomState(14).rand(8 * z3.slot_rows, 784).astype(np.float32)
+    if not np.array_equal(z3.predict(x), z2.predict(x)):
+        fail("14b zero 3's predict of 8 slots is not bitwise zero 2's")
+    z3.assert_replicas_in_sync()
+    note(
+        f"14b zero 3 xla = anchor zero 2 xla bitwise, no flag launch, predict of 8 x "
+        f"{z3.slot_rows} rows bitwise, replica check skipped at zero 3"
+    )
+    # samples/s, device busy and GPU operations per step, per leg
+    for label, (s, wall, _, rec) in card.items():
+        rows.append(dict(label=f"14a {label}", samples_per_sec=TRAIN_BATCHES * 128 / wall, **_trace_leg(s)))
+        if rec is not None:
+            rec.close()
+    for label, (s, wall) in b_runs.items():
+        rows.append(dict(label=f"14b {label}", samples_per_sec=TRAIN_BATCHES * 128 / wall, **_trace_leg(s)))
+    for r in rows:
+        note(
+            f"{r['label']}: {r['samples_per_sec']:.1f} samples/s, device busy "
+            f"{r['device_busy_ms_per_step']:.4f} ms/step, {r['events_per_step']:.2f} GPU ops/step, "
+            f"dispatch_overhead {r['dispatch_overhead']:.4f}"
+        )
+
+    # 14c: mlp-deep, 2 steps a leg: launches and the step's peak memory
+    deep = dict(data_dir=data_dir, model="mlp-deep", dp=2, pp=4, schedule="gpipe", optimizer="momentum", lr=0.001)
+    per_steps = 2 * 2 * 4 * (len(MODEL_ZOO["mlp-deep"]["sizes"]) - 1)
+    peaks, deep_runs = {}, {}
+    for label, kw in (
+        ("zero 0", dict(kernel_backend="pallas")),
+        ("zero 1", dict(kernel_backend="pallas", zero=1)),
+        ("zero 2 anchor", dict(kernel_backend="pallas", zero=2)),
+        ("zero 3 xla", dict(kernel_backend="xla", zero=3)),
+    ):
+        (s, _, wall, peak, above), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_measured(torch, TrainingSession, 2, **dict(deep, **kw))
+        )
+        counts = {k: v for k, v in counts.items() if v}
+        want = {} if kw["kernel_backend"] == "xla" else {"linear_flag_fwd": per_steps, "linear_flag_bwd": per_steps}
+        if counts != want:
+            fail(f"14c mlp-deep {label}: launches {counts}, want {want}")
+        for k in counts:
+            drive[k] += counts[k]
+        peaks[label] = (peak, above)
+        # host params only: each leg starts on an empty card
+        deep_runs[label] = s.params()
+        note(
+            f"14c mlp-deep {label}: {counts or 'no flag launch'}, peak "
+            f"{peak:.2f} MiB ({above:.2f} above the built session), {wall:.2f} s"
+        )
+        del s
+        torch.cuda.empty_cache()
+    if not _layers_equal(deep_runs["zero 0"], deep_runs["zero 1"]):
+        fail("14c mlp-deep zero 1 is not bitwise zero 0")
+    _params_close_to(
+        deep_runs["zero 2 anchor"], deep_runs["zero 1"],
+        ZERO_ANCHOR_RTOL, ZERO_ANCHOR_ATOL, "14c mlp-deep anchor zero 2 vs zero 1",
+    )
+    _params_close_to(
+        deep_runs["zero 3 xla"], deep_runs["zero 2 anchor"],
+        SEQ_RTOL, SEQ_ATOL, "14c mlp-deep zero 3 (xla) vs anchor zero 2 (pallas)",
+    )
+    # the gate: the step's own working set (above the built session, which
+    # holds one copy of the params and one of the velocity on every stage)
+    if not peaks["zero 2 anchor"][1] < peaks["zero 1"][1]:
+        fail(
+            f"14c mlp-deep: anchor zero 2's step peak {peaks['zero 2 anchor'][1]:.2f} MiB "
+            f"above its session is not below zero 1's {peaks['zero 1'][1]:.2f}"
+        )
+    note(
+        f"14c gate: anchor zero 2's step peak {peaks['zero 2 anchor'][1]:.2f} MiB < zero 1's "
+        f"{peaks['zero 1'][1]:.2f} MiB above the built session (zero 0 {peaks['zero 0'][1]:.2f}, "
+        f"zero 3 {peaks['zero 3 xla'][1]:.2f})"
+    )
+
+    # 14d: a killed anchor zero-2 run resumes to its twin; a zero-3 snapshot
+    # restores into a sequential and a DP=4 zero-1 session
+    kw = dict(ZERO_MESH, zero=2)
+    twin = TrainingSession(device="cuda", data_dir=data_dir, **kw)
+    for _ in range(2):
+        twin.train_epoch()
+    died, hashes, _, nbytes, launches, _, resumed = _kill_and_resume(
+        torch, cuda_ops, TrainingSession, F, ckpt, data_dir, tmp / "14d", kw,
+        twin_hash=twin.model_hash(),
+    )
+    note(
+        f"14d anchor zero 2: {died[1]!r} at step {died[0]}, resumed from step 8, {launches}, "
+        f"hash {resumed.model_hash()[:12]} = twin's bitwise; snapshot {nbytes} B"
+    )
+    z3.save(tmp / "z3.npz")
+    saved_p, saved_s = z3.params(), z3.opt_state_logical()
+    for label, lkw in (
+        ("sequential", dict(optimizer="momentum", lr=0.001)),
+        ("DP=4 zero 1", dict(optimizer="momentum", lr=0.001, dp=4, zero=1)),
+    ):
+        r = TrainingSession(device="cuda", data_dir=data_dir, resume=tmp / "z3.npz", **lkw)
+        if r.model_hash() != z3.model_hash() or not _layers_equal(r.params(), saved_p):
+            fail(f"14d zero-3 snapshot into {label}: params differ")
+        if not _layers_equal(r.opt_state_logical()["parts"][""], saved_s["parts"][""]):
+            fail(f"14d zero-3 snapshot into {label}: momentum differs")
+        note(f"14d zero-3 snapshot -> {label}: params and momentum bitwise, epoch {r.epoch}")
+
+    # 14e: the CLI
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
+    env["PYTHONPATH"] = str(root)
+    base = [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
+            "--epochs", "1", "--no-eval", "--dp", "2", "--pp", "4", "--optimizer", "momentum"]
+    hashes = {}
+    for label, extra in (
+        ("--zero 2 --grad-bucket-bytes 65536", ["--zero", "2", "--grad-bucket-bytes", str(ZERO_BUCKET)]),
+        ("--zero 1", ["--zero", "1"]),
+    ):
+        proc = subprocess.run(base + extra, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        hashes[label] = _hash_line(proc.returncode, proc.stdout, proc.stderr, f"14e {label}")
+    if len(set(hashes.values())) != 1:
+        fail(f"14e CLI hash lines differ: {hashes}")
+    proc = subprocess.run(base + ["--zero", "3", "--kernel-backend", "pallas"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    refusal = "--zero 3 is incompatible with --kernel-backend pallas"
+    if proc.returncode != 2 or refusal not in proc.stderr:
+        fail(f"14e --zero 3 --kernel-backend pallas: exit {proc.returncode}, {proc.stderr[-300:]}")
+    note(
+        f"14e CLI: --zero 2 --grad-bucket-bytes 65536 and --zero 1 print the same hash "
+        f"{next(iter(hashes.values()))[:12]}; --zero 3 --kernel-backend pallas exits 2 with the refusal"
+    )
+    say(f"  14 rows: {json.dumps(rows)}")
+    say(
+        f"phase 14 zero: ok: B5-B8 launches exactly the zero-0 drives', the bitwise contracts "
+        f"on the card and the CPU, every leg within the cross-engine class of the CPU's, "
+        f"anchor zero 2's mlp-deep peak below zero 1's, resumes and snapshots bitwise, the "
+        f"CLI's hash lines equal; {time.perf_counter() - t_phase:.2f} s"
+    )
+    return drive, rows
+
+
 def main():
     import torch
 
@@ -2657,6 +2973,12 @@ def main():
         say(f"phase 9 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 9b, 9c, 10 and 11 launched was checked in 9a")
         learning = phase_learning(torch, cuda_ops, TrainingSession, tmp)
         observed, observed_fused, _ = phase_observability(torch, cuda_ops, TrainingSession, tmp)
+        seen = set()
+        with flag_shapes_seen(cuda_ops, seen):
+            zero, _ = phase_zero(torch, cuda_ops, TrainingSession, tmp)
+        if not seen or seen - checked:
+            fail(f"phase 14 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
+        say(f"phase 14 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 14 launched was checked in 9a")
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
@@ -2677,7 +2999,7 @@ def main():
         entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
     for entry in ("linear_flag_fwd", "linear_flag_bwd"):
         entries.append(
-            (entry, entry, flag_launches[entry] + lattice[entry] + observed[entry],
+            (entry, entry, flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry],
              flag_errs[entry], flag_sums[entry])
         )
     kernels = []

@@ -10,6 +10,8 @@
 
     mesh = TrainingSession(dp=2, pp=4, schedule="gpipe",
                            kernel_backend="pallas", data_dir=...)
+    sharded = TrainingSession(dp=2, pp=4, zero=2, grad_bucket_bytes=65536,
+                              kernel_backend="pallas", data_dir=...)
     chunks = TrainingSession(pp=2, schedule="interleaved", virtual_stages=2,
                              kernel_backend="pallas", data_dir=...)
 
@@ -24,7 +26,14 @@ the JAX session's schedule lattice: ``schedule="interleaved"`` with
 ``executor.interleave_order``), ``backward_split`` (2BP, bitwise the
 unsplit run), ``recompute`` (bitwise the stashed run) and the gelu family
 (``model="transformer"``); the last three on the ``"xla"`` backend, as in
-the JAX package. Training: the reference's
+the JAX package. ZeRO on the dp axis, as the JAX session runs it:
+``zero=1`` (``zero1=True``) shards the optimizer state and update over dp
+(the flat layout), ``zero=2`` the gradients too (the block-cyclic layout;
+a per-tick shard carry, or with ``grad_bucket_bytes`` the bucketed tail),
+``zero=3`` the params at rest (``"xla"`` only; ``predict`` reads an eval
+view rebuilt once per weight update); ``grad_bucket_bytes`` also buckets
+the stage-0 sum. Checkpoints keep the JAX package's logical layout, so a
+run saved at one stage or layout resumes at another. Training: the reference's
 recipe (global batch 128 in 4 microbatches, SGD at lr 0.006) or momentum /
 Adam, with decoupled weight decay, global-norm clipping and fused
 microbatches, driven per step (``train_steps``), per epoch
@@ -68,8 +77,7 @@ epoch's host wall into device-busy and host time under ``torch.profiler``;
 ``inference_latency_bound`` is the slot's FLOPs over the card's peak.
 
 Not in this slice, and refused with a pointer to their ROADMAP.md item:
-ZeRO, gradient buckets and tp (§A item 3) and the multi-card runtime
-(``runtime="mpmd"``, item 7).
+tp (§A item 3) and the multi-card runtime (``runtime="mpmd"``, item 7).
 """
 
 import sys
@@ -104,6 +112,7 @@ from shallowspeed_tpu_torch.observability.slo import LiveTelemetry, default_trai
 from shallowspeed_tpu_torch.observability.spans import capture
 from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
+from shallowspeed_tpu_torch.parallel import gradsync
 from shallowspeed_tpu_torch.parallel.lowering import (
     lower_schedule,
     program_flops,
@@ -119,23 +128,15 @@ FLAGSHIP_MUBATCHES = 4
 FLAGSHIP_LR = 0.006
 
 
-def _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime):
-    lattice = [
-        (bool(zero1) or bool(zero),
-         f"zero={zero if zero is not None else int(bool(zero1))}: ZeRO (next: "
-         "stages 1-2 with the gradient buckets, then stage 3)"),
-        (bool(grad_bucket_bytes),
-         "grad_bucket_bytes: the bucketed gradient sync (it comes with ZeRO "
-         "stages 1-2)"),
-        (tp != 1, f"tp={tp}: tensor parallelism (after ZeRO)"),
-    ]
-    for on, what in lattice:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet; the port's executor runs dp x pp "
-                "with the naive, gpipe, pipedream and interleaved schedules, "
-                "the split backward and recompute (ROADMAP.md §A item 3)"
-            )
+def _refuse_unported(tp, runtime):
+    if tp != 1:
+        raise NotImplementedError(
+            f"tp={tp}: tensor parallelism is not ported yet (next: a tp axis "
+            "on the virtual mesh and the Megatron stage functions); the "
+            "port's executor runs dp x pp with the naive, gpipe, pipedream "
+            "and interleaved schedules, the split backward, recompute and "
+            "ZeRO stages 0-3 (ROADMAP.md §A item 3)"
+        )
     if runtime != "lockstep":
         raise NotImplementedError(
             f"runtime={runtime!r}: the multi-card runtime (one process per rank "
@@ -189,9 +190,11 @@ class TrainingSession:
     flight aux (None = on whenever a recorder or a monitor consumes it;
     refused on the kernel paths). ``digests``: per-step per-layer digest
     records (opt-in; refused on the kernel paths).
-    ``tp``, ``zero``/``zero1``, ``grad_bucket_bytes`` and ``runtime`` are
-    the JAX session's names for layouts the port does not run yet; anything
-    but their defaults raises.
+    ``zero`` (0-3; ``zero1=True`` is stage 1): the dp-axis ZeRO stage (mesh
+    layouts; stage 3 on ``"xla"`` only). ``grad_bucket_bytes``: the
+    bucketed gradient sync (mesh layouts, stages 0-2; 0 = the anchor sum).
+    ``tp`` and ``runtime`` are the JAX session's names for layouts the port
+    does not run yet; anything but their defaults raises.
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -259,7 +262,7 @@ class TrainingSession:
             raise ValueError(
                 f"schedule must be one of {sorted(S.SCHEDULES)}, got {schedule!r}"
             )
-        _refuse_unported(tp, zero1, zero, grad_bucket_bytes, runtime)
+        _refuse_unported(tp, runtime)
         if checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
         if checkpoint_queue < 1:
@@ -347,6 +350,51 @@ class TrainingSession:
                 "flag-operand kernels and needs a mesh layout (dp/pp > 1 or "
                 "virtual_stages > 1); on the sequential path the CUDA kernels "
                 "run already — use megakernel=True for the fused train kernel"
+            )
+        # the dp-axis ZeRO stage: ``zero`` supersedes the ``zero1`` alias;
+        # the JAX session's refusals, in its words
+        zero = self._zero = E._resolve_zero(zero, zero1)
+        # the ZeRO-3 eval view: the stacked {W, b} rebuilt from the shards
+        # at rest for the inference programs, once per weight update
+        self._eval_stacked_cache = None
+        if self._zero and self._sequential:
+            if zero == 1:
+                raise ValueError(
+                    "zero1 shards the optimizer update over the dp mesh "
+                    "axis; the sequential path has no mesh — use dp/pp > 1"
+                )
+            raise ValueError(
+                f"zero={zero} shards the update over the dp mesh axis; "
+                "the sequential path has no mesh — use dp/pp > 1"
+            )
+        if self._zero >= 2 and digests:
+            raise ValueError(
+                "digests read the zero1 flat-chunk segment map; the "
+                "block-cyclic shard layout of zero>=2 has no flat chunk — "
+                "use --zero 1 or below with --digests"
+            )
+        if self._zero == 3 and kernel_backend == "pallas":
+            raise ValueError(
+                "zero=3 all-gathers parameter segments inside every tick "
+                "branch; the fused pallas flag kernels take whole resident "
+                "slots — use kernel_backend='xla' with --zero 3"
+            )
+        if self._zero == 3 and grad_bucket_bytes:
+            raise ValueError(
+                "zero=3 syncs gradients per tick (one reduce-scatter per "
+                "layer slot inside the scan); grad_bucket_bytes shapes the "
+                "tail sync only and has nothing to bucket at stage 3"
+            )
+        if grad_bucket_bytes is None:
+            grad_bucket_bytes = 0
+        grad_bucket_bytes = int(grad_bucket_bytes)
+        if grad_bucket_bytes < 0:
+            raise ValueError("grad_bucket_bytes must be >= 0 (0 = anchor sync)")
+        if grad_bucket_bytes and self._sequential:
+            raise ValueError(
+                "grad_bucket_bytes buckets the dp-axis gradient collectives; "
+                "the sequential path has no gradient sync — use dp/pp > 1 "
+                "(0 keeps the legacy anchor psum on mesh layouts)"
             )
         # the split backward and recompute: the JAX session's refusals, in
         # its words
@@ -479,8 +527,7 @@ class TrainingSession:
                 schedule=schedule, global_batch_size=self.B,
                 mubatches=self.M, lr=lr, precision=precision,
                 optimizer=optimizer, momentum=momentum,
-                virtual_stages=V, zero1=bool(zero1),
-                zero=0 if zero is None else int(zero),
+                virtual_stages=V, zero1=bool(zero1), zero=self._zero,
                 grad_bucket_bytes=grad_bucket_bytes,
                 backward_split=self._backward_split, recompute=self._recompute,
                 scan_unroll=1, tick_unroll=1, weight_decay=weight_decay,
@@ -561,17 +608,32 @@ class TrainingSession:
                 )
                 self._metrics.gauge("pipeline.bubble_fraction", stats["bubble_fraction"])
             with self._metrics.span("device_put"):
-                self._stacked, self._flags = convert.stacked_from_numpy(
-                    host_params, self.spec, self.device, order=self._order
+                if self._zero == 3:
+                    # params at rest: one (pp, dp*csz3) block-cyclic tensor,
+                    # every rank's shard; the stacked {W, b} never lands
+                    self._stacked, self._flags = convert.zero_params_from_numpy(
+                        host_params, self.spec, self.mesh, order=self._order
+                    )
+                else:
+                    self._stacked, self._flags = convert.stacked_from_numpy(
+                        host_params, self.spec, self.device, order=self._order
+                    )
+            if self._zero:
+                self._opt_state = convert.zero_opt_state_from_numpy(
+                    self._opt, host_opt_state if stateful else None, self.spec,
+                    self.mesh, self._zero, order=self._order,
                 )
-            if stateful:
+            elif stateful:
                 self._opt_state = convert.stacked_opt_state_from_numpy(
                     self._opt, host_opt_state, self.spec, self.device,
                     order=self._order,
                 )
             else:
                 self._opt_state = self._opt.init(self._stacked)
-            self._run_kwargs = dict(clip_norm=clip_norm, kernel_backend=kernel_backend)
+            self._run_kwargs = dict(
+                clip_norm=clip_norm, kernel_backend=kernel_backend, zero=self._zero,
+                grad_bucket_bytes=grad_bucket_bytes,
+            )
             self._epoch_fn = E.make_pipeline_epoch(
                 self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
                 **self._run_kwargs, **aux,
@@ -610,6 +672,18 @@ class TrainingSession:
             ),
             device_name=self._device_name,
         )
+        self._sync_plan = None
+        if grad_bucket_bytes and not self._sequential:
+            # the executor's plan, rebuilt through the same planner
+            self._sync_plan = gradsync.plan_buckets(
+                self.spec, dp, pp, grad_bucket_bytes, zero=self._zero
+            )
+            if self._metrics.enabled:
+                # static telemetry, recorded once: bucket count and sizes
+                self._metrics.event(
+                    "grad_sync_plan", dp=dp, pp=pp, tp=1, zero=self._zero,
+                    **self._sync_plan.describe(),
+                )
         if self._recovery is not None and self._metrics.enabled:
             # one recovery record per resume decision
             self._metrics.recovery(
@@ -937,6 +1011,7 @@ class TrainingSession:
             self._params = params
         else:
             self._stacked = params
+            self._eval_stacked_cache = None
         self._opt_state = opt_state
 
     def _dispatch(self, k0, k1):
@@ -1236,11 +1311,26 @@ class TrainingSession:
                 xb = np.pad(chunk, ((0, rung * S_rows - chunk.shape[0]), (0, 0)))
                 packed = serving_slots.pack_slots(xb.reshape(rung, S_rows, -1), self.dp)
                 out = self._inference_step(rung)(
-                    self._stacked, self._flags, torch.from_numpy(packed).to(self.device)
+                    self._eval_stacked(), self._flags, torch.from_numpy(packed).to(self.device)
                 )
                 preds = serving_slots.unpack_slots(out.cpu().numpy(), rung, self.dp)
             outs.append(preds[: chunk.shape[0], :out_dim])
         return np.concatenate(outs, axis=0)
+
+    def _eval_stacked(self):
+        """The stacked ``{W, b}`` the inference programs read: the session's
+        own on every layout but ZeRO-3, whose params at rest are the
+        block-cyclic shards; there the view is rebuilt on the device (one
+        gather of every rank's shard) and reused until the shards change.
+        Every write to them goes through a method that drops the view:
+        ``_set_state`` (a weight update), ``load_weights``,
+        ``poison_weights`` and ``flip_weights``."""
+        if self._zero != 3:
+            return self._stacked
+        if self._eval_stacked_cache is None:
+            slots, _ = E.zero_block_slots(self.spec, self.pp, self.dp)
+            self._eval_stacked_cache = E._undeal(self._stacked["P"], slots, self.pp, self.dp)
+        return self._eval_stacked_cache
 
     def _inference_step(self, n_slots):
         """The mesh's inference program for a ladder rung of ``n_slots``
@@ -1387,6 +1477,10 @@ class TrainingSession:
         never touch), the JAX pytree layout."""
         if self._sequential:
             return convert.params_to_numpy(self._params)
+        if self._zero == 3:
+            return convert.zero_params_to_numpy(
+                self._stacked, self.spec, self.mesh, order=self._order
+            )
         return convert.stacked_to_numpy(self._stacked, self.spec, order=self._order)
 
     def opt_state_logical(self):
@@ -1395,6 +1489,11 @@ class TrainingSession:
         {key: float}}``; None for a stateless optimizer."""
         if self._sequential:
             return convert.opt_state_to_numpy(self._opt, self._opt_state)
+        if self._zero:
+            return convert.zero_opt_state_to_numpy(
+                self._opt, self._opt_state, self.spec, self.mesh, self._zero,
+                order=self._order,
+            )
         return convert.stacked_opt_state_to_numpy(
             self._opt, self._opt_state, self.spec, order=self._order
         )
@@ -1409,6 +1508,12 @@ class TrainingSession:
         self._check_compatible(loaded_spec, "this session")
         if self._sequential:
             self._params = convert.params_from_numpy(host_params, self.device)
+        elif self._zero == 3:
+            # re-shard into the session's at-rest block-cyclic layout
+            self._stacked = convert.zero_params_from_numpy(
+                host_params, self.spec, self.mesh, order=self._order
+            )[0]
+            self._eval_stacked_cache = None
         else:
             # the session's flags stay: only the weight planes swap
             self._stacked = convert.stacked_from_numpy(
@@ -1424,19 +1529,23 @@ class TrainingSession:
     def assert_replicas_in_sync(self):
         """The dp replica-sync check. The lockstep executor keeps one
         stacked copy for every dp replica, so it holds by construction;
-        ``utils.assert_dp_replicas_in_sync`` checks that layout."""
-        if not self._sequential:
+        ``utils.assert_dp_replicas_in_sync`` checks that layout. ZeRO-3
+        keeps no replicated params to check (each rank owns a disjoint
+        shard at rest), so it skips, as in the JAX session."""
+        if not self._sequential and self._zero != 3:
             utils.assert_dp_replicas_in_sync(self._stacked, self.spec)
 
     def poison_weights(self):
         """Fault-injection hook (``nan@step=N``): NaN into flat element 0 of
         global layer 0's W, in the live tensor the next step reads."""
         F.poison_nan(self._live_params())
+        self._eval_stacked_cache = None
 
     def flip_weights(self):
         """Fault-injection hook (``flip@step=N``): XOR the lowest mantissa
         bit of the element ``poison_weights`` poisons, in place."""
         F.poison_bitflip(self._live_params())
+        self._eval_stacked_cache = None
 
     def _live_params(self):
         """The params tree the next step reads (the tensors themselves)."""

@@ -9,8 +9,11 @@ the optimizer state's logical form (what checkpoints store and
 ``opt_state_logical()`` returns), so a JAX run's state can seed the port's.
 The ``stacked_*`` functions carry the same logical forms to and from the
 pipeline executor's per-slot stacked layout (the JAX package's
-``E.stack_params``/``E.unstack_params``). All of them copy the float32
-values bit for bit.
+``E.stack_params``/``E.unstack_params``), and the ``zero_*`` functions
+to and from its ZeRO layouts (the flat ZeRO-1 state, the block-cyclic
+ZeRO-2/3 state and the ZeRO-3 params at rest), so a JAX session's logical
+state gives the port the same shards, and the reverse. All of them copy
+the float32 values bit for bit.
 """
 
 import numpy as np
@@ -138,3 +141,39 @@ def stacked_opt_state_to_numpy(opt, state, spec, order=None):
         "parts": {k: stacked_to_numpy(v, spec, order=order) for k, v in parts.items()},
         "scalars": {k: float(v) for k, v in scalars.items()},
     }
+
+
+# ---------------------------------------------------------------------------
+# The executor's ZeRO layouts (parallel/executor.py)
+# ---------------------------------------------------------------------------
+
+
+def zero_params_from_numpy(params_list, spec, mesh, order=None):
+    """Per-stage ``[{"W","b"}, ...]`` numpy -> ``(params at rest, flags)``:
+    ZeRO-3's ``{"P": (pp, dp*csz3)}`` block-cyclic shards on the mesh's
+    device (``E.zero_block_flatten_rows``) and the host flags."""
+    stacked_np, flags = E.stack_params(params_list, spec, order=order)
+    return E.zero_params_at_rest(stacked_np, spec, mesh), flags
+
+
+def zero_params_to_numpy(stacked, spec, mesh, order=None):
+    """ZeRO-3 params at rest -> the per-stage ``[{"W","b"}, ...]`` lists."""
+    host = E.zero_block_unflatten_rows(stacked["P"].detach().cpu().numpy(), spec, mesh)
+    return E.unstack_params(host, spec, order=order)
+
+
+def zero_opt_state_from_numpy(opt, logical, spec, mesh, zero, order=None):
+    """The logical optimizer state (None: the initial state) -> the ZeRO
+    ``zero`` state dict on the mesh's device: the flat layout at stage 1,
+    the block-cyclic one at stages 2-3; ``()`` for a stateless optimizer."""
+    if zero == 1:
+        return E.zero1_state_from_logical(logical, opt, spec, mesh, order=order)
+    return E.zero_block_state_from_logical(logical, opt, spec, mesh, order=order)
+
+
+def zero_opt_state_to_numpy(opt, state, spec, mesh, zero, order=None):
+    """A ZeRO ``zero`` state dict -> the logical form (None when
+    stateless)."""
+    if zero == 1:
+        return E.zero1_state_to_logical(state, opt, spec, mesh, order=order)
+    return E.zero_block_state_to_logical(state, opt, spec, mesh, order=order)

@@ -6,7 +6,10 @@
 - ``executor``  the lockstep tick interpreter over zero-padded stacked stage
                 parameters: every virtual rank runs its table cell, payloads
                 move between neighbouring ranks' mailboxes, and the dp
-                gradient sum runs in a fixed order before the optimizer.
+                gradient sum runs in a fixed order before the optimizer;
+                ZeRO stages 1-3 shard the state, gradients and params;
+- ``gradsync``  the bucketed gradient sync: the JAX package's bucket plans
+                and comms contract (one device runs the anchor sum).
 """
 
 from shallowspeed_tpu_torch.parallel.lowering import TickProgram, lower_schedule

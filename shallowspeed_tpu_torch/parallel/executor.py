@@ -72,6 +72,18 @@ The schedule lattice, as the JAX executor runs it:
   ``gelu_grad_mult(z)`` (None where the flag is off), residual adds go
   forward and their skip grads backward, on the ``"xla"`` backend.
 
+ZeRO on the dp axis, as the JAX executor runs it (``zero``; the layouts
+and their host converters are below ``init_stacked``): stage 1 sums the
+replicas' slabs into the padded flat layout and updates each rank's chunk
+with its state shard; stage 2 keeps the state in the block-cyclic per-slot
+layout and, without a bucket plan, sums each tick's slot gradients over the
+replicas into a persistent shard carry instead of full-slab accumulators;
+stage 3 also keeps the params at rest in that layout and rebuilds a chunk's
+slot rows per tick. ``grad_bucket_bytes`` (``parallel/gradsync.py`` plans
+its buckets) runs the unbucketed sum: on one device a bucket has nothing
+to overlap, and the per-bucket sum is the same elementwise adds; at stage 2
+it keeps stage 1's full-slab accumulators, as the JAX bucketed program does.
+
 Masks stay ``torch.bool`` in the stash for the relu family. Stash, grad
 stash and input-stash slots are dropped when the lowering frees them, so a
 tensor lives as long as the TPU program's buffer slot holds it. The JAX
@@ -81,6 +93,7 @@ stages with either of the first two.
 """
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -88,7 +101,13 @@ import torch.nn.functional as F
 
 from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
-from shallowspeed_tpu_torch.optimizer import clip_tree, global_norm
+from shallowspeed_tpu_torch.optimizer import (
+    clip_tree,
+    global_norm,
+    is_stateless,
+    join_state,
+    split_state,
+)
 from shallowspeed_tpu_torch.trainer import row_crcs, stack_epoch_aux
 from shallowspeed_tpu_torch.parallel.lowering import (
     OP_BWD,
@@ -266,6 +285,448 @@ def init_stacked(spec: ModelSpec, mesh, order=None):
 
 
 # ---------------------------------------------------------------------------
+# ZeRO-1: the flat layout (host numpy; the JAX package's helpers at tp = 1)
+# ---------------------------------------------------------------------------
+#
+# ZeRO-1 shards the optimizer update over dp: the replicas' gradients are
+# summed into the padded flat layout, dp rank d updates columns [d*csz,
+# (d+1)*csz) with its state shard, and the updated chunks are gathered back
+# into the stacked params. Flat layout per pp row: every W slot (V, o, i)
+# then every b slot (V, o), flattened and zero-padded to a dp multiple. Each
+# 'params' state part (momentum's velocity, Adam's m and v) is one (pp,
+# dp*csz) tensor — the JAX global array's shape: row s is pp rank s, column
+# block d dp rank d's shard; 'scalar' parts (Adam's t) stay 0-d.
+
+
+def _tp1(tp):
+    if tp != 1:
+        raise NotImplementedError(
+            f"tp={tp}: tensor parallelism is not ported yet; the port's "
+            "executor runs a (dp, pp) mesh (ROADMAP.md §A item 3, tp)"
+        )
+
+
+def stacked_flat_len(spec: ModelSpec, pp: int, tp: int = 1) -> int:
+    """Per-pp-row flattened param count of the stacked layout (every W slot
+    then every b slot, V virtual rows each) — the one definition of the
+    flat layout's size (``executor.stacked_flat_len``)."""
+    _tp1(tp)
+    dims = slot_shapes(spec)
+    V = spec.n_stages // pp
+    return sum(V * o * i for o, i in dims) + sum(V * o for o, _ in dims)
+
+
+def zero1_flat_len(spec: ModelSpec, mesh):
+    """(flat_len, chunk_size): the per-pp-row flattened param count and
+    the padded per-dp-rank chunk size."""
+    flat = stacked_flat_len(spec, mesh.pp)
+    return flat, -(-flat // mesh.dp)
+
+
+def _zero1_device_rows(spec, mesh):
+    """The flat layout's row iteration: ``(row_index, stage_slice)`` per pp
+    rank, its V stacked rows."""
+    V = spec.n_stages // mesh.pp
+    for d in range(mesh.pp):
+        yield d, slice(d * V, (d + 1) * V)
+
+
+def _zero1_flatten_rows(stacked_np, spec, mesh):
+    """Host: stacked ``{W, b}`` (numpy, leading axis S) -> ``(pp,
+    flat_len)``, each row one pp rank's flat view."""
+    rows = [None] * mesh.pp
+    for r, sl in _zero1_device_rows(spec, mesh):
+        parts = [np.ascontiguousarray(np.asarray(w)[sl]).reshape(-1) for w in stacked_np["W"]]
+        parts += [np.ascontiguousarray(np.asarray(b)[sl]).reshape(-1) for b in stacked_np["b"]]
+        rows[r] = np.concatenate(parts)
+    return np.stack(rows)
+
+
+def _zero1_unflatten_rows(arr, spec, mesh):
+    """Host inverse of ``_zero1_flatten_rows``: ``(pp, >= flat_len)`` ->
+    stacked ``{W, b}`` numpy."""
+    dims = slot_shapes(spec)
+    V = spec.n_stages // mesh.pp
+    Ws = [np.zeros((spec.n_stages, o, i), np.float32) for o, i in dims]
+    bs = [np.zeros((spec.n_stages, o), np.float32) for o, _ in dims]
+    for r, sl in _zero1_device_rows(spec, mesh):
+        off = 0
+        for l, (o, i) in enumerate(dims):
+            n = V * o * i
+            Ws[l][sl] = arr[r, off : off + n].reshape(V, o, i)
+            off += n
+        for l, (o, _) in enumerate(dims):
+            n = V * o
+            bs[l][sl] = arr[r, off : off + n].reshape(V, o)
+            off += n
+    return {"W": tuple(Ws), "b": tuple(bs)}
+
+
+def _zero1_check_state(opt, csz):
+    """The flat layout needs each 'params' state part to come out of
+    ``opt.init(chunk)`` as one chunk-shaped zeros tensor and each 'scalar'
+    part 0-d; anything the ``state_layout()`` protocol does not describe is
+    refused in the JAX package's words."""
+    probe = opt.init(torch.zeros((csz,), dtype=torch.float32))
+    parts, scalars = split_state(opt, probe)
+    for key, leaf in parts.items():
+        if not (
+            isinstance(leaf, torch.Tensor)
+            and tuple(leaf.shape) == (csz,)
+            and not bool(torch.any(leaf != 0))
+        ):
+            raise ValueError(
+                f"zero1: state part {key!r} of {type(opt).__name__} is not a "
+                "zeros-initialized chunk mirror — its state_layout() does "
+                "not match its init()"
+            )
+    for key, leaf in scalars.items():
+        if leaf.dim() != 0:
+            raise ValueError(
+                f"zero1: state part {key!r} of {type(opt).__name__} is "
+                "declared 'scalar' but is not 0-d"
+            )
+    return parts, scalars
+
+
+def _zero_state(opt, mesh, width, rows_of=None):
+    """A ZeRO state dict on the mesh's device: one ``(pp, width)`` float32
+    tensor per 'params' part (``rows_of(key)`` gives its host rows, zeros
+    otherwise) and a 0-d tensor per 'scalar' part (``rows_of(key)`` its
+    value, the init's otherwise); ``()`` for a stateless optimizer."""
+    if is_stateless(opt):
+        return ()
+    parts, scalars = _zero1_check_state(opt, width // mesh.dp)
+    state = {}
+    for key in parts:
+        host = np.zeros((mesh.pp, width), np.float32)
+        if rows_of is not None:
+            host[:, : rows_of(key).shape[1]] = rows_of(key)
+        state[key] = torch.from_numpy(host).to(mesh.device)
+    for key, leaf in scalars.items():
+        value = np.float32(rows_of(key) if rows_of is not None else float(leaf))
+        state[key] = torch.tensor(value, dtype=torch.float32, device=mesh.device)
+    return state
+
+
+def zero1_init_state(opt, spec: ModelSpec, mesh):
+    """The initial ZeRO-1 optimizer state: one ``(pp, dp*chunk)`` zeros
+    tensor per 'params' state part, a 0-d tensor per 'scalar' part; ``()``
+    for a stateless optimizer."""
+    _, csz = zero1_flat_len(spec, mesh)
+    return _zero_state(opt, mesh, mesh.dp * csz)
+
+
+def _logical_state(state, opt, spec, mesh, order, unflatten):
+    """A ZeRO state dict -> the logical ``{"parts", "scalars"}`` form
+    (``unflatten``: host rows -> stacked ``{W, b}``); None when stateless."""
+    if isinstance(state, tuple) and state == ():
+        return None
+    parts, scalars = {}, {}
+    for key, kind in opt.state_layout().items():
+        if kind == "params":
+            stacked = unflatten(_host(state[key]))
+            parts[key] = unstack_params(stacked, spec, order=order)
+        else:
+            scalars[key] = float(state[key])
+    return {"parts": parts, "scalars": scalars}
+
+
+def zero1_state_to_logical(state, opt, spec: ModelSpec, mesh, order=None):
+    """ZeRO-1 state dict -> ``{"parts": {key: ragged per-stage list},
+    "scalars": {key: float}}`` mirroring params (the layout-independent
+    checkpoint form); None for stateless state."""
+    flat, _ = zero1_flat_len(spec, mesh)
+    return _logical_state(
+        state, opt, spec, mesh, order,
+        lambda a: _zero1_unflatten_rows(a[:, :flat], spec, mesh),
+    )
+
+
+def _zero1_state_rows(logical_part, spec, mesh, order):
+    """Stack one logical state part and flatten it into the flat rows."""
+    stacked, _ = stack_params(logical_part, spec, order=order)
+    return _zero1_flatten_rows(stacked, spec, mesh)
+
+
+def zero1_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=None):
+    """Inverse of ``zero1_state_to_logical``: the logical form -> the ZeRO-1
+    state dict on the mesh's device (None -> the initial state)."""
+    if logical is None:
+        return zero1_init_state(opt, spec, mesh)
+    _, csz = zero1_flat_len(spec, mesh)
+
+    def rows_of(key):
+        if key in logical["parts"]:
+            return _zero1_state_rows(logical["parts"][key], spec, mesh, order)
+        return logical["scalars"][key]
+
+    return _zero_state(opt, mesh, mesh.dp * csz, rows_of)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-2/3: the block-cyclic per-slot shard layout over dp (host numpy)
+# ---------------------------------------------------------------------------
+#
+# The higher stages make the shard layout PER LAYER SLOT instead of per flat
+# vector: every slot (V rows of sz elements; W slots then b slots, the flat
+# layout's order) pads each row to dp*k columns (k = ceil(sz/dp)) and deals
+# column block d to dp rank d. Rank d's shard is the concatenation over
+# slots of its (V, k) blocks, v-major: csz3 = sum over slots of V*k. One
+# row's gradient then lands in ONE (k,) segment of every rank's shard, which
+# is what lets the sync run per tick.
+#
+# ZeRO-2: params replicated (the stacked {W, b}), gradients reduce-scattered
+# into this layout, optimizer state sharded in it. The anchor program sums
+# each tick's slot gradients over the replicas and adds them into a
+# persistent shard carry (microbatch-outer: bitwise ZeRO-1 only at
+# mubatches = 1); a bucketed run keeps the replicas' full-slab accumulators
+# and scatters their sum at the tail (bitwise ZeRO-1 at any microbatch
+# count). ZeRO-3: params AT REST in this layout ({"P": (pp, dp*csz3)}); each
+# tick rebuilds the active chunk's slot rows from the shard, uses them and
+# drops them; its sync is the anchor ZeRO-2 tree, so it is bitwise it.
+
+
+class ZeroSlot(NamedTuple):
+    """One layer slot's geometry in the block-cyclic dp-shard layout."""
+
+    kind: str  # "W" | "b"
+    layer: int  # slot index within its kind
+    rows: int  # V virtual chunk rows
+    shape: tuple  # per-row shape: (o, i) for W, (o,) for b
+    sz: int  # elements per row = prod(shape)
+    k: int  # per-dp-rank columns = ceil(sz / dp)
+    off: int  # start within a rank's csz3 block (cumulative V*k)
+    flat_off: int  # start within the flat layout (cumulative V*sz)
+
+
+def zero_block_slots(spec: ModelSpec, pp: int, dp: int, tp: int = 1):
+    """(slots, csz3): the per-slot block-cyclic geometry and the per-rank
+    shard length; slot order is the flat layout's, so ``flat_off`` walks
+    ``stacked_flat_len`` exactly."""
+    _tp1(tp)
+    dims = slot_shapes(spec)
+    V = spec.n_stages // pp
+    slots = []
+    off = flat_off = 0
+    for kind, shapes in (("W", dims), ("b", [(o,) for o, _ in dims])):
+        for l, shape in enumerate(shapes):
+            sz = int(np.prod(shape))
+            k = -(-sz // dp)
+            slots.append(ZeroSlot(kind, l, V, tuple(shape), sz, k, off, flat_off))
+            off += V * k
+            flat_off += V * sz
+    return tuple(slots), off
+
+
+def zero_block_len(spec: ModelSpec, mesh):
+    """(flat_len, csz3): the flat per-pp-row param count and the
+    block-cyclic per-dp-rank shard length."""
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    return slots[-1].flat_off + slots[-1].rows * slots[-1].sz, csz3
+
+
+def _zb_scatter_rows(g2d, dp, k):
+    """(V, sz) slot rows -> the (dp, V*k) per-rank column-block deal: pad
+    each row to dp*k, deal column block d to output row d."""
+    V, sz = g2d.shape
+    pad = np.pad(g2d, ((0, 0), (0, dp * k - sz)))
+    return pad.reshape(V, dp, k).transpose(1, 0, 2).reshape(dp, V * k)
+
+
+def _zb_unscatter_rows(mat, V, k, sz):
+    """(dp, V*k) -> (V, sz): the inverse of ``_zb_scatter_rows``."""
+    dp = mat.shape[0]
+    return mat.reshape(dp, V, k).transpose(1, 0, 2).reshape(V, dp * k)[:, :sz]
+
+
+def _zero_block_rows_from_flat(flat_rows, slots, dp, csz3):
+    """Host: flat rows (n_rows, >= flat_len) -> block-cyclic rows (n_rows,
+    dp*csz3); columns [d*csz3, (d+1)*csz3) are rank d's shard."""
+    n_rows = flat_rows.shape[0]
+    out = np.zeros((n_rows, dp * csz3), np.float32)
+    for s in slots:
+        seg = flat_rows[:, s.flat_off : s.flat_off + s.rows * s.sz]
+        for r in range(n_rows):
+            mat = _zb_scatter_rows(np.asarray(seg[r], np.float32).reshape(s.rows, s.sz), dp, s.k)
+            for d in range(dp):
+                a = d * csz3 + s.off
+                out[r, a : a + s.rows * s.k] = mat[d]
+    return out
+
+
+def _zero_flat_from_block_rows(block_rows, slots, dp, csz3, flat):
+    """Host inverse of ``_zero_block_rows_from_flat``."""
+    n_rows = block_rows.shape[0]
+    out = np.zeros((n_rows, flat), np.float32)
+    for s in slots:
+        for r in range(n_rows):
+            mat = np.stack(
+                [block_rows[r, d * csz3 + s.off : d * csz3 + s.off + s.rows * s.k] for d in range(dp)]
+            )
+            full = _zb_unscatter_rows(mat, s.rows, s.k, s.sz)
+            out[r, s.flat_off : s.flat_off + s.rows * s.sz] = full.reshape(-1)
+    return out
+
+
+def zero_block_flatten_rows(stacked_np, spec, mesh):
+    """Host: stacked ``{W, b}`` (numpy) -> ``(pp, dp*csz3)`` block-cyclic
+    rows, the ZeRO-3 at-rest param layout."""
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    return _zero_block_rows_from_flat(
+        _zero1_flatten_rows(stacked_np, spec, mesh), slots, mesh.dp, csz3
+    )
+
+
+def zero_block_unflatten_rows(arr, spec, mesh):
+    """Host inverse: ``(pp, dp*csz3)`` -> stacked ``{W, b}`` numpy."""
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    flat = stacked_flat_len(spec, mesh.pp)
+    return _zero1_unflatten_rows(
+        _zero_flat_from_block_rows(np.asarray(arr, np.float32), slots, mesh.dp, csz3, flat),
+        spec, mesh,
+    )
+
+
+def zero_block_init_state(opt, spec: ModelSpec, mesh):
+    """The initial ZeRO-2/3 optimizer state: ``zero1_init_state`` with the
+    block-cyclic ``dp*csz3`` columns."""
+    _, csz3 = zero_block_len(spec, mesh)
+    return _zero_state(opt, mesh, mesh.dp * csz3)
+
+
+def zero_block_state_to_logical(state, opt, spec: ModelSpec, mesh, order=None):
+    """ZeRO-2/3 state dict -> the logical ``{"parts", "scalars"}`` form;
+    None for stateless state."""
+    return _logical_state(
+        state, opt, spec, mesh, order, lambda a: zero_block_unflatten_rows(a, spec, mesh)
+    )
+
+
+def zero_block_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=None):
+    """Inverse: the logical form -> the ZeRO-2/3 state dict on the mesh's
+    device (None -> the initial state)."""
+    if logical is None:
+        return zero_block_init_state(opt, spec, mesh)
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+
+    def rows_of(key):
+        if key in logical["parts"]:
+            rows = _zero1_state_rows(logical["parts"][key], spec, mesh, order)
+            return _zero_block_rows_from_flat(rows, slots, mesh.dp, csz3)
+        return logical["scalars"][key]
+
+    return _zero_state(opt, mesh, mesh.dp * csz3, rows_of)
+
+
+def zero_params_at_rest(stacked_np, spec, mesh):
+    """The ZeRO-3 params at rest on the mesh's device: ``{"P": (pp,
+    dp*csz3)}`` from a host stacked ``{W, b}`` tree."""
+    rows = zero_block_flatten_rows(stacked_np, spec, mesh)
+    return {"P": torch.from_numpy(rows).to(mesh.device)}
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO data movers on the device (every rank's shard at once)
+# ---------------------------------------------------------------------------
+
+
+def _flat_rows(tree, P, width):
+    """A stacked ``{W, b}`` tree -> its ``(pp, width)`` flat rows on the
+    device (every W slot then every b slot per pp row, zero-padded)."""
+    vec = torch.cat([w.reshape(P, -1) for w in tree["W"]] + [b.reshape(P, -1) for b in tree["b"]], dim=1)
+    return _fit(vec, width)
+
+
+def _unflat_rows(vec, like):
+    """Flat rows -> new stacked tensors shaped as ``like``'s leaves."""
+    P, out, off = vec.shape[0], {}, 0
+    for key in ("W", "b"):
+        leaves = []
+        for a in like[key]:
+            n = a.numel() // P
+            leaves.append(vec[:, off : off + n].reshape(a.shape))
+            off += n
+        out[key] = tuple(leaves)
+    return out
+
+
+def _unflat_rows_into(vec, tree):
+    """The all-gather of ZeRO-1: flat rows copied back into ``tree``'s
+    stacked tensors, in place."""
+    P, off = vec.shape[0], 0
+    for key in ("W", "b"):
+        for a in tree[key]:
+            n = a.numel() // P
+            a.view(P, n).copy_(vec[:, off : off + n])
+            off += n
+
+
+def _deal(tree, slots, P, dp):
+    """A stacked ``{W, b}`` tree -> its block-cyclic ``(pp, dp*csz3)`` rows:
+    per slot, each row padded to dp*k and its column block d dealt to rank
+    d (column block d of the result is rank d's shard). Each slot is copied
+    straight into its strided place: the only full-size tensor made is the
+    result."""
+    leaves = list(tree["W"]) + list(tree["b"])
+    csz3 = slots[-1].off + slots[-1].rows * slots[-1].k
+    out = torch.empty((P, dp, csz3), dtype=leaves[0].dtype, device=leaves[0].device)
+    for s, a in zip(slots, leaves):
+        rows = _fit(a.reshape(P, s.rows, s.sz), dp * s.k)
+        dst = out[:, :, s.off : s.off + s.rows * s.k].view(P, dp, s.rows, s.k)
+        dst.copy_(rows.view(P, s.rows, dp, s.k).transpose(1, 2))
+    return out.view(P, -1)
+
+
+def _undeal_slot(rows, s, P, dp):
+    """One slot's ``(pp, V, sz)`` values out of block-cyclic rows (a
+    strided view of a fresh gather)."""
+    seg = rows.view(P, dp, -1)[:, :, s.off : s.off + s.rows * s.k]
+    full = seg.reshape(P, dp, s.rows, s.k).transpose(1, 2).reshape(P, s.rows, dp * s.k)
+    return full[:, :, : s.sz]
+
+
+def _undeal(rows, slots, P, dp):
+    """Block-cyclic rows -> a new stacked ``{W, b}`` tree (the ZeRO-3 eval
+    view)."""
+    out = {"W": [], "b": []}
+    for s in slots:
+        out[s.kind].append(_undeal_slot(rows, s, P, dp).reshape((P * s.rows,) + s.shape))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _undeal_into(rows, slots, tree, P, dp):
+    """The all-gather of ZeRO-2: block-cyclic rows copied back into
+    ``tree``'s stacked tensors, in place."""
+    for s, a in zip(slots, list(tree["W"]) + list(tree["b"])):
+        a.view(P, s.rows, s.sz).copy_(_undeal_slot(rows, s, P, dp))
+
+
+def _gather_chunk(pv, slots, s, ck, L):
+    """ZeRO-3's per-tick gather: pp rank ``s``'s chunk ``ck`` slot rows
+    rebuilt from every dp rank's shard (``pv``: the ``(pp, dp, csz3)``
+    view), once for all replicas; returns ``(Ws, bs)``."""
+    out = []
+    for sl in slots:
+        a = sl.off + ck * sl.k
+        full = pv[s, :, a : a + sl.k].reshape(-1)
+        out.append(full[: sl.sz].view(sl.shape))
+    return out[:L], out[L:]
+
+
+def _scatter_tick(gzv, slots, L, s, ck, dp, pending):
+    """The per-tick reduce-scatter of ZeRO-2 (anchor) and ZeRO-3: each
+    slot's gradient of this tick, already summed over the replicas in
+    replica order (``pending``: slot -> (dW, db)), padded to dp*k and added
+    into every rank's segment of the shard carry (``gzv``: the ``(pp, dp,
+    csz3)`` view)."""
+    for l, grads in pending.items():
+        for sl, g in zip((slots[l], slots[L + l]), grads):
+            a = sl.off + ck * sl.k
+            gzv[s, :, a : a + sl.k].add_(_fit(g.reshape(-1), dp * sl.k).view(dp, sl.k))
+
+
+# ---------------------------------------------------------------------------
 # The slot units
 # ---------------------------------------------------------------------------
 
@@ -324,12 +785,13 @@ def _stage_fwd(Ws, bs, active, relu, residual, dims, x, kernel_backend, act):
     return x, xs, masks
 
 
-def _stage_bwd(Ws, active, relu, residual, dims, xs, masks, g, kernel_backend, gW, gb):
-    """Backward of one stage through the per-slot stacks: accumulates each
-    active slot's dW/db into ``gW[l]``/``gb[l]`` (the row's slots of the
-    replica's accumulators, in place) and returns the input gradient. A
-    residual at slot ``l + 1`` adds its incoming grad to slot ``l``'s dx
-    (its input fed both the Linear and the skip)."""
+def _stage_bwd(Ws, active, relu, residual, dims, xs, masks, g, kernel_backend, sink):
+    """Backward of one stage through the per-slot stacks: hands each active
+    slot's ``(l, dW, db)`` to ``sink`` (which accumulates it into the
+    replica's gradient slabs, or holds it for the tick's shard scatter) and
+    returns the input gradient. A residual at slot ``l + 1`` adds its
+    incoming grad to slot ``l``'s dx (its input fed both the Linear and the
+    skip)."""
     bwd = (
         cuda_ops.linear_flag_bwd if kernel_backend == "pallas"
         else cuda_ops.linear_flag_bwd_reference
@@ -343,8 +805,7 @@ def _stage_bwd(Ws, active, relu, residual, dims, xs, masks, g, kernel_backend, g
             g = _fit(g_l, i)
         else:
             g, dw, db2 = bwd(g_l, masks[l], xs[l], Ws[l], relu[l])
-            gW[l].add_(dw)
-            gb[l].add_(db2.reshape(-1))
+            sink(l, dw, db2)
             if l + 1 < L and residual[l + 1]:
                 g = g + _fit(g_prev, i)
         g_prev = g_l
@@ -382,16 +843,15 @@ def _stage_bwd_input(Ws, active, relu, residual, dims, masks, g):
     return g, g_effs
 
 
-def _stage_bwd_weight(active, xs, g_effs, gW, gb):
+def _stage_bwd_weight(active, xs, g_effs, sink):
     """The deferred half of the split backward (``executor.
     _stage_bwd_weight``): each active slot's ``(dW, db)`` from the stashed
     input and effective output-grad (``ops.linear_grad_weight``, the plain
-    unsplit backward's calls), accumulated in place."""
+    unsplit backward's calls), handed to ``sink`` as ``_stage_bwd`` does."""
     for l, on in enumerate(active):
         if on:
             dw, db = ops.linear_grad_weight(g_effs[l], xs[l])
-            gW[l].add_(dw)
-            gb[l].add_(db)
+            sink(l, dw, db)
 
 
 # ---------------------------------------------------------------------------
@@ -469,11 +929,55 @@ def _digest_grids(new_stacked, grads):
     }
 
 
+def _resolve_zero(zero, zero1):
+    """The dp stage from ``zero`` and its stage-1 alias ``zero1``, with the
+    JAX session's refusals: the one place the alias is resolved (the session
+    calls it; the executor and the planners take the stage)."""
+    if zero is None:
+        return 1 if zero1 else 0
+    zero = int(zero)
+    if zero not in (0, 1, 2, 3):
+        raise ValueError(f"zero must be one of 0/1/2/3, got {zero}")
+    if zero1 and zero != 1:
+        raise ValueError(
+            f"conflicting dp-stage selectors: zero1=True but zero={zero} "
+            "— pass only --zero"
+        )
+    return zero
+
+
+def _device_of(stacked):
+    return stacked["P"].device if "P" in stacked else stacked["W"][0].device
+
+
+def _apply_sharded(opt, params, grads, opt_state, P, dp):
+    """The ZeRO update: ``opt.apply`` on each ``(s, d)`` rank's chunk with
+    its state shard (``params``/``grads`` and each 'params' state part are
+    ``(pp, dp*chunk)`` rows; a chunk is a view, updated in place). Every
+    rank reads the same 'scalar' parts (Adam's t) and writes the same new
+    values back, as the JAX package's replicated scalars. Returns the new
+    state (``()`` stays ``()``)."""
+    layout = opt.state_layout()
+    pv, gv = params.view(P, dp, -1), grads.view(P, dp, -1)
+    parts = {k: opt_state[k].view(P, dp, -1) for k, kd in layout.items() if kd == "params"}
+    scalars = {k: opt_state[k] for k, kd in layout.items() if kd == "scalar"}
+    new_scalars = scalars
+    for s in range(P):
+        for d in range(dp):
+            state = join_state(opt, {k: v[s, d] for k, v in parts.items()}, dict(scalars))
+            _, state = opt.apply(pv[s, d], gv[s, d], state)
+            new_scalars = split_state(opt, state)[1]
+    if not layout:
+        return opt_state
+    return {**{k: opt_state[k] for k in parts}, **new_scalars}
+
+
 def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                        clip_norm=None, kernel_backend="xla", with_grad_norm=False,
-                       with_step_stats=False, with_digests=False):
+                       with_step_stats=False, with_digests=False, zero=0,
+                       grad_bucket_bytes=0):
     """The step executing one ``TickProgram`` over the virtual mesh
-    (``executor.make_pipeline_step`` at tp = 1, zero = 0, no buckets).
+    (``executor.make_pipeline_step`` at tp = 1).
 
     Training (``prog.is_training``, ``opt`` required):
         ``step(stacked, flags, opt_state, x, y) -> (stacked, opt_state, loss)``
@@ -490,12 +994,50 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     ``kernel_backend``: ``"xla"`` (plain torch) or ``"pallas"`` (the flag
     kernels).
 
+    ``zero``: the dp-axis ZeRO stage (0-3), the JAX package's tails on the
+    virtual mesh. 0: the replicas' full-slab
+    accumulators summed by ``dp_sum``. 1: the same accumulators flattened
+    per pp row into the padded flat layout, summed over the replicas in
+    replica order, each rank's chunk updated with its state shard
+    (``zero1_init_state`` layout) and gathered back. 2: the state in the
+    block-cyclic layout (``zero_block_init_state``); without a bucket plan
+    each backward tick sums its slot gradients over the replicas and adds
+    them into a persistent ``(pp, dp*csz3)`` shard carry (no full-slab
+    accumulators); bucketed, the zero-1 accumulators are summed at the tail
+    and dealt into the shard. 3: stage 2's per-tick sync with
+    ``stacked`` at rest as ``{"P": (pp, dp*csz3)}``, each tick rebuilding
+    the active chunk's slot rows from it (plain backend only).
+    ``grad_bucket_bytes`` > 0: the bucketed sync. On the virtual mesh it is
+    the unbucketed replica-order sum (a bucket has no communication to
+    overlap; ``gradsync`` keeps the plans), so it is bitwise the anchor at
+    stages 0 and 1; at stage 2 it selects the full-slab tail, bitwise
+    stage 1.
+
     Telemetry aux (training only), the JAX executor's outputs:
     ``with_grad_norm`` appends the pre-clip global gradient norm of the
-    post-sync tree; ``with_step_stats`` (implies it) then the post-update
-    global parameter norm (padded entries are exactly zero, so the stacked
-    norms are the logical ones); ``with_digests`` appends the
-    ``_digest_grids`` dict last. All stay on the device."""
+    post-sync gradient (over the shards at zero >= 1); ``with_step_stats``
+    (implies it) then the post-update global parameter norm (padded
+    entries are exactly zero, so the stacked norms are the logical ones);
+    ``with_digests`` (zero <= 1) appends the ``_digest_grids`` dict last.
+    All stay on the device."""
+    if kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(f"unknown kernel_backend {kernel_backend!r}")
+    zero = int(zero)
+    if zero not in (0, 1, 2, 3):
+        raise ValueError(f"zero must be one of 0/1/2/3, got {zero}")
+    zero1 = zero == 1
+    if zero == 3 and kernel_backend == "pallas":
+        raise ValueError(
+            "zero=3 all-gathers parameter segments inside every tick "
+            "branch; the fused pallas flag kernels take whole resident "
+            "slots — use kernel_backend='xla' with --zero 3"
+        )
+    if zero == 3 and grad_bucket_bytes:
+        raise ValueError(
+            "zero=3 syncs gradients per tick (one reduce-scatter per layer "
+            "slot inside the scan); the grad_bucket_bytes knob shapes the "
+            "tail sync only and has nothing to bucket at stage 3"
+        )
     _check_program(mesh, spec, prog, kernel_backend)
     training = prog.is_training
     if training and opt is None:
@@ -507,12 +1049,35 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         )
     if with_step_stats:
         with_grad_norm = True  # step stats carry the grad norm per step
+    P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
+    if zero >= 2 and with_digests:
+        raise ValueError(
+            "with_digests reads the zero1 flat-chunk segment map; the "
+            "block-cyclic shard layout of zero>=2 has no flat chunk — "
+            "run digests at --zero 1 or below"
+        )
+    if zero >= 1:
+        if not training:
+            if zero1:
+                raise ValueError("zero1 applies to training programs only")
+            raise ValueError(f"zero={zero} applies to training programs only")
+        # a rank's chunk: of the flat layout (stage 1) or its block-cyclic
+        # shard (stages 2-3)
+        if zero1:
+            _, csz = zero1_flat_len(spec, mesh)
+        else:
+            zb_slots, csz = zero_block_slots(spec, P, dp)
+        if not is_stateless(opt):
+            _zero1_check_state(opt, csz)
+    # anchor ZeRO-2 and ZeRO-3 sum each tick's gradients into the persistent
+    # per-rank shard carry; every other program keeps the replicas' slabs
+    shard_grads = zero == 3 or (zero == 2 and not grad_bucket_bytes)
     act = spec.act
     split_bwd, rec = bool(prog.backward_split), bool(prog.recompute)
     dims = slot_shapes(spec)
+    L = len(dims)
     D_in, D_out = dims[0][1], dims[-1][0]
     W_rel = relay_width(spec)
-    P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
     M, mb_sz = prog.num_micro_batches, mubatch_size
     Kf, Kb, Ks = prog.n_fwd_slots, prog.n_bwd_slots, prog.n_stash_slots
     Kg, Kx = prog.n_gstash_slots, prog.n_xin_slots
@@ -540,13 +1105,23 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
     def run_ticks(stacked, flags, X, Y, dev):
         """Every tick of the program on every rank. Returns the replicas'
-        gradient accumulators and loss tallies (training) or predictions."""
+        gradient accumulators (or the shard carry) and loss tallies
+        (training) or predictions."""
         active = np.asarray(flags["active"]).tolist()
         relu = np.asarray(flags["relu"]).tolist()
         residual = np.asarray(flags["residual"]).tolist()
         hm = head_mask_rows(flags, dev)
-        Ws = [[w[r] for w in stacked["W"]] for r in range(P * V)]
-        bs = [[b[r] for b in stacked["b"]] for r in range(P * V)]
+        if zero == 3:
+            pv = stacked["P"].view(P, dp, csz)
+
+            def chunk_weights(s, ck):
+                return _gather_chunk(pv, zb_slots, s, ck, L)
+        else:
+            Ws = [[w[r] for w in stacked["W"]] for r in range(P * V)]
+            bs = [[b[r] for b in stacked["b"]] for r in range(P * V)]
+
+            def chunk_weights(s, ck):
+                return Ws[s * V + ck], bs[s * V + ck]
         fwd_mail = [[[None] * (Kf + 1) for _ in range(P)] for _ in range(dp)]
         bwd_mail = [[[None] * (Kb + 1) for _ in range(P)] for _ in range(dp)]
         if training:
@@ -556,18 +1131,36 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             stash = [[[None] * (Ks + 1) for _ in range(P)] for _ in range(dp)]
             gstash = [[[None] * (Kg + 1) for _ in range(P)] for _ in range(dp)]
             xin = [[[None] * (Kx + 1) for _ in range(P)] for _ in range(dp)]
-            acc = [
-                {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
-                for _ in range(dp)
-            ]
+            if shard_grads:
+                gz = torch.zeros((P, dp * csz), dtype=torch.float32, device=dev)
+                gzv = gz.view(P, dp, csz)
+            else:
+                acc = [
+                    {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
+                    for _ in range(dp)
+                ]
             loss = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(dp)]
         else:
             preds = [[None] * (M + 1) for _ in range(dp)]
 
-        def fwd(r, x_in):
-            return _stage_fwd(
-                Ws[r], bs[r], active[r], relu[r], residual[r], dims, x_in, kernel_backend, act
-            )
+        def grad_sink(d, r, pending):
+            """Where replica ``d``'s slot gradients of row ``r`` go: into
+            its slabs, or into the tick's running sum over the replicas
+            (replica order: ((g_0 + g_1) + g_2) ...) for the shard scatter."""
+            if shard_grads:
+                def sink(l, dw, db):
+                    db = db.reshape(-1)
+                    if l in pending:
+                        dw, db = pending[l][0] + dw, pending[l][1] + db
+                    pending[l] = (dw, db)
+            else:
+                gW = [w[r] for w in acc[d]["W"]]
+                gb = [b[r] for b in acc[d]["b"]]
+
+                def sink(l, dw, db):
+                    gW[l].add_(dw)
+                    gb[l].add_(db.reshape(-1))
+            return sink
 
         def head_or_mail(d, s, t, r, z, mb_r):
             if tab["ih"][t][s] == 1:
@@ -582,16 +1175,30 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     continue
                 mb_i = mbt[s]
                 mb_r = min(mb_i, M - 1)
-                r = s * V + tab["ck"][t][s]  # the active chunk's stacked row
+                ck = tab["ck"][t][s]
+                r = s * V + ck  # the active chunk's stacked row
                 is_head = tab["ih"][t][s] == 1
                 load_in = tab["li"][t][s] == 1
+                # the chunk's weights, once for every replica (at zero 3 a
+                # gather from the shards, dropped after the tick); the
+                # split B-weight reads none
+                if op[s] != OP_BWD_W:
+                    W_r, b_r = chunk_weights(s, ck)
+                pending = {}  # slot -> the replicas' summed gradients (shard sync)
+
+                def fwd(x_in):
+                    return _stage_fwd(
+                        W_r, b_r, active[r], relu[r], residual[r], dims, x_in,
+                        kernel_backend, act,
+                    )
+
                 for d in range(dp):
                     if op[s] == OP_FWD:
                         if load_in:
                             x_in = X[d, mb_r]
                         else:
                             x_in = _fit(fwd_mail[d][s][tab["rf"][t][s]], D_in)
-                        out, xs_l, masks_l = fwd(r, x_in)
+                        out, xs_l, masks_l = fwd(x_in)
                         if training:
                             if rec:
                                 # park the stage input only (global stage 0
@@ -613,14 +1220,14 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         xr = tab["xr"][t][s]
                         x_in = X[d, mb_r] if load_in else _fit(xin[d][s][xr], D_in)
                         xin[d][s][xr] = None
-                        out, xs_l, masks_l = fwd(r, x_in)
+                        out, xs_l, masks_l = fwd(x_in)
                         stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
                     elif op[s] == OP_BWD:
                         if split_bwd:
                             # B-input: peek the stash (the B-weight frees it)
                             _, masks_r, z_r = stash[d][s][tab["sp"][t][s]]
                             dx, g_effs = _stage_bwd_input(
-                                Ws[r], active[r], relu[r], residual[r], dims, masks_r,
+                                W_r, active[r], relu[r], residual[r], dims, masks_r,
                                 head_or_mail(d, s, t, r, z_r, mb_r),
                             )
                             gstash[d][s][tab["gw"][t][s]] = g_effs
@@ -629,9 +1236,9 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                             xs_r, masks_r, z_r = stash[d][s][sr]
                             stash[d][s][sr] = None
                             dx = _stage_bwd(
-                                Ws[r], active[r], relu[r], residual[r], dims, xs_r, masks_r,
+                                W_r, active[r], relu[r], residual[r], dims, xs_r, masks_r,
                                 head_or_mail(d, s, t, r, z_r, mb_r), kernel_backend,
-                                [w[r] for w in acc[d]["W"]], [b[r] for b in acc[d]["b"]],
+                                grad_sink(d, r, pending),
                             )
                         if tab["sb"][t][s] == 1:
                             n = (s - 1) % P
@@ -640,15 +1247,17 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         sr, gr = tab["sr"][t][s], tab["gr"][t][s]
                         _stage_bwd_weight(
                             active[r], stash[d][s][sr][0], gstash[d][s][gr],
-                            [w[r] for w in acc[d]["W"]], [b[r] for b in acc[d]["b"]],
+                            grad_sink(d, r, pending),
                         )
                         stash[d][s][sr] = gstash[d][s][gr] = None
                     else:
                         raise ValueError(f"tick {t} stage {s}: op code {op[s]} not ported")
+                if pending:
+                    _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending)
             for mailbox, slot, payload in sends:
                 relay(mailbox, slot, payload)
         if training:
-            return acc, loss
+            return (gz if shard_grads else acc), loss
         return preds
 
     def split(a, width):
@@ -660,26 +1269,74 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             )
         return _fit(a, width).reshape(dp, M, mb_sz, width)
 
+    def sharded_tail(stacked, opt_state, gsh):
+        """ZeRO-1/2/3 after the sync: the norms over the shards, the clip,
+        every rank's chunk update and the gather back. Returns (stacked,
+        opt_state, gnorm or None)."""
+        gnorm = None
+        if with_grad_norm:
+            # the shards partition the dp-summed gradient; padding is zero
+            gnorm = torch.sqrt(torch.sum(gsh * gsh))
+        if clip_norm is not None:
+            gsh = clip_tree(gsh, clip_norm)
+        if zero == 3:
+            pch = stacked["P"]
+        elif zero1:
+            pch = _flat_rows(stacked, P, dp * csz)
+        else:
+            pch = _deal(stacked, zb_slots, P, dp)
+        opt_state = _apply_sharded(opt, pch, gsh, opt_state, P, dp)
+        if zero1:
+            _unflat_rows_into(pch, stacked)
+        elif zero == 2:
+            _undeal_into(pch, zb_slots, stacked, P, dp)
+        return stacked, opt_state, gnorm
+
     if training:
 
         def step(stacked, flags, opt_state, x, y):
-            dev = stacked["W"][0].device
+            dev = _device_of(stacked)
             acc, losses = run_ticks(stacked, flags, split(x, D_in), split(y, D_out), dev)
             # loss: the dp sum of the head stage's tallies (psum over dp; the
             # pmax over pp picks the head stage, the only one that tallied)
             loss = functools.reduce(torch.add, losses)
-            grads = dp_sum(acc)
-            raw = grads
-            if with_grad_norm:
-                gnorm = global_norm(grads)
-            if clip_norm is not None:
-                grads = clip_tree(grads, clip_norm)
-            stacked, opt_state = opt.apply(stacked, grads, opt_state)
+            raw = None
+            if zero == 0:
+                grads = dp_sum(acc)
+                del acc
+                raw = grads
+                gnorm = global_norm(grads) if with_grad_norm else None
+                if clip_norm is not None:
+                    grads = clip_tree(grads, clip_norm)
+                stacked, opt_state = opt.apply(stacked, grads, opt_state)
+            else:
+                if shard_grads:
+                    gsh = acc
+                elif zero1:
+                    # each replica's slabs flattened per pp row, then summed
+                    # in replica order
+                    gvecs = [_flat_rows(acc.pop(0), P, dp * csz) for _ in range(dp)]
+                    gsh = functools.reduce(torch.add, gvecs)
+                    del gvecs
+                    if with_digests:
+                        raw = _unflat_rows(gsh, stacked)
+                else:
+                    # bucketed zero 2: the slabs dealt into the block-cyclic
+                    # layout, summed in replica order
+                    deals = [_deal(acc.pop(0), zb_slots, P, dp) for _ in range(dp)]
+                    gsh = functools.reduce(torch.add, deals)
+                    del deals
+                stacked, opt_state, gnorm = sharded_tail(stacked, opt_state, gsh)
+                del gsh
             outs = (stacked, opt_state, loss)
             if with_grad_norm:
                 outs += (gnorm,)
             if with_step_stats:
-                outs += (global_norm(stacked),)
+                if zero == 3:
+                    pch = stacked["P"]
+                    outs += (torch.sqrt(torch.sum(pch * pch)),)
+                else:
+                    outs += (global_norm(stacked),)
             if with_digests:
                 outs += (_digest_grids(stacked, raw),)
             return outs
@@ -687,7 +1344,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         return step
 
     def infer(stacked, flags, x):
-        dev = stacked["W"][0].device
+        dev = _device_of(stacked)
         preds = run_ticks(stacked, flags, split(x, D_in), None, dev)
         return torch.cat([p for rep in preds for p in rep[:M]], dim=0)
 
@@ -696,7 +1353,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
 def make_pipeline_epoch(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
                         kernel_backend="xla", with_grad_norm=False,
-                        with_step_stats=False, with_digests=False):
+                        with_step_stats=False, with_digests=False, zero=0,
+                        grad_bucket_bytes=0):
     """The pipeline train step over every batch of an epoch
     (``executor.make_pipeline_epoch``): ``epoch(stacked, flags, opt_state,
     X, Y) -> (stacked, opt_state, mean_loss)`` over ``X``: ``(num_batches,
@@ -705,11 +1363,14 @@ def make_pipeline_epoch(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
     order). ``with_grad_norm``/``with_step_stats``/``with_digests`` add the
     sequential trainer's aux dict as a fourth output (``trainer.
     _make_epoch_core``), the digests as ``(num_batches, S, L)`` grids in
-    stacked-row order."""
+    stacked-row order. ``zero``/``grad_bucket_bytes``: the dp
+    stage and the sync (``make_pipeline_step``; at stage 3 ``stacked`` is
+    the ``{"P"}`` shard layout throughout)."""
     step = make_pipeline_step(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,
         kernel_backend=kernel_backend, with_grad_norm=with_grad_norm,
         with_step_stats=with_step_stats, with_digests=with_digests,
+        zero=zero, grad_bucket_bytes=grad_bucket_bytes,
     )
     track_gn = with_grad_norm or with_step_stats
 
@@ -744,7 +1405,7 @@ def make_pipeline_epoch(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
 
 def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
                       eval_prog=None, eval_mubatch_size=None, kernel_backend="xla",
-                      with_grad_norm=False):
+                      with_grad_norm=False, zero=0, grad_bucket_bytes=0):
     """Epochs of the pipeline epoch (``executor.make_pipeline_run``).
 
     Without eval: ``run(stacked, flags, opt_state, X, Y, n_epochs) ->
@@ -755,10 +1416,18 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
     vy_labels, n_epochs) -> (stacked, opt_state, losses, accs)``, each epoch
     followed by the whole split's argmax accuracy. ``with_grad_norm``
     appends ``{"grad_norm": (n_epochs,)}``, each epoch's mean pre-clip
-    global gradient norm."""
+    global gradient norm. ZeRO stages 0-2 and the bucketed sync as
+    ``make_pipeline_epoch``; stage 3 is refused, as in the JAX package."""
+    if zero == 3:
+        raise ValueError(
+            "the fused multi-epoch run cannot shard params at rest: its "
+            "eval step consumes the full stacked layout every epoch — "
+            "use --zero 3 without --fused-run (per-epoch dispatch)"
+        )
     epoch = make_pipeline_epoch(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,
         kernel_backend=kernel_backend, with_grad_norm=with_grad_norm,
+        zero=zero, grad_bucket_bytes=grad_bucket_bytes,
     )
     eval_step = None
     if eval_prog is not None:

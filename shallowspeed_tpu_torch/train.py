@@ -9,6 +9,8 @@
         --virtual-stages 2 --kernel-backend pallas
     python -m shallowspeed_tpu_torch.train --pp 4 --schedule gpipe \
         --backward-split --recompute --model transformer
+    python -m shallowspeed_tpu_torch.train --dp 2 --pp 4 --zero 2 \
+        --grad-bucket-bytes 65536 --kernel-backend pallas
 
 The reference's recipe by default: the flagship MLP, 20 epochs, global
 batch 128 in 4 microbatches, SGD at lr 0.006, with the validation accuracy
@@ -23,7 +25,10 @@ device), and ``--kernel-backend pallas`` puts its slots through the flag
 kernels; ``--schedule interleaved --virtual-stages V``, ``--backward-split``
 and ``--recompute`` are the root CLI's schedule lattice, and ``--model
 transformer`` takes a mesh layout too (the last three on ``--kernel-backend
-xla``, as in the root CLI).
+xla``, as in the root CLI). ``--zero N`` (``--zero1`` = ``--zero 1``) shards
+the optimizer state (1), the gradients (2) and the params at rest (3, on
+``--kernel-backend xla``) over dp, and ``--grad-bucket-bytes B`` buckets
+the gradient sync (stages 0-2), with the root CLI's refusals.
 
 Preemption-safe runs, as the root ``train.py``'s::
 
@@ -113,6 +118,38 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.006)
     ap.add_argument("--optimizer", choices=["sgd", "momentum", "adam"], default="sgd")
     ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument(
+        "--zero1",
+        action="store_true",
+        help="ZeRO-1: shard the optimizer state + update over the dp axis "
+        "(reduce_scatter grads, per-replica chunk update, all_gather params; "
+        "mesh layouts only — beyond the reference). Alias for --zero 1",
+    )
+    ap.add_argument(
+        "--zero",
+        type=int,
+        choices=[0, 1, 2, 3],
+        default=None,
+        help="ZeRO stage on the dp axis (mesh layouts; supersedes --zero1): "
+        "0 = replicate everything (the anchor all-reduce sync); 1 = shard "
+        "the optimizer state + update; 2 = gradients also live as "
+        "persistent reduce-scattered per-rank shards (composes with "
+        "--grad-bucket-bytes; bitwise-equal weights to --zero 1 at the "
+        "same layout); 3 = parameters sharded at rest too, all-gathered "
+        "just-in-time per layer inside the tick loop (per-tick gradient "
+        "reduce-scatter; bitwise the anchor --zero 2 run)",
+    )
+    ap.add_argument(
+        "--grad-bucket-bytes",
+        type=int,
+        default=0,
+        help="mesh layouts: bucket the DP gradient sync — the backward-"
+        "ordered gradient tree is greedily packed into buckets of at most "
+        "this many bytes and each bucket is synced by its OWN sum "
+        "(all-reduce; reduce-scatter slice under --zero1/--zero 2), the "
+        "JAX package's overlap unit. 0 (default) keeps the single "
+        "whole-tree anchor sum. Bitwise-identical numerics either way",
+    )
     ap.add_argument(
         "--weight-decay", type=float, default=0.0,
         help="decoupled weight decay, uniform over every param element "
@@ -285,6 +322,39 @@ def main(argv=None):
             "the port compiles no XLA program, and program_audit needs a "
             "torch design of its own (ROADMAP.md §A item 13)"
         )
+    if args.zero1 and args.zero is not None and args.zero != 1:
+        ap.error(
+            f"conflicting dp-stage selectors: --zero1 and --zero {args.zero} "
+            "— pass only --zero"
+        )
+    zero_stage = args.zero if args.zero is not None else (1 if args.zero1 else 0)
+    if zero_stage == 3 and args.fused_run:
+        ap.error(
+            "--zero 3 is incompatible with --fused-run: the fused "
+            "multi-epoch run's eval step consumes the full stacked layout "
+            "every epoch, but stage 3 keeps parameters sharded at rest — "
+            "drop --fused-run (the per-epoch loop dispatches ZeRO-3)"
+        )
+    if zero_stage == 3 and args.kernel_backend == "pallas":
+        ap.error(
+            "--zero 3 is incompatible with --kernel-backend pallas: the "
+            "fused slot kernels consume resident {W, b} operands, but "
+            "stage 3 materializes parameters per tick via all-gather — "
+            "drop one of the two flags"
+        )
+    if zero_stage == 3 and args.grad_bucket_bytes:
+        ap.error(
+            "--zero 3 syncs gradients per tick (reduce-scatter into the "
+            "persistent shard carry) — there is no tail collective for "
+            "--grad-bucket-bytes to bucket; drop one of the two flags"
+        )
+    if zero_stage >= 2 and args.digests:
+        ap.error(
+            f"--digests is incompatible with --zero {zero_stage}: the "
+            "digest taps read the zero1 flat-chunk segment map, which "
+            "stages 2-3 replace with the block-cyclic shard layout — drop "
+            "one of the two flags"
+        )
     if args.digests and args.fused_run:
         ap.error(
             "--digests rides the epoch/step scan aux, which the fused "
@@ -319,6 +389,8 @@ def main(argv=None):
             backward_split=args.backward_split,
             recompute=args.recompute,
             kernel_backend=args.kernel_backend,
+            zero=zero_stage,
+            grad_bucket_bytes=args.grad_bucket_bytes,
             model=args.model,
             global_batch_size=args.global_batch_size,
             mubatches=args.mubatches,
@@ -445,7 +517,7 @@ def _dispatch_probe(run, args):
                 "dp": args.dp, "pp": args.pp, "tp": 1, "schedule": args.schedule,
                 "global_batch_size": args.global_batch_size,
                 "mubatches": args.mubatches, "backward_split": args.backward_split,
-                "grad_bucket_bytes": 0, "platform": rec["platform"],
+                "grad_bucket_bytes": args.grad_bucket_bytes, "platform": rec["platform"],
                 "device_name": rec["device_name"],
             },
             "value": share,

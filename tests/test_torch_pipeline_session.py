@@ -193,15 +193,16 @@ def test_refusals(split):
     TorchSession(device="cpu", model="transformer", **dict(MESH, kernel_backend="xla"))
     with pytest.raises(ValueError, match="requires schedule='interleaved'"):
         TorchSession(device="cpu", **dict(MESH, virtual_stages=2))
-    for kw, match in (
-        (dict(tp=2), "tp=2"),
-        (dict(zero=1), "zero=1"),
-        (dict(zero1=True), "zero=1"),
-        (dict(grad_bucket_bytes=1 << 16), "grad_bucket_bytes"),
+    # ZeRO and the bucketed sync are ported: every stage builds (the JAX
+    # refusals are in tests/test_torch_zero.py); tp keeps its refusal
+    for kw in (
+        dict(zero=1), dict(zero1=True), dict(zero=2), dict(grad_bucket_bytes=1 << 16),
+        dict(zero=2, grad_bucket_bytes=1 << 16), dict(zero=3, kernel_backend="xla"),
     ):
-        with pytest.raises(NotImplementedError, match=match) as e:
-            TorchSession(device="cpu", data_dir=split, **dict(MESH, **kw))
-        assert "§A item 3" in str(e.value)
+        TorchSession(device="cpu", data_dir=split, **dict(MESH, **kw))
+    with pytest.raises(NotImplementedError, match="tp=2") as e:
+        TorchSession(device="cpu", data_dir=split, **dict(MESH, tp=2))
+    assert "§A item 3" in str(e.value) and "Megatron" in str(e.value)
     with pytest.raises(NotImplementedError, match="§A item 7\\)"):
         TorchSession(device="cpu", runtime="mpmd", **MESH)
     with pytest.raises(ValueError, match="schedule must be one of"):

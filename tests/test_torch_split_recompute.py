@@ -4,9 +4,8 @@ Inside the port, bitwise (the JAX package's claims,
 ``tests/test_fuzz_layouts.py:487`` and ``:547``): a split run's final
 weights and loss equal the unsplit ``"xla"`` run's, and a recompute run's
 the stashed run's, on ``BSPLIT_LAYOUTS``' pp4-gpipe, pp4-pipedream-clip and
-dp2-naive entries and a DP=2 x PP=2 GPipe with a clip (the zero1 and
-bucketed entries wait for ZeRO and the buckets, ROADMAP.md §A item 3), and
-recompute composed with split at PP=4 PipeDream. Split equals unsplit
+dp2-naive, dp2pp2-bucketed and zero1 entries and a DP=2 x PP=2 GPipe with
+a clip, and recompute composed with split at PP=4 PipeDream. Split equals unsplit
 because ``_stage_bwd_input``/``_stage_bwd_weight`` compute each slot's
 effective grad, dx, dW and db with the plain backward's expressions and
 torch calls, and the lowering orders the B-weights as the B-inputs, so the
@@ -46,13 +45,16 @@ from shallowspeed_tpu_torch.parallel.mesh import VirtualMesh
 SIZES = (40, 36, 32, 28, 24, 20, 14, 10)
 B, M, LR, STEPS = 32, 4, 0.01, 2
 RTOL, ATOL = 2e-4, 2e-6  # cross-engine (tests/test_torch_oracle.py)
-# layout -> (dp, pp, schedule, clip): tests/test_fuzz_layouts.py's
-# BSPLIT_LAYOUTS without zero1 and buckets, plus DP=2 x PP=2 GPipe + clip
+# layout -> (dp, pp, schedule, clip, the executor's sync options):
+# tests/test_fuzz_layouts.py's BSPLIT_LAYOUTS (dp2-naive without its
+# buckets), plus DP=2 x PP=2 GPipe + clip
 LAYOUTS = {
-    "pp4-gpipe": (1, 4, "GPipeSchedule", None),
-    "pp4-pipedream-clip": (1, 4, "PipeDreamFlushSchedule", 0.05),
-    "dp2-naive": (2, 1, "NaiveParallelSchedule", None),
-    "dp2pp2-gpipe-clip": (2, 2, "GPipeSchedule", 0.05),
+    "pp4-gpipe": (1, 4, "GPipeSchedule", None, {}),
+    "pp4-pipedream-clip": (1, 4, "PipeDreamFlushSchedule", 0.05, {}),
+    "dp2-naive": (2, 1, "NaiveParallelSchedule", None, {}),
+    "dp2pp2-gpipe-clip": (2, 2, "GPipeSchedule", 0.05, {}),
+    "dp2pp2-bucketed": (2, 2, "GPipeSchedule", 0.05, dict(grad_bucket_bytes=1024)),
+    "zero1": (2, 2, "PipeDreamFlushSchedule", None, dict(zero=1)),
 }
 # feature -> the lowering's flags; "recompute+split" at pp4-pipedream only
 FEATURES = {
@@ -69,14 +71,14 @@ def _data(seed=11):
 
 
 def _torch_run(layout, X, Y, **lower_kw):
-    dp, pp, sched, clip = LAYOUTS[layout]
+    dp, pp, sched, clip, sync = LAYOUTS[layout]
     spec = TM.make_model_spec(SIZES, pp, B)
     mesh = VirtualMesh(dp, pp, "cpu")
     prog = tlower(getattr(TS, sched), M, pp, **lower_kw)
     stacked, flags = TE.init_stacked(spec, mesh)
     opt = make_optimizer("sgd", LR)
     state = opt.init(stacked)
-    step = TE.make_pipeline_step(mesh, spec, prog, B // dp // M, opt, clip_norm=clip)
+    step = TE.make_pipeline_step(mesh, spec, prog, B // dp // M, opt, clip_norm=clip, **sync)
     for i in range(STEPS):
         stacked, state, loss = step(
             stacked, flags, state, torch.from_numpy(X[i]), torch.from_numpy(Y[i])
@@ -86,12 +88,12 @@ def _torch_run(layout, X, Y, **lower_kw):
 
 
 def _jax_run(layout, X, Y, **lower_kw):
-    dp, pp, sched, clip = LAYOUTS[layout]
+    dp, pp, sched, clip, sync = LAYOUTS[layout]
     spec = JM.make_model_spec(SIZES, pp, B)
     mesh = jmesh(dp, pp)
     prog = jlower(getattr(JS, sched), M, pp, **lower_kw)
     stacked, flags = JE.init_stacked(spec, mesh)
-    step = JE.make_pipeline_step(mesh, spec, prog, B // dp // M, SGD(LR), clip_norm=clip)
+    step = JE.make_pipeline_step(mesh, spec, prog, B // dp // M, SGD(LR), clip_norm=clip, **sync)
     for i in range(STEPS):
         stacked, _, loss = step(stacked, flags, (), jnp.asarray(X[i]), jnp.asarray(Y[i]))
     return float(loss), JE.unstack_params(stacked, spec)

@@ -174,12 +174,15 @@ def test_serving_session_refuses_training_and_unported_options(split, tmp_path):
         with pytest.raises(RuntimeError, match="data_dir"):
             call()
     assert ts.batches_per_epoch == 0 and ts.global_step == 0
+    with pytest.raises(NotImplementedError, match="§A item 3"):
+        TorchSession(device="cpu", data_dir=split, tp=2)
+    # ZeRO and the buckets are ported; the sequential path refuses them in
+    # the JAX session's words (it has no dp axis and no gradient sync)
     for kw, match in (
-        (dict(tp=2), "§A item 3"),
-        (dict(zero=1), "§A item 3"),
-        (dict(grad_bucket_bytes=1024), "§A item 3"),
+        (dict(zero=1), "the sequential path has no mesh"),
+        (dict(grad_bucket_bytes=1024), "the sequential path has no gradient sync"),
     ):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             TorchSession(device="cpu", data_dir=split, **kw)
     # fault injection and checkpoint writing are ported: accepted
     ts = TorchSession(device="cpu", data_dir=split, faults="die@step=1")
