@@ -207,7 +207,27 @@ in phases:
    1's; 14d a killed anchor zero-2 run resumed to its twin's hash, a zero-3
    snapshot restored bitwise into a sequential and a DP=4 zero-1 session;
    14e the CLI's ``--zero 2 --grad-bucket-bytes 65536`` and ``--zero 1``
-   hash lines equal, ``--zero 3 --kernel-backend pallas`` refused.
+   hash lines equal, ``--zero 3 --kernel-backend pallas`` refused;
+15. tensor parallelism on phase 6's split, on the plain backend (the JAX
+   package refuses the flag kernels at tp > 1, so no kernel of the port
+   launches on a tp leg, and every leg checks that): 15a the flagship at
+   TP=2, TP=4 (127 -> 128 and 10 -> 12 padded), DP=2 x TP=2, PP=4 x TP=2
+   GPipe and DP=2 x PP=4 x TP=2 GPipe, 4 steps a leg, within the
+   cross-engine class of the CPU path and within ``rtol=5e-4, atol=5e-6``
+   (tp's cross-layout class) of the same layout at tp = 1 on the card;
+   ``kernel_backend="pallas"`` at tp = 2 refused in the JAX session's
+   words; 15b at DP=2 x PP=2 x TP=2 PipeDream, momentum, one epoch a
+   drive, bitwise on the card: 64 KiB buckets = anchor, zero 1 = zero 0,
+   bucketed zero 2 = zero 1, zero 3 = anchor zero 2, split = combined,
+   recompute = stashed, ``train_run`` = ``train_epoch``, ``predict``
+   across ladder rungs; the transformer at PP=2 x TP=2 against the CPU and
+   tp = 1; 15c mlp-deep PP=4 at TP=2 beside TP=1, 2 steps, within tp's
+   class; 15d the CLI ``--dp 2 --pp 2 --tp 2 --zero 2 --schedule gpipe``:
+   the root CLI's layout line, ``--precision highest --scan-unroll 1
+   --tick-unroll 1`` accepted, killed at step 11 and resumed to the twin's
+   hash. Each leg prints, beside its tp = 1 twin, device busy and GPU
+   operations a step and samples/s from one traced steady epoch, and the
+   peak memory above the built session.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -2932,6 +2952,219 @@ def phase_zero(torch, cuda_ops, TrainingSession, data_dir):
     return drive, rows
 
 
+# phase 15: tensor parallelism on the plain backend
+TP_RTOL, TP_ATOL = 5e-4, 5e-6  # cross-layout class of tp > 1 (tests/test_tensor_parallel.py)
+TP_STEPS = 4  # steps of a 15a leg
+TP_LATTICE = (
+    ("TP=2", dict(tp=2)),
+    ("TP=4", dict(tp=4)),
+    ("DP=2xTP=2", dict(dp=2, tp=2)),
+    ("PP=4xTP=2 GPipe", dict(pp=4, tp=2, schedule="gpipe")),
+    ("DP=2xPP=4xTP=2 GPipe", dict(dp=2, pp=4, tp=2, schedule="gpipe")),
+)
+# the JAX session's refusal of the flag kernels at tp > 1 (api.py:247-252)
+TP_PALLAS_REFUSAL = (
+    "tensor parallelism (tp > 1) shards each slot's W across the tp axis; "
+    "the fused pallas flag kernels compute whole slots — use kernel_backend='xla'"
+)
+TP_CUBE = dict(dp=2, pp=2, tp=2, schedule="pipedream", optimizer="momentum", lr=0.006)
+# 15b: (label, a, b) — two one-epoch drives of the cube that must end bitwise
+TP_CONTRACTS = (
+    ("64 KiB buckets = anchor", dict(grad_bucket_bytes=65536), dict()),
+    ("zero 1 = zero 0", dict(zero=1), dict()),
+    ("bucketed zero 2 = zero 1", dict(zero=2, grad_bucket_bytes=65536), dict(zero=1)),
+    ("zero 3 = anchor zero 2", dict(zero=3), dict(zero=2)),
+    ("split = combined", dict(backward_split=True), dict()),
+    ("recompute = stashed", dict(recompute=True), dict()),
+)
+
+
+def _tp_trace(s):
+    """One traced steady epoch of a session already dispatched (its epoch
+    finished first, then ``measure_dispatch_overhead(repeats=1)``, which
+    trains 2 more epochs): device busy and GPU operations a step, samples/s
+    of the uninstrumented epoch, the idle share."""
+    if s.step_in_epoch:
+        s.train_steps(s.batches_per_epoch - s.step_in_epoch)
+    probe = s.measure_dispatch_overhead(repeats=1)
+    if not probe["window_valid"] or probe["op_source"] != "device":
+        fail(f"15 dispatch probe {probe}")
+    return dict(
+        device_busy_ms_per_step=probe["device_busy_s"] * 1e3 / s.batches_per_epoch,
+        gpu_ops_per_step=probe["events_per_batch"],
+        samples_per_sec=s.batches_per_epoch * 128 / probe["host_wall_s"],
+        dispatch_overhead=probe["dispatch_overhead"],
+    )
+
+
+def phase_tp(torch, cuda_ops, TrainingSession, data_dir, card):
+    """15: tensor parallelism on the card (the plain backend; the JAX
+    package refuses the flag kernels at tp > 1). Returns the rows."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.model import MODEL_ZOO
+
+    t_phase = time.perf_counter()
+    rows = []
+
+    def note(line):
+        say(f"  {line}")
+
+    def no_kernel(label, counts):
+        launched = {k: v for k, v in counts.items() if v}
+        if launched:
+            fail(f"15 {label}: the plain tp path launched {launched}")
+
+    # 15a: the flagship lattice at tp > 1, against the CPU and the card's tp = 1
+    # (TP=2's and TP=4's tp = 1 twin is the same sequential run: built once)
+    twins = {}
+    for label, kw in TP_LATTICE:
+        kw = dict(kw, data_dir=data_dir)
+        (s, _, wall, peak, above), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_measured(torch, TrainingSession, TP_STEPS, **kw)
+        )
+        no_kernel(label, counts)
+        cpu, _, _, _ = _train_card(TrainingSession, TP_STEPS, device="cpu", **kw)
+        worst_cpu = _params_close(s, cpu, f"15a {label}")
+        key = tuple(sorted(dict(kw, tp=1).items()))
+        if key not in twins:
+            twin, _, _, _, twin_above = _train_measured(
+                torch, TrainingSession, TP_STEPS, **dict(kw, tp=1)
+            )
+            twin_params = twin.params()
+            twin_row = dict(label=f"15a {label} at tp=1", peak_above_session_mib=twin_above,
+                            **_tp_trace(twin))
+            rows.append(twin_row)
+            twins[key] = twin_params, twin_row
+            del twin
+        twin_params, twin_row = twins[key]
+        worst_tp1 = _params_close_to(
+            s.params(), twin_params, TP_RTOL, TP_ATOL, f"15a {label} vs its tp = 1 run"
+        )
+        row = dict(label=f"15a {label}", peak_above_session_mib=above, **_tp_trace(s))
+        rows.append(row)
+        note(
+            f"15a {label} ({card}): {TP_STEPS} steps, no kernel launch, card vs CPU "
+            f"{worst_cpu:.3e}, vs tp=1 {worst_tp1:.3e}; device busy "
+            f"{row['device_busy_ms_per_step']:.4f} ms/step (tp=1 "
+            f"{twin_row['device_busy_ms_per_step']:.4f}), {row['gpu_ops_per_step']:.2f} GPU "
+            f"ops/step ({twin_row['gpu_ops_per_step']:.2f}), {row['samples_per_sec']:.1f} "
+            f"samples/s ({twin_row['samples_per_sec']:.1f}), peak {above:.2f} MiB above the "
+            f"session ({twin_row['peak_above_session_mib']:.2f}), dispatch_overhead "
+            f"{row['dispatch_overhead']:.4f}"
+        )
+        del s
+        torch.cuda.empty_cache()
+    try:
+        TrainingSession(device="cuda", data_dir=data_dir, dp=2, tp=2, kernel_backend="pallas")
+    except ValueError as e:
+        if str(e) != TP_PALLAS_REFUSAL:
+            fail(f"15a pallas at tp=2 refused in other words: {e}")
+    else:
+        fail("15a kernel_backend='pallas' at tp=2 was not refused")
+    note("15a kernel_backend='pallas' at tp=2 refused in the JAX session's words")
+
+    # 15b: the bitwise contracts at DP=2 x PP=2 x TP=2, one epoch a drive
+    def epoch(**kw):
+        (s, _, _, _), counts = _card_counts(
+            torch, cuda_ops,
+            lambda: _train_card(TrainingSession, None, data_dir=data_dir, **dict(TP_CUBE, **kw)),
+        )
+        no_kernel(f"15b {kw}", counts)
+        return s
+
+    base = epoch()
+    runs = {}
+    for label, a, b in TP_CONTRACTS:
+        key = tuple(sorted(b.items()))
+        if key not in runs:
+            runs[key] = base if not b else epoch(**b)
+        if not _bitwise_equal(epoch(**a), runs[key]):
+            fail(f"15b {label} is not bitwise on the card")
+    run = TrainingSession(device="cuda", data_dir=data_dir, **TP_CUBE)
+    losses, _ = run.train_run(1, with_eval=False)
+    if not _bitwise_equal(run, base):
+        fail("15b the run at tp=2 is not bitwise the epoch")
+    x = np.random.RandomState(15).rand(3, 784).astype(np.float32)
+    small = base.predict(x)
+    if not np.array_equal(small, base.predict(np.concatenate([x, x, x]))[:3]):
+        fail("15b predict at tp=2 differs across ladder rungs")
+    gelu = dict(data_dir=data_dir, model="transformer", pp=2, tp=2, schedule="pipedream")
+    (g, _, _, _), counts = _card_counts(
+        torch, cuda_ops, lambda: _train_card(TrainingSession, TP_STEPS, **gelu)
+    )
+    no_kernel("15b transformer", counts)
+    g_cpu, _, _, _ = _train_card(TrainingSession, TP_STEPS, device="cpu", **gelu)
+    worst_g = _params_close(g, g_cpu, "15b transformer TP=2")
+    g1, _, _, _ = _train_card(TrainingSession, TP_STEPS, **dict(gelu, tp=1))
+    worst_g1 = _params_close_to(g.params(), g1.params(), TP_RTOL, TP_ATOL, "15b transformer vs tp=1")
+    note(
+        f"15b DP=2xPP=2xTP=2 bitwise on the card: "
+        f"{', '.join(c[0] for c in TP_CONTRACTS)}, run = epoch (loss {losses[0]:.6f}), "
+        f"predict across rungs; transformer PP=2xTP=2 vs CPU {worst_g:.3e}, vs tp=1 {worst_g1:.3e}"
+    )
+    del g, g1, base, run, runs
+    torch.cuda.empty_cache()
+
+    # 15c: mlp-deep at full width, PP=4 x TP=2 beside PP=4 x TP=1, plain backend
+    deep = dict(data_dir=data_dir, model="mlp-deep", pp=4, schedule="gpipe", kernel_backend="xla")
+    deep_rows, deep_params = {}, {}
+    for tp in (2, 1):
+        (s, loss, wall, peak, above), counts = _card_counts(
+            torch, cuda_ops, lambda: _train_measured(torch, TrainingSession, 2, **dict(deep, tp=tp))
+        )
+        no_kernel(f"15c mlp-deep tp={tp}", counts)
+        p = s.params()
+        if not all(np.isfinite(l[k]).all() for st in p for l in st for k in ("W", "b")):
+            fail(f"15c mlp-deep tp={tp}: non-finite params")
+        deep_params[tp] = p
+        deep_rows[tp] = dict(label=f"15c mlp-deep PP=4 tp={tp}", peak_above_session_mib=above,
+                             peak_mib=peak, **_tp_trace(s))
+        rows.append(deep_rows[tp])
+        del s
+        torch.cuda.empty_cache()
+    worst_deep = _params_close_to(deep_params[2], deep_params[1], TP_RTOL, TP_ATOL, "15c mlp-deep tp=2 vs tp=1")
+    r2, r1 = deep_rows[2], deep_rows[1]
+    note(
+        f"15c mlp-deep PP=4 ({len(MODEL_ZOO['mlp-deep']['sizes']) - 1} Linears x 2048, {card}): "
+        f"tp=2 vs tp=1 {worst_deep:.3e} after 2 steps; device busy {r2['device_busy_ms_per_step']:.4f} "
+        f"vs {r1['device_busy_ms_per_step']:.4f} ms/step, {r2['gpu_ops_per_step']:.2f} vs "
+        f"{r1['gpu_ops_per_step']:.2f} GPU ops/step, peak {r2['peak_above_session_mib']:.2f} vs "
+        f"{r1['peak_above_session_mib']:.2f} MiB above the session, {r2['samples_per_sec']:.1f} vs "
+        f"{r1['samples_per_sec']:.1f} samples/s"
+    )
+
+    # 15d: the CLI at DP=2 x PP=2 x TP=2, zero 2: layout line, kill and resume
+    ck = Path(data_dir) / "tp-cli"
+    lattice = ["--dp", "2", "--pp", "2", "--tp", "2", "--zero", "2", "--schedule", "gpipe"]
+    rc, out, err = _cli(data_dir, None, *lattice, "--precision", "highest", "--scan-unroll", "1",
+                        "--tick-unroll", "1")
+    twin = _hash_line(rc, out, err, "15d twin")
+    if "layout: DP=2 x PP=2 x TP=2 (gpipe pipeline + tensor-parallel)" not in out:
+        fail(f"15d layout line: {out.splitlines()[:2]}")
+    rc, out, err = _cli(data_dir, ck, *lattice, faults=f"die@step={RECOVERY_DIE}:mode=sigkill")
+    if rc != -9:
+        fail(f"15d killed run: exit {rc}, {err[-300:]}")
+    rc, out, err = _cli(data_dir, ck, *lattice, "--resume", "auto")
+    resumed = _hash_line(rc, out, err, "15d resumed")
+    if "resumed at epoch 0, step 8" not in out or resumed != twin:
+        fail(f"15d resumed run: hash {resumed} vs the twin's {twin}; {out.splitlines()[:2]}")
+    note(
+        f"15d CLI --dp 2 --pp 2 --tp 2 --zero 2: layout line TP=2 (gpipe pipeline + "
+        f"tensor-parallel), the root CLI's --precision/--scan-unroll/--tick-unroll parse, "
+        f"killed at step {RECOVERY_DIE} (exit -9), --resume auto from step 8 prints the twin's "
+        f"hash {twin[:12]}"
+    )
+    say(f"  15 rows: {json.dumps(rows)}")
+    say(
+        f"phase 15 tp: ok: the lattice at tp > 1 within the cross-engine class of the CPU and "
+        f"the cross-layout class of tp = 1, no kernel launched, the bitwise contracts on the "
+        f"card, mlp-deep at full width, the CLI's hash lines equal; "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
+    return rows
+
+
 def main():
     import torch
 
@@ -2979,6 +3212,7 @@ def main():
         if not seen or seen - checked:
             fail(f"phase 14 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
         say(f"phase 14 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 14 launched was checked in 9a")
+        phase_tp(torch, cuda_ops, TrainingSession, tmp, card)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries

@@ -15,8 +15,8 @@
     chunks = TrainingSession(pp=2, schedule="interleaved", virtual_stages=2,
                              kernel_backend="pallas", data_dir=...)
 
-Two layouts. The sequential one (dp = pp = virtual_stages = 1) and a ``dp``
-x ``pp`` mesh run by the lockstep pipeline executor
+Two layouts. The sequential one (dp = pp = virtual_stages = tp = 1) and a
+``dp`` x ``pp`` [x ``tp``] mesh run by the lockstep pipeline executor
 (``parallel/executor.py``): the schedule's lowered tick tables over a
 virtual mesh whose ranks all live on the session's device, with
 ``kernel_backend="pallas"`` putting every slot of every tick through the
@@ -26,7 +26,11 @@ the JAX session's schedule lattice: ``schedule="interleaved"`` with
 ``executor.interleave_order``), ``backward_split`` (2BP, bitwise the
 unsplit run), ``recompute`` (bitwise the stashed run) and the gelu family
 (``model="transformer"``); the last three on the ``"xla"`` backend, as in
-the JAX package. ZeRO on the dp axis, as the JAX session runs it:
+the JAX package. ``tp > 1`` Megatron-shards every slot over the mesh's tp
+axis (column-parallel even slots, row-parallel odd ones; the ``"xla"``
+backend only, as in the JAX package), on every schedule, with the split
+backward, recompute, ZeRO 0-3, buckets and the gelu family. ZeRO on the
+dp axis, as the JAX session runs it:
 ``zero=1`` (``zero1=True``) shards the optimizer state and update over dp
 (the flat layout), ``zero=2`` the gradients too (the block-cyclic layout;
 a per-tick shard carry, or with ``grad_bucket_bytes`` the bucketed tail),
@@ -76,8 +80,8 @@ work it issues uninstrumented. ``measure_dispatch_overhead`` splits an
 epoch's host wall into device-busy and host time under ``torch.profiler``;
 ``inference_latency_bound`` is the slot's FLOPs over the card's peak.
 
-Not in this slice, and refused with a pointer to their ROADMAP.md item:
-tp (§A item 3) and the multi-card runtime (``runtime="mpmd"``, item 7).
+Not in this slice, and refused with a pointer to its ROADMAP.md item: the
+multi-card runtime (``runtime="mpmd"``, §A item 7).
 """
 
 import sys
@@ -127,16 +131,14 @@ FLAGSHIP_BATCH = 128
 FLAGSHIP_MUBATCHES = 4
 FLAGSHIP_LR = 0.006
 
+PRECISION_DEFAULT_REFUSAL = (
+    "precision='default' (the TPU's bf16-input MXU passes) has no "
+    "counterpart in the port yet; it computes in IEEE fp32 "
+    "(precision='highest') — see ROADMAP.md, Parity rules"
+)
 
-def _refuse_unported(tp, runtime):
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism is not ported yet (next: a tp axis "
-            "on the virtual mesh and the Megatron stage functions); the "
-            "port's executor runs dp x pp with the naive, gpipe, pipedream "
-            "and interleaved schedules, the split backward, recompute and "
-            "ZeRO stages 0-3 (ROADMAP.md §A item 3)"
-        )
+
+def _refuse_unported(runtime):
     if runtime != "lockstep":
         raise NotImplementedError(
             f"runtime={runtime!r}: the multi-card runtime (one process per rank "
@@ -174,9 +176,10 @@ class TrainingSession:
     plan, its spec string, or None to read ``SHALLOWSPEED_FAULTS``
     (``faults.py``). ``predict_slot_rows``/
     ``predict_slot_ladder``: the slot geometry (``serving/slots.py``).
-    ``dp``/``pp``/``schedule`` (naive|gpipe|pipedream|interleaved): the
-    mesh layout, run by the lockstep pipeline executor over a virtual mesh
-    on the session's device; ``virtual_stages``: model stages per device
+    ``dp``/``pp``/``tp``/``schedule`` (naive|gpipe|pipedream|interleaved):
+    the mesh layout, run by the lockstep pipeline executor over a virtual
+    mesh on the session's device (``tp``: the Megatron model axis, on the
+    ``"xla"`` backend); ``virtual_stages``: model stages per device
     (> 1 needs ``schedule="interleaved"``; the model is cut into ``pp *
     virtual_stages`` stages); ``backward_split``: the two-stage backward
     (B-input at the relay tick, B-weight deferred); ``recompute``: stash
@@ -193,8 +196,8 @@ class TrainingSession:
     ``zero`` (0-3; ``zero1=True`` is stage 1): the dp-axis ZeRO stage (mesh
     layouts; stage 3 on ``"xla"`` only). ``grad_bucket_bytes``: the
     bucketed gradient sync (mesh layouts, stages 0-2; 0 = the anchor sum).
-    ``tp`` and ``runtime`` are the JAX session's names for layouts the port
-    does not run yet; anything but their defaults raises.
+    ``runtime`` is the JAX session's name for a runtime the port does not
+    run yet; anything but its default raises.
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -250,19 +253,17 @@ class TrainingSession:
             "train", metrics=self._metrics, rules=default_training_rules()
         )
         self._health = make_monitor(health)
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
         if precision == "default":
-            raise ValueError(
-                "precision='default' (the TPU's bf16-input MXU passes) has no "
-                "counterpart in the port yet; it computes in IEEE fp32 "
-                "(precision='highest') — see ROADMAP.md, Parity rules"
-            )
+            raise ValueError(PRECISION_DEFAULT_REFUSAL)
         if precision != "highest":
             raise ValueError(f"precision must be 'highest', got {precision!r}")
         if schedule not in S.SCHEDULES:
             raise ValueError(
                 f"schedule must be one of {sorted(S.SCHEDULES)}, got {schedule!r}"
             )
-        _refuse_unported(tp, runtime)
+        _refuse_unported(runtime)
         if checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
         if checkpoint_queue < 1:
@@ -289,7 +290,7 @@ class TrainingSession:
             sizes, act = Mo.resolve_model(model)
         else:
             act = "relu"
-        dp, pp, V = int(dp), int(pp), int(virtual_stages)
+        dp, pp, tp, V = int(dp), int(pp), int(tp), int(virtual_stages)
         if dp < 1 or pp < 1:
             raise ValueError(f"dp and pp must be >= 1, got dp={dp}, pp={pp}")
         if V < 1:
@@ -304,9 +305,9 @@ class TrainingSession:
         local_batch = global_batch_size // dp
         if mubatches < 1 or local_batch % mubatches != 0:
             raise ValueError("mubatches must divide the local batch")
-        self.dp, self.pp, self.tp, self.V = dp, pp, 1, V
+        self.dp, self.pp, self.tp, self.V = dp, pp, tp, V
         self.schedule = schedule
-        self._sequential = dp == 1 and pp == 1 and V == 1
+        self._sequential = dp == 1 and pp == 1 and V == 1 and tp == 1
         if fuse_mubatches and not self._sequential:
             raise ValueError(
                 "fuse_mubatches applies to the sequential path only; in the "
@@ -343,6 +344,12 @@ class TrainingSession:
                 "kernel_backend='pallas' hard-codes the relu/identity slot "
                 "expressions; the gelu-family models (f32 grad-multiplier "
                 "masks, residual adds) run the XLA backend only"
+            )
+        if kernel_backend == "pallas" and tp > 1:
+            raise ValueError(
+                "tensor parallelism (tp > 1) shards each slot's W across "
+                "the tp axis; the fused pallas flag kernels compute whole "
+                "slots — use kernel_backend='xla'"
             )
         if kernel_backend == "pallas" and self._sequential:
             raise ValueError(
@@ -523,7 +530,7 @@ class TrainingSession:
             # scan unroll factors at their neutral 1
             self._metrics.event(
                 "digest_config",
-                sizes=list(self.spec.sizes), model=model, dp=dp, pp=pp, tp=1,
+                sizes=list(self.spec.sizes), model=model, dp=dp, pp=pp, tp=tp,
                 schedule=schedule, global_batch_size=self.B,
                 mubatches=self.M, lr=lr, precision=precision,
                 optimizer=optimizer, momentum=momentum,
@@ -566,11 +573,11 @@ class TrainingSession:
         else:
             # the stacked layout; the flags stay host numpy (the executor
             # decides each tick's work on the host)
-            self.mesh = VirtualMesh(dp, pp, self.device)
+            self.mesh = VirtualMesh(dp, pp, self.device, tp=tp)
             if self._metrics.enabled:
                 # placement provenance: every virtual rank on one device
                 self._metrics.event(
-                    "mesh_layout", dp=dp, pp=pp, tp=1, layout="virtual", n_devices=1,
+                    "mesh_layout", dp=dp, pp=pp, tp=tp, layout="virtual", n_devices=1,
                 )
             with self._metrics.span("schedule_lower"):
                 self._prog = lower_schedule(
@@ -588,7 +595,7 @@ class TrainingSession:
                 )
                 # the lowered program's static tick stats, recorded once
                 stats = program_stats(
-                    self._prog, spec=self.spec, mubatch_size=self._mubatch_local
+                    self._prog, spec=self.spec, mubatch_size=self._mubatch_local, tp=tp
                 )
                 if self._recompute:
                     # the stashed twin's footprint beside it, as the JAX
@@ -598,25 +605,25 @@ class TrainingSession:
                             S.SCHEDULES[schedule], self.M, pp, virtual=V,
                             backward_split=self._backward_split, recompute=False,
                         ),
-                        spec=self.spec, mubatch_size=self._mubatch_local,
+                        spec=self.spec, mubatch_size=self._mubatch_local, tp=tp,
                     )
                     stats["stash_bytes_peak_stashed_twin"] = twin["stash_bytes_peak"]
                     stats["stash_slots_stashed_twin"] = twin["stash_slots"]
                 self._metrics.event(
-                    "pipeline_program", schedule=schedule, dp=dp, pp=pp, tp=1,
+                    "pipeline_program", schedule=schedule, dp=dp, pp=pp, tp=tp,
                     virtual=V, model=model, **stats,
                 )
                 self._metrics.gauge("pipeline.bubble_fraction", stats["bubble_fraction"])
             with self._metrics.span("device_put"):
                 if self._zero == 3:
-                    # params at rest: one (pp, dp*csz3) block-cyclic tensor,
+                    # params at rest: one (pp*tp, dp*csz3) block-cyclic tensor,
                     # every rank's shard; the stacked {W, b} never lands
                     self._stacked, self._flags = convert.zero_params_from_numpy(
                         host_params, self.spec, self.mesh, order=self._order
                     )
                 else:
                     self._stacked, self._flags = convert.stacked_from_numpy(
-                        host_params, self.spec, self.device, order=self._order
+                        host_params, self.spec, self.device, order=self._order, tp=tp
                     )
             if self._zero:
                 self._opt_state = convert.zero_opt_state_from_numpy(
@@ -626,7 +633,7 @@ class TrainingSession:
             elif stateful:
                 self._opt_state = convert.stacked_opt_state_from_numpy(
                     self._opt, host_opt_state, self.spec, self.device,
-                    order=self._order,
+                    order=self._order, tp=tp,
                 )
             else:
                 self._opt_state = self._opt.init(self._stacked)
@@ -668,7 +675,7 @@ class TrainingSession:
             platform=self.device.type,
             precision=precision,
             padded_flops_per_batch=None if self._sequential else (
-                program_flops(self._prog, self.spec, self._mubatch_local) * dp
+                program_flops(self._prog, self.spec, self._mubatch_local, tp=tp) * dp
             ),
             device_name=self._device_name,
         )
@@ -676,12 +683,12 @@ class TrainingSession:
         if grad_bucket_bytes and not self._sequential:
             # the executor's plan, rebuilt through the same planner
             self._sync_plan = gradsync.plan_buckets(
-                self.spec, dp, pp, grad_bucket_bytes, zero=self._zero
+                self.spec, dp, pp, grad_bucket_bytes, zero=self._zero, tp=tp
             )
             if self._metrics.enabled:
                 # static telemetry, recorded once: bucket count and sizes
                 self._metrics.event(
-                    "grad_sync_plan", dp=dp, pp=pp, tp=1, zero=self._zero,
+                    "grad_sync_plan", dp=dp, pp=pp, tp=tp, zero=self._zero,
                     **self._sync_plan.describe(),
                 )
         if self._recovery is not None and self._metrics.enabled:
@@ -1270,7 +1277,7 @@ class TrainingSession:
     @property
     def sequential(self):
         """True on the single-device reference layout (dp = pp =
-        virtual_stages = 1)."""
+        virtual_stages = tp = 1)."""
         return self._sequential
 
     def predict(self, x):
@@ -1328,8 +1335,10 @@ class TrainingSession:
         if self._zero != 3:
             return self._stacked
         if self._eval_stacked_cache is None:
-            slots, _ = E.zero_block_slots(self.spec, self.pp, self.dp)
-            self._eval_stacked_cache = E._undeal(self._stacked["P"], slots, self.pp, self.dp)
+            slots, _ = E.zero_block_slots(self.spec, self.pp, self.dp, self.tp)
+            self._eval_stacked_cache = E._undeal(
+                self._stacked["P"], slots, self.pp, self.dp, self.tp
+            )
         return self._eval_stacked_cache
 
     def _inference_step(self, n_slots):
@@ -1367,6 +1376,7 @@ class TrainingSession:
             spec=self.spec,
             slot_rows=self._slot_rows,
             dp=self.dp,
+            tp=self.tp,
             platform=self._cost_model.platform,
             precision=self._cost_model.precision,
             device_name=self._device_name,
@@ -1517,7 +1527,7 @@ class TrainingSession:
         else:
             # the session's flags stay: only the weight planes swap
             self._stacked = convert.stacked_from_numpy(
-                host_params, self.spec, self.device, order=self._order
+                host_params, self.spec, self.device, order=self._order, tp=self.tp
             )[0]
         return meta
 

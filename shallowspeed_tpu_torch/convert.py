@@ -23,6 +23,7 @@ from torch import nn
 from shallowspeed_tpu_torch.model import Stage, param_tree
 from shallowspeed_tpu_torch.optimizer import is_stateless, join_state, split_state
 from shallowspeed_tpu_torch.parallel import executor as E
+from shallowspeed_tpu_torch.parallel.mesh import mesh_tp
 
 
 def _tree_from_numpy(tree, device):
@@ -99,12 +100,12 @@ def opt_state_to_numpy(opt, state):
 # ---------------------------------------------------------------------------
 
 
-def stacked_from_numpy(params_list, spec, device, order=None):
+def stacked_from_numpy(params_list, spec, device, order=None, tp=1):
     """Per-stage ``[{"W","b"}, ...]`` numpy -> ``(stacked, flags)``: the
     JAX package's ``E.stack_params`` layout (rows in ``order``, identity by
-    default) as contiguous float32 tensors on ``device`` (private copies),
-    and its flags as host numpy."""
-    stacked_np, flags = E.stack_params(params_list, spec, order=order)
+    default; slot dims rounded to ``tp`` multiples) as contiguous float32
+    tensors on ``device`` (private copies), and its flags as host numpy."""
+    stacked_np, flags = E.stack_params(params_list, spec, order=order, tp=tp)
     return E.put_stacked(stacked_np, device), flags
 
 
@@ -114,15 +115,15 @@ def stacked_to_numpy(stacked, spec, order=None):
     return E.unstack_params(stacked, spec, order=order)
 
 
-def stacked_opt_state_from_numpy(opt, logical, spec, device, order=None):
+def stacked_opt_state_from_numpy(opt, logical, spec, device, order=None, tp=1):
     """The logical optimizer state (per-stage params mirrors, scalars) ->
     ``opt``'s state over the stacked tree on ``device``: each part stacked
-    as the params are (``E.stack_params`` per part in the same ``order``,
-    as the JAX session does), scalars as 0-d float32 tensors."""
+    as the params are (``E.stack_params`` per part in the same ``order``
+    and ``tp``, as the JAX session does), scalars as 0-d float32 tensors."""
     if is_stateless(opt):
         return ()
     parts = {
-        k: stacked_from_numpy(v, spec, device, order=order)[0]
+        k: stacked_from_numpy(v, spec, device, order=order, tp=tp)[0]
         for k, v in logical["parts"].items()
     }
     scalars = {
@@ -150,9 +151,9 @@ def stacked_opt_state_to_numpy(opt, state, spec, order=None):
 
 def zero_params_from_numpy(params_list, spec, mesh, order=None):
     """Per-stage ``[{"W","b"}, ...]`` numpy -> ``(params at rest, flags)``:
-    ZeRO-3's ``{"P": (pp, dp*csz3)}`` block-cyclic shards on the mesh's
+    ZeRO-3's ``{"P": (pp*tp, dp*csz3)}`` block-cyclic shards on the mesh's
     device (``E.zero_block_flatten_rows``) and the host flags."""
-    stacked_np, flags = E.stack_params(params_list, spec, order=order)
+    stacked_np, flags = E.stack_params(params_list, spec, order=order, tp=mesh_tp(mesh))
     return E.zero_params_at_rest(stacked_np, spec, mesh), flags
 
 

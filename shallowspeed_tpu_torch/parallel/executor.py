@@ -1,5 +1,5 @@
-"""Lockstep pipeline executor: tick programs over a virtual ``(dp, pp)`` mesh
-on one device — the port's counterpart of
+"""Lockstep pipeline executor: tick programs over a virtual ``(dp, pp[, tp])``
+mesh on one device — the port's counterpart of
 ``shallowspeed_tpu/parallel/executor.py``.
 
 The JAX package runs a lowered ``TickProgram`` as ONE ``shard_map`` program:
@@ -84,12 +84,27 @@ its buckets) runs the unbucketed sum: on one device a bucket has nothing
 to overlap, and the per-bucket sum is the same elementwise adds; at stage 2
 it keeps stage 1's full-slab accumulators, as the JAX bucketed program does.
 
+Tensor parallelism on the mesh's ``tp`` axis (``mesh_tp(mesh) > 1``), as the
+JAX executor runs it: every slot's W is Megatron-sharded over the tp ranks
+of a ``(d, s)`` position — even slots column-parallel (rank t holds the row
+band ``W[t*o/tp:(t+1)*o/tp, :]``), odd slots row-parallel (the column band
+``W[:, t*i/tp:(t+1)*i/tp]``), every bias its ``out/tp`` band — with slot dims
+rounded up to tp multiples (``slot_shapes(spec, tp)``). The stacked slabs
+stay the full global layout, and a rank's params and gradients are views
+of them, so ``dp_sum``, the optimizer tail and the checkpoints see the same
+layout at any tp; the ZeRO layouts hold ``pp * tp`` rows of rank-local
+shards, as the JAX package's. The ``_stage_*_tp`` functions compute every
+tp rank of a position together, slot by slot (one batched product over the
+rank views per slot), and each of the JAX executor's ``psum`` over ``tp``
+is a sum over the ranks in rank order (``_rank_sum``); the sums that
+reassemble a sharded value add exact zeros. At tp = 1 none of them runs.
+
 Masks stay ``torch.bool`` in the stash for the relu family. Stash, grad
 stash and input-stash slots are dropped when the lowering frees them, so a
 tensor lives as long as the TPU program's buffer slot holds it. The JAX
 executor's refusals hold: the pallas backend runs neither the split
-backward, recompute nor the gelu family, and the lowering refuses virtual
-stages with either of the first two.
+backward, recompute, the gelu family nor tp > 1, and the lowering refuses
+virtual stages with either of the first two.
 """
 
 import functools
@@ -116,12 +131,13 @@ from shallowspeed_tpu_torch.parallel.lowering import (
     OP_NOOP,
     OP_RECOMPUTE,
 )
+from shallowspeed_tpu_torch.parallel.mesh import mesh_tp
 
 KERNEL_BACKENDS = ("xla", "pallas")
 
 
 # ---------------------------------------------------------------------------
-# The stacked layout (host numpy; the JAX package's functions at tp = 1)
+# The stacked layout (host numpy; the JAX package's functions)
 # ---------------------------------------------------------------------------
 
 
@@ -129,7 +145,8 @@ def slot_shapes(spec: ModelSpec, tp: int = 1):
     """Static per-slot stacked dims ``[(out_l, in_l)]``, maxima over stages
     (``executor.slot_shapes``): validates that a shorter stage's output fits
     through every later slot; ``tp > 1`` rounds each dim up to a multiple of
-    tp (the lowering's FLOP model asks for it; the executor runs tp = 1)."""
+    tp and needs the chained widths ``in_l == out_{l-1}`` at every
+    row-parallel (odd) slot, whose input is a column slot's rank shard."""
     L = max((s.n_linears for s in spec.stages), default=0) or 1
     dims = []
     for l in range(L):
@@ -156,22 +173,54 @@ def slot_shapes(spec: ModelSpec, tp: int = 1):
     return dims
 
 
+def tp_local_dims(dims, tp: int):
+    """One tp rank's slot geometry from the (tp-rounded) global dims
+    (``executor.tp_local_dims``): ``(w_dims, b_widths, xs_widths,
+    mask_widths)`` — its W band (``(o/tp, i)`` at even, column-parallel
+    slots, ``(o, i/tp)`` at odd, row-parallel ones), its bias band
+    (``o/tp`` everywhere: row biases are scattered, never replicated), and
+    the widths of the stashed inputs (full at column slots, a shard at row
+    slots) and masks (a shard at column slots, full at row slots). At tp = 1
+    the global dims."""
+    w_dims = [(o // tp, i) if l % 2 == 0 else (o, i // tp) for l, (o, i) in enumerate(dims)]
+    b_widths = [o // tp for o, _ in dims]
+    xs_widths = [i if l % 2 == 0 else i // tp for l, (_, i) in enumerate(dims)]
+    mask_widths = [o // tp if l % 2 == 0 else o for l, (o, _) in enumerate(dims)]
+    return w_dims, b_widths, xs_widths, mask_widths
+
+
+def tp_allreduce_sites(spec: ModelSpec, tp: int, training: bool = True):
+    """The Megatron sums over the tp ranks of one stage pass
+    (``executor.tp_allreduce_sites``): ``(fwd_widths, bwd_widths)``, the
+    payload widths in execution order — forward, one per row-parallel slot
+    plus the closing gather when the last slot is column-parallel;
+    backward (training only), one per column-parallel slot. The tp stage
+    functions place their ``_rank_sum`` calls at exactly these slots."""
+    dims = slot_shapes(spec, tp)
+    L = len(dims)
+    fwd = [dims[l][0] for l in range(1, L, 2)]
+    if (L - 1) % 2 == 0:
+        fwd.append(dims[-1][0])
+    bwd = [dims[l][1] for l in range(0, L, 2)] if training else []
+    return fwd, bwd
+
+
 def stash_slot_nbytes(spec: ModelSpec, mubatch_size: int, tp: int = 1):
-    """Per-slot bytes of each stash ring (``executor.stash_slot_nbytes`` at
-    tp = 1): ``"stash"`` (the slots' inputs f32, their masks, 1 byte for
-    the relu family and f32 for gelu, and the head logits), ``"xin"`` (one
-    stage input) and ``"gstash"`` (per-slot effective output-grads)."""
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: the port's executor runs tp = 1")
-    dims = slot_shapes(spec)
+    """Per-slot bytes of each stash ring of one rank
+    (``executor.stash_slot_nbytes``): ``"stash"`` (the slots' inputs f32
+    and their masks, 1 byte for the relu family and f32 for gelu, at the
+    ``tp_local_dims`` widths, and the head logits), ``"xin"`` (one stage
+    input) and ``"gstash"`` (per-slot effective output-grads, at the mask
+    widths)."""
+    dims = slot_shapes(spec, tp)
+    _, _, xs_widths, mask_widths = tp_local_dims(dims, tp)
     mask_bytes = 1 if spec.act == "relu" else 4
     mb = mubatch_size
-    outs = sum(o for o, _ in dims)
     return {
-        "stash": 4 * mb * sum(i for _, i in dims) + mask_bytes * mb * outs
+        "stash": 4 * mb * sum(xs_widths) + mask_bytes * mb * sum(mask_widths)
         + 4 * mb * dims[-1][0],
         "xin": 4 * mb * dims[0][1],
-        "gstash": 4 * mb * outs,
+        "gstash": 4 * mb * sum(mask_widths),
     }
 
 
@@ -201,7 +250,7 @@ def _order(order, S):
     return order
 
 
-def stack_params(params_list, spec: ModelSpec, order=None):
+def stack_params(params_list, spec: ModelSpec, order=None, tp: int = 1):
     """Per-stage ragged params (host numpy) -> per-slot zero-padded stacks
     and flags, all host numpy (``executor.stack_params``):
 
@@ -213,8 +262,9 @@ def stack_params(params_list, spec: ModelSpec, order=None):
     or gelu), ``residual[r, l]`` the gelu family's skip add (all False for
     the relu family). ``order[r]`` names the model stage stored at stacked
     row ``r`` (identity by default; ``interleave_order`` for virtual
-    stages)."""
-    dims = slot_shapes(spec)
+    stages). ``tp`` pads the slot dims to tp multiples; the host layout is
+    the full global stack at any tp, so checkpoints do not depend on it."""
+    dims = slot_shapes(spec, tp)
     S = spec.n_stages
     L = len(dims)
     order = _order(order, S)
@@ -278,86 +328,113 @@ def put_stacked(stacked_np, device):
 
 
 def init_stacked(spec: ModelSpec, mesh, order=None):
-    """The deterministic init, stacked in ``order``: ``(stacked tensors on
-    the mesh's device, host flags)``."""
-    stacked, flags = stack_params(init_model(spec), spec, order=order)
+    """The deterministic init, stacked in ``order`` at the mesh's tp:
+    ``(stacked tensors on the mesh's device, host flags)``."""
+    stacked, flags = stack_params(init_model(spec), spec, order=order, tp=mesh_tp(mesh))
     return put_stacked(stacked, mesh.device), flags
 
 
 # ---------------------------------------------------------------------------
-# ZeRO-1: the flat layout (host numpy; the JAX package's helpers at tp = 1)
+# ZeRO-1: the flat layout (host numpy; the JAX package's helpers)
 # ---------------------------------------------------------------------------
 #
 # ZeRO-1 shards the optimizer update over dp: the replicas' gradients are
 # summed into the padded flat layout, dp rank d updates columns [d*csz,
 # (d+1)*csz) with its state shard, and the updated chunks are gathered back
-# into the stacked params. Flat layout per pp row: every W slot (V, o, i)
-# then every b slot (V, o), flattened and zero-padded to a dp multiple. Each
-# 'params' state part (momentum's velocity, Adam's m and v) is one (pp,
-# dp*csz) tensor — the JAX global array's shape: row s is pp rank s, column
-# block d dp rank d's shard; 'scalar' parts (Adam's t) stay 0-d.
-
-
-def _tp1(tp):
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism is not ported yet; the port's "
-            "executor runs a (dp, pp) mesh (ROADMAP.md §A item 3, tp)"
-        )
+# into the stacked params. Flat layout per device row: every W slot (V, o,
+# i) then every b slot (V, o), each the device's tp shard, flattened and
+# zero-padded to a dp multiple. The rows are the (pp, tp) devices in
+# pp-major, tp-minor order: row s*tp + t is pp rank s's tp rank t (one row
+# per pp rank at tp = 1). Each 'params' state part (momentum's velocity,
+# Adam's m and v) is one (pp*tp, dp*csz) tensor — the JAX global array's
+# shape: column block d is dp rank d's shard; 'scalar' parts (Adam's t)
+# stay 0-d.
 
 
 def stacked_flat_len(spec: ModelSpec, pp: int, tp: int = 1) -> int:
-    """Per-pp-row flattened param count of the stacked layout (every W slot
-    then every b slot, V virtual rows each) — the one definition of the
-    flat layout's size (``executor.stacked_flat_len``)."""
-    _tp1(tp)
-    dims = slot_shapes(spec)
+    """Per-device flattened param count of the stacked layout (every W slot
+    then every b slot, V virtual rows each, the device's tp shard of each)
+    — the one definition of the flat layout's size
+    (``executor.stacked_flat_len``); it shrinks by exactly tp."""
+    dims = slot_shapes(spec, tp)
     V = spec.n_stages // pp
-    return sum(V * o * i for o, i in dims) + sum(V * o for o, _ in dims)
+    return sum(V * o * i // tp for o, i in dims) + sum(V * (o // tp) for o, _ in dims)
 
 
 def zero1_flat_len(spec: ModelSpec, mesh):
-    """(flat_len, chunk_size): the per-pp-row flattened param count and
+    """(flat_len, chunk_size): the per-device flattened param count and
     the padded per-dp-rank chunk size."""
-    flat = stacked_flat_len(spec, mesh.pp)
+    flat = stacked_flat_len(spec, mesh.pp, mesh_tp(mesh))
     return flat, -(-flat // mesh.dp)
 
 
 def _zero1_device_rows(spec, mesh):
-    """The flat layout's row iteration: ``(row_index, stage_slice)`` per pp
-    rank, its V stacked rows."""
+    """The flat layout's row iteration: ``(row_index, stage_slice,
+    tp_rank)`` per (pp, tp) device in pp-major, tp-minor order, the V
+    stacked rows of its pp rank."""
+    tp = mesh_tp(mesh)
     V = spec.n_stages // mesh.pp
     for d in range(mesh.pp):
-        yield d, slice(d * V, (d + 1) * V)
+        for t in range(tp):
+            yield d * tp + t, slice(d * V, (d + 1) * V), t
 
 
 def _zero1_flatten_rows(stacked_np, spec, mesh):
-    """Host: stacked ``{W, b}`` (numpy, leading axis S) -> ``(pp,
-    flat_len)``, each row one pp rank's flat view."""
-    rows = [None] * mesh.pp
-    for r, sl in _zero1_device_rows(spec, mesh):
-        parts = [np.ascontiguousarray(np.asarray(w)[sl]).reshape(-1) for w in stacked_np["W"]]
-        parts += [np.ascontiguousarray(np.asarray(b)[sl]).reshape(-1) for b in stacked_np["b"]]
+    """Host: stacked ``{W, b}`` (numpy, leading axis S) -> ``(pp*tp,
+    flat_len)``, each row one device's flat view: its V stage rows and, at
+    tp > 1, its column or row band of each W slot and its band of each b
+    slot."""
+    tp = mesh_tp(mesh)
+    dims = slot_shapes(spec, tp)
+    rows = [None] * (mesh.pp * tp)
+    for r, sl, t in _zero1_device_rows(spec, mesh):
+        parts = []
+        for l, (o, i) in enumerate(dims):
+            w = np.asarray(stacked_np["W"][l][sl])
+            if tp > 1:
+                o_s, i_s = o // tp, i // tp
+                if l % 2 == 0:
+                    w = w[:, t * o_s : (t + 1) * o_s, :]
+                else:
+                    w = w[:, :, t * i_s : (t + 1) * i_s]
+            parts.append(np.ascontiguousarray(w).reshape(-1))
+        for l, (o, _) in enumerate(dims):
+            b = np.asarray(stacked_np["b"][l][sl])
+            if tp > 1:
+                o_s = o // tp
+                b = b[:, t * o_s : (t + 1) * o_s]
+            parts.append(np.ascontiguousarray(b).reshape(-1))
         rows[r] = np.concatenate(parts)
     return np.stack(rows)
 
 
 def _zero1_unflatten_rows(arr, spec, mesh):
-    """Host inverse of ``_zero1_flatten_rows``: ``(pp, >= flat_len)`` ->
-    stacked ``{W, b}`` numpy."""
-    dims = slot_shapes(spec)
+    """Host inverse of ``_zero1_flatten_rows``: ``(pp*tp, >= flat_len)`` ->
+    stacked ``{W, b}`` numpy, the full global slabs (every device row
+    writes its shard back)."""
+    tp = mesh_tp(mesh)
+    dims = slot_shapes(spec, tp)
     V = spec.n_stages // mesh.pp
     Ws = [np.zeros((spec.n_stages, o, i), np.float32) for o, i in dims]
     bs = [np.zeros((spec.n_stages, o), np.float32) for o, _ in dims]
-    for r, sl in _zero1_device_rows(spec, mesh):
+    for r, sl, t in _zero1_device_rows(spec, mesh):
         off = 0
         for l, (o, i) in enumerate(dims):
-            n = V * o * i
-            Ws[l][sl] = arr[r, off : off + n].reshape(V, o, i)
+            o_s, i_s = o // tp, i // tp
+            if tp == 1:
+                n = V * o * i
+                Ws[l][sl] = arr[r, off : off + n].reshape(V, o, i)
+            elif l % 2 == 0:
+                n = V * o_s * i
+                Ws[l][sl, t * o_s : (t + 1) * o_s, :] = arr[r, off : off + n].reshape(V, o_s, i)
+            else:
+                n = V * o * i_s
+                Ws[l][sl, :, t * i_s : (t + 1) * i_s] = arr[r, off : off + n].reshape(V, o, i_s)
             off += n
         for l, (o, _) in enumerate(dims):
-            n = V * o
-            bs[l][sl] = arr[r, off : off + n].reshape(V, o)
+            o_s = o // tp
+            n = V * o_s
+            bs[l][sl, t * o_s : (t + 1) * o_s] = arr[r, off : off + n].reshape(V, o_s)
             off += n
     return {"W": tuple(Ws), "b": tuple(bs)}
 
@@ -390,16 +467,16 @@ def _zero1_check_state(opt, csz):
 
 
 def _zero_state(opt, mesh, width, rows_of=None):
-    """A ZeRO state dict on the mesh's device: one ``(pp, width)`` float32
-    tensor per 'params' part (``rows_of(key)`` gives its host rows, zeros
-    otherwise) and a 0-d tensor per 'scalar' part (``rows_of(key)`` its
-    value, the init's otherwise); ``()`` for a stateless optimizer."""
+    """A ZeRO state dict on the mesh's device: one ``(pp*tp, width)``
+    float32 tensor per 'params' part (``rows_of(key)`` gives its host rows,
+    zeros otherwise) and a 0-d tensor per 'scalar' part (``rows_of(key)``
+    its value, the init's otherwise); ``()`` for a stateless optimizer."""
     if is_stateless(opt):
         return ()
     parts, scalars = _zero1_check_state(opt, width // mesh.dp)
     state = {}
     for key in parts:
-        host = np.zeros((mesh.pp, width), np.float32)
+        host = np.zeros((mesh.pp * mesh_tp(mesh), width), np.float32)
         if rows_of is not None:
             host[:, : rows_of(key).shape[1]] = rows_of(key)
         state[key] = torch.from_numpy(host).to(mesh.device)
@@ -410,7 +487,7 @@ def _zero_state(opt, mesh, width, rows_of=None):
 
 
 def zero1_init_state(opt, spec: ModelSpec, mesh):
-    """The initial ZeRO-1 optimizer state: one ``(pp, dp*chunk)`` zeros
+    """The initial ZeRO-1 optimizer state: one ``(pp*tp, dp*chunk)`` zeros
     tensor per 'params' state part, a 0-d tensor per 'scalar' part; ``()``
     for a stateless optimizer."""
     _, csz = zero1_flat_len(spec, mesh)
@@ -445,7 +522,7 @@ def zero1_state_to_logical(state, opt, spec: ModelSpec, mesh, order=None):
 
 def _zero1_state_rows(logical_part, spec, mesh, order):
     """Stack one logical state part and flatten it into the flat rows."""
-    stacked, _ = stack_params(logical_part, spec, order=order)
+    stacked, _ = stack_params(logical_part, spec, order=order, tp=mesh_tp(mesh))
     return _zero1_flatten_rows(stacked, spec, mesh)
 
 
@@ -469,12 +546,12 @@ def zero1_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=None):
 # ---------------------------------------------------------------------------
 #
 # The higher stages make the shard layout PER LAYER SLOT instead of per flat
-# vector: every slot (V rows of sz elements; W slots then b slots, the flat
-# layout's order) pads each row to dp*k columns (k = ceil(sz/dp)) and deals
-# column block d to dp rank d. Rank d's shard is the concatenation over
-# slots of its (V, k) blocks, v-major: csz3 = sum over slots of V*k. One
-# row's gradient then lands in ONE (k,) segment of every rank's shard, which
-# is what lets the sync run per tick.
+# vector: every slot (V rows of sz elements, the device's tp-local shard;
+# W slots then b slots, the flat layout's order) pads each row to dp*k
+# columns (k = ceil(sz/dp)) and deals column block d to dp rank d. Rank d's
+# shard is the concatenation over slots of its (V, k) blocks, v-major: csz3
+# = sum over slots of V*k. One row's gradient then lands in ONE (k,) segment
+# of every rank's shard, which is what lets the sync run per tick.
 #
 # ZeRO-2: params replicated (the stacked {W, b}), gradients reduce-scattered
 # into this layout, optimizer state sharded in it. The anchor program sums
@@ -482,9 +559,10 @@ def zero1_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=None):
 # persistent shard carry (microbatch-outer: bitwise ZeRO-1 only at
 # mubatches = 1); a bucketed run keeps the replicas' full-slab accumulators
 # and scatters their sum at the tail (bitwise ZeRO-1 at any microbatch
-# count). ZeRO-3: params AT REST in this layout ({"P": (pp, dp*csz3)}); each
-# tick rebuilds the active chunk's slot rows from the shard, uses them and
-# drops them; its sync is the anchor ZeRO-2 tree, so it is bitwise it.
+# count). ZeRO-3: params AT REST in this layout ({"P": (pp*tp, dp*csz3)});
+# each tick rebuilds the active chunk's slot rows from the shards (at tp > 1
+# every tp rank's, into the chunk's global rows), uses them and drops them;
+# its sync is the anchor ZeRO-2 tree, so it is bitwise it.
 
 
 class ZeroSlot(NamedTuple):
@@ -493,7 +571,7 @@ class ZeroSlot(NamedTuple):
     kind: str  # "W" | "b"
     layer: int  # slot index within its kind
     rows: int  # V virtual chunk rows
-    shape: tuple  # per-row shape: (o, i) for W, (o,) for b
+    shape: tuple  # per-row tp-local shape: (o, i) W band or (o,) b band
     sz: int  # elements per row = prod(shape)
     k: int  # per-dp-rank columns = ceil(sz / dp)
     off: int  # start within a rank's csz3 block (cumulative V*k)
@@ -502,14 +580,14 @@ class ZeroSlot(NamedTuple):
 
 def zero_block_slots(spec: ModelSpec, pp: int, dp: int, tp: int = 1):
     """(slots, csz3): the per-slot block-cyclic geometry and the per-rank
-    shard length; slot order is the flat layout's, so ``flat_off`` walks
-    ``stacked_flat_len`` exactly."""
-    _tp1(tp)
-    dims = slot_shapes(spec)
+    shard length, over each slot's tp-local shape (``tp_local_dims``); slot
+    order is the flat layout's, so ``flat_off`` walks ``stacked_flat_len``
+    exactly."""
+    w_dims, b_widths, _, _ = tp_local_dims(slot_shapes(spec, tp), tp)
     V = spec.n_stages // pp
     slots = []
     off = flat_off = 0
-    for kind, shapes in (("W", dims), ("b", [(o,) for o, _ in dims])):
+    for kind, shapes in (("W", w_dims), ("b", [(w,) for w in b_widths])):
         for l, shape in enumerate(shapes):
             sz = int(np.prod(shape))
             k = -(-sz // dp)
@@ -522,7 +600,7 @@ def zero_block_slots(spec: ModelSpec, pp: int, dp: int, tp: int = 1):
 def zero_block_len(spec: ModelSpec, mesh):
     """(flat_len, csz3): the flat per-pp-row param count and the
     block-cyclic per-dp-rank shard length."""
-    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp, mesh_tp(mesh))
     return slots[-1].flat_off + slots[-1].rows * slots[-1].sz, csz3
 
 
@@ -570,18 +648,18 @@ def _zero_flat_from_block_rows(block_rows, slots, dp, csz3, flat):
 
 
 def zero_block_flatten_rows(stacked_np, spec, mesh):
-    """Host: stacked ``{W, b}`` (numpy) -> ``(pp, dp*csz3)`` block-cyclic
-    rows, the ZeRO-3 at-rest param layout."""
-    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    """Host: stacked ``{W, b}`` (numpy) -> ``(pp*tp, dp*csz3)``
+    block-cyclic rows, the ZeRO-3 at-rest param layout."""
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp, mesh_tp(mesh))
     return _zero_block_rows_from_flat(
         _zero1_flatten_rows(stacked_np, spec, mesh), slots, mesh.dp, csz3
     )
 
 
 def zero_block_unflatten_rows(arr, spec, mesh):
-    """Host inverse: ``(pp, dp*csz3)`` -> stacked ``{W, b}`` numpy."""
-    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
-    flat = stacked_flat_len(spec, mesh.pp)
+    """Host inverse: ``(pp*tp, dp*csz3)`` -> stacked ``{W, b}`` numpy."""
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp, mesh_tp(mesh))
+    flat = stacked_flat_len(spec, mesh.pp, mesh_tp(mesh))
     return _zero1_unflatten_rows(
         _zero_flat_from_block_rows(np.asarray(arr, np.float32), slots, mesh.dp, csz3, flat),
         spec, mesh,
@@ -608,7 +686,7 @@ def zero_block_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=Non
     device (None -> the initial state)."""
     if logical is None:
         return zero_block_init_state(opt, spec, mesh)
-    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp)
+    slots, csz3 = zero_block_slots(spec, mesh.pp, mesh.dp, mesh_tp(mesh))
 
     def rows_of(key):
         if key in logical["parts"]:
@@ -620,7 +698,7 @@ def zero_block_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=Non
 
 
 def zero_params_at_rest(stacked_np, spec, mesh):
-    """The ZeRO-3 params at rest on the mesh's device: ``{"P": (pp,
+    """The ZeRO-3 params at rest on the mesh's device: ``{"P": (pp*tp,
     dp*csz3)}`` from a host stacked ``{W, b}`` tree."""
     rows = zero_block_flatten_rows(stacked_np, spec, mesh)
     return {"P": torch.from_numpy(rows).to(mesh.device)}
@@ -631,99 +709,154 @@ def zero_params_at_rest(stacked_np, spec, mesh):
 # ---------------------------------------------------------------------------
 
 
-def _flat_rows(tree, P, width):
-    """A stacked ``{W, b}`` tree -> its ``(pp, width)`` flat rows on the
-    device (every W slot then every b slot per pp row, zero-padded)."""
-    vec = torch.cat([w.reshape(P, -1) for w in tree["W"]] + [b.reshape(P, -1) for b in tree["b"]], dim=1)
+def _tree_leaves(tree):
+    """``(kind, slot, leaf)`` of a stacked ``{W, b}`` tree: every W slot
+    then every b slot, the flat layout's order."""
+    return [("W", l, a) for l, a in enumerate(tree["W"])] + [
+        ("b", l, a) for l, a in enumerate(tree["b"])
+    ]
+
+
+def _rank_view(a, kind, l, P, tp):
+    """A stacked leaf ``(P*V, o[, i])`` as every (pp, tp) device's shard: a
+    ``(P, tp, V) + local shape`` view (strided at tp > 1; a column slot's
+    rank t holds rows ``t*o/tp..``, a row slot's columns ``t*i/tp..``, a
+    bias its ``o/tp`` band)."""
+    V = a.shape[0] // P
+    if kind == "b":
+        return a.view(P, V, tp, a.shape[1] // tp).permute(0, 2, 1, 3)
+    o, i = a.shape[1:]
+    if l % 2 == 0:
+        return a.view(P, V, tp, o // tp, i).permute(0, 2, 1, 3, 4)
+    return a.view(P, V, o, tp, i // tp).permute(0, 3, 1, 2, 4)
+
+
+def _global_shape(s, tp):
+    """A ZeRO slot's global per-row shape from its tp-local one."""
+    if s.kind == "b":
+        return (s.shape[0] * tp,)
+    o, i = s.shape
+    return (o * tp, i) if s.layer % 2 == 0 else (o, i * tp)
+
+
+def _flat_rows(tree, P, width, tp=1):
+    """A stacked ``{W, b}`` tree -> its ``(pp*tp, width)`` flat rows on the
+    device (every W slot then every b slot per device row, each its tp
+    shard, zero-padded)."""
+    vec = torch.cat(
+        [_rank_view(a, k, l, P, tp).reshape(P * tp, -1) for k, l, a in _tree_leaves(tree)], dim=1
+    )
     return _fit(vec, width)
 
 
-def _unflat_rows(vec, like):
-    """Flat rows -> new stacked tensors shaped as ``like``'s leaves."""
-    P, out, off = vec.shape[0], {}, 0
-    for key in ("W", "b"):
-        leaves = []
-        for a in like[key]:
-            n = a.numel() // P
-            leaves.append(vec[:, off : off + n].reshape(a.shape))
-            off += n
-        out[key] = tuple(leaves)
-    return out
+def _unflat_rows(vec, like, tp=1):
+    """Flat rows -> stacked tensors shaped as ``like``'s leaves (at tp = 1
+    views of ``vec`` where the layout allows, else new tensors)."""
+    P, out, off = vec.shape[0] // tp, {"W": [], "b": []}, 0
+    for k, l, a in _tree_leaves(like):
+        n = a.numel() // (P * tp)
+        seg = vec[:, off : off + n]
+        if tp == 1:
+            new = seg.reshape(a.shape)
+        else:
+            new = torch.empty_like(a)
+            view = _rank_view(new, k, l, P, tp)
+            view.copy_(seg.reshape(view.shape))
+        out[k].append(new)
+        off += n
+    return {k: tuple(v) for k, v in out.items()}
 
 
-def _unflat_rows_into(vec, tree):
+def _unflat_rows_into(vec, tree, tp=1):
     """The all-gather of ZeRO-1: flat rows copied back into ``tree``'s
     stacked tensors, in place."""
-    P, off = vec.shape[0], 0
-    for key in ("W", "b"):
-        for a in tree[key]:
-            n = a.numel() // P
-            a.view(P, n).copy_(vec[:, off : off + n])
-            off += n
+    P, off = vec.shape[0] // tp, 0
+    for k, l, a in _tree_leaves(tree):
+        n = a.numel() // (P * tp)
+        view = _rank_view(a, k, l, P, tp)
+        view.copy_(vec[:, off : off + n].reshape(view.shape))
+        off += n
 
 
-def _deal(tree, slots, P, dp):
-    """A stacked ``{W, b}`` tree -> its block-cyclic ``(pp, dp*csz3)`` rows:
-    per slot, each row padded to dp*k and its column block d dealt to rank
-    d (column block d of the result is rank d's shard). Each slot is copied
-    straight into its strided place: the only full-size tensor made is the
-    result."""
-    leaves = list(tree["W"]) + list(tree["b"])
+def _deal(tree, slots, P, dp, tp=1):
+    """A stacked ``{W, b}`` tree -> its block-cyclic ``(pp*tp, dp*csz3)``
+    rows: per slot, each device row's shard padded to dp*k and its column
+    block d dealt to rank d (column block d of the result is rank d's
+    shard). Each slot is copied straight into its strided place: the only
+    full-size tensor made is the result (and, at tp > 1, one slot's rank
+    shards at a time)."""
+    R = P * tp
     csz3 = slots[-1].off + slots[-1].rows * slots[-1].k
-    out = torch.empty((P, dp, csz3), dtype=leaves[0].dtype, device=leaves[0].device)
-    for s, a in zip(slots, leaves):
-        rows = _fit(a.reshape(P, s.rows, s.sz), dp * s.k)
-        dst = out[:, :, s.off : s.off + s.rows * s.k].view(P, dp, s.rows, s.k)
-        dst.copy_(rows.view(P, s.rows, dp, s.k).transpose(1, 2))
-    return out.view(P, -1)
+    leaves = _tree_leaves(tree)
+    a0 = leaves[0][2]
+    out = torch.empty((R, dp, csz3), dtype=a0.dtype, device=a0.device)
+    for s, (k, l, a) in zip(slots, leaves):
+        rows = _fit(_rank_view(a, k, l, P, tp).reshape(R, s.rows, s.sz), dp * s.k)
+        dst = out[:, :, s.off : s.off + s.rows * s.k].view(R, dp, s.rows, s.k)
+        dst.copy_(rows.view(R, s.rows, dp, s.k).transpose(1, 2))
+    return out.view(R, -1)
 
 
-def _undeal_slot(rows, s, P, dp):
-    """One slot's ``(pp, V, sz)`` values out of block-cyclic rows (a
+def _undeal_slot(rows, s, R, dp):
+    """One slot's ``(pp*tp, V, sz)`` values out of block-cyclic rows (a
     strided view of a fresh gather)."""
-    seg = rows.view(P, dp, -1)[:, :, s.off : s.off + s.rows * s.k]
-    full = seg.reshape(P, dp, s.rows, s.k).transpose(1, 2).reshape(P, s.rows, dp * s.k)
+    seg = rows.view(R, dp, -1)[:, :, s.off : s.off + s.rows * s.k]
+    full = seg.reshape(R, dp, s.rows, s.k).transpose(1, 2).reshape(R, s.rows, dp * s.k)
     return full[:, :, : s.sz]
 
 
-def _undeal(rows, slots, P, dp):
+def _undeal(rows, slots, P, dp, tp=1):
     """Block-cyclic rows -> a new stacked ``{W, b}`` tree (the ZeRO-3 eval
     view)."""
     out = {"W": [], "b": []}
     for s in slots:
-        out[s.kind].append(_undeal_slot(rows, s, P, dp).reshape((P * s.rows,) + s.shape))
+        new = rows.new_empty((P * s.rows,) + _global_shape(s, tp))
+        view = _rank_view(new, s.kind, s.layer, P, tp)
+        view.copy_(_undeal_slot(rows, s, P * tp, dp).reshape(view.shape))
+        out[s.kind].append(new)
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _undeal_into(rows, slots, tree, P, dp):
+def _undeal_into(rows, slots, tree, P, dp, tp=1):
     """The all-gather of ZeRO-2: block-cyclic rows copied back into
     ``tree``'s stacked tensors, in place."""
-    for s, a in zip(slots, list(tree["W"]) + list(tree["b"])):
-        a.view(P, s.rows, s.sz).copy_(_undeal_slot(rows, s, P, dp))
+    for s, (k, l, a) in zip(slots, _tree_leaves(tree)):
+        view = _rank_view(a, k, l, P, tp)
+        view.copy_(_undeal_slot(rows, s, P * tp, dp).reshape(view.shape))
 
 
-def _gather_chunk(pv, slots, s, ck, L):
+def _gather_chunk(pv, slots, s, ck, L, tp=1):
     """ZeRO-3's per-tick gather: pp rank ``s``'s chunk ``ck`` slot rows
-    rebuilt from every dp rank's shard (``pv``: the ``(pp, dp, csz3)``
-    view), once for all replicas; returns ``(Ws, bs)``."""
+    rebuilt from every dp rank's shard (``pv``: the ``(pp*tp, dp, csz3)``
+    view), once for all replicas, at tp > 1 every tp rank's shard placed
+    in the chunk's global rows; returns ``(Ws, bs)``."""
     out = []
     for sl in slots:
         a = sl.off + ck * sl.k
-        full = pv[s, :, a : a + sl.k].reshape(-1)
-        out.append(full[: sl.sz].view(sl.shape))
+        if tp == 1:
+            full = pv[s, :, a : a + sl.k].reshape(-1)
+            out.append(full[: sl.sz].view(sl.shape))
+            continue
+        shards = pv[s * tp : (s + 1) * tp, :, a : a + sl.k].reshape(tp, -1)[:, : sl.sz]
+        row = pv.new_empty((1,) + _global_shape(sl, tp))
+        view = _rank_view(row, sl.kind, sl.layer, 1, tp)
+        view.copy_(shards.reshape(view.shape))
+        out.append(row[0])
     return out[:L], out[L:]
 
 
-def _scatter_tick(gzv, slots, L, s, ck, dp, pending):
+def _scatter_tick(gzv, slots, L, s, ck, dp, pending, tp=1):
     """The per-tick reduce-scatter of ZeRO-2 (anchor) and ZeRO-3: each
     slot's gradient of this tick, already summed over the replicas in
-    replica order (``pending``: slot -> (dW, db)), padded to dp*k and added
-    into every rank's segment of the shard carry (``gzv``: the ``(pp, dp,
-    csz3)`` view)."""
+    replica order (``pending``: slot -> (dW, db), at tp > 1 each stacked
+    over the tp ranks), every device row's shard padded to dp*k and added
+    into its dp ranks' segments of the shard carry (``gzv``: the
+    ``(pp*tp, dp, csz3)`` view)."""
     for l, grads in pending.items():
         for sl, g in zip((slots[l], slots[L + l]), grads):
             a = sl.off + ck * sl.k
-            gzv[s, :, a : a + sl.k].add_(_fit(g.reshape(-1), dp * sl.k).view(dp, sl.k))
+            seg = gzv[s * tp : (s + 1) * tp, :, a : a + sl.k]
+            seg.add_(_fit(g.reshape(tp, -1), dp * sl.k).view(tp, dp, sl.k))
 
 
 # ---------------------------------------------------------------------------
@@ -855,6 +988,173 @@ def _stage_bwd_weight(active, xs, g_effs, sink):
 
 
 # ---------------------------------------------------------------------------
+# The Megatron stage functions (tp > 1)
+# ---------------------------------------------------------------------------
+#
+# The JAX executor's ``_stage_fwd_tp`` .. ``_stage_bwd_tp`` with every tp rank
+# of one (d, s) position computed together, slot by slot: a value each rank
+# holds a band of is a ``(tp, rows, w/tp)`` stack (rank t at index t), a
+# value every rank holds whole (the JAX package's replicated values, the
+# same bits on every rank) is one ``(rows, w)`` tensor, and a rank's weights
+# are views of the chunk's global slot rows (``_tp_w``/``_tp_b``). Each slot
+# runs one batched product over the rank views; each ``psum`` over 'tp' is
+# ``_rank_sum``. Exactness, as in the JAX package: the sums that reassemble
+# a sharded value (an inactive slot's passthrough, the closing gather, the
+# scattered row bias) add exact zeros, while the row-parallel forward and
+# the column-parallel dx split a contraction over the ranks and so
+# reassociate it — the cross-layout class against tp = 1, bitwise only
+# across same-layout knobs. The split and combined backward make the same
+# calls (``_stage_bwd_tp`` is the literal composition of its halves).
+
+
+def _tp_w(W, l, tp):
+    """Slot ``l``'s rank views of a global W row ``(o, i)``: ``(tp, o/tp,
+    i)`` row bands at a column-parallel (even) slot, ``(tp, o, i/tp)``
+    column bands at a row-parallel (odd) one."""
+    o, i = W.shape
+    if l % 2 == 0:
+        return W.view(tp, o // tp, i)
+    return W.view(o, tp, i // tp).transpose(0, 1)
+
+
+def _tp_b(b, tp):
+    """The rank bands ``(tp, o/tp)`` of a global bias row ``(o,)``."""
+    return b.view(tp, -1)
+
+
+def _tp_shard(a, tp):
+    """Every rank's width-``w/tp`` slice of a full-width ``(rows, w)``
+    value, stacked ``(tp, rows, w/tp)`` (exact: column selection)."""
+    rows, w = a.shape
+    return a.reshape(rows, tp, w // tp).transpose(0, 1)
+
+
+def _tp_scatter(a_sh, full_w):
+    """Each rank's shard at its column offset in a zero full-width value:
+    ``(tp, rows, w)`` -> ``(tp, rows, full_w)``; the rank sum of it is the
+    all-gather (each column written by one rank, the others add 0.0)."""
+    tp, rows, w = a_sh.shape
+    if full_w != tp * w:
+        raise ValueError(f"tp scatter of {tp} x {w} columns into {full_w}")
+    z = a_sh.new_zeros((tp, rows, tp, w))
+    z.diagonal(dim1=0, dim2=2).copy_(a_sh.permute(1, 2, 0))
+    return z.view(tp, rows, full_w)
+
+
+def _rank_sum(parts):
+    """The psum over 'tp' on the virtual mesh: the ranks' ``(tp, ...)``
+    values added in rank order, ((p_0 + p_1) + p_2) + ..."""
+    return functools.reduce(torch.add, parts.unbind(0))
+
+
+def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
+    """The Megatron forward of one stage (``executor._stage_fwd_tp``).
+    Returns ``(out, xs, masks)``: the stage output at full width, and per
+    active slot its input as the wgrad contracts it (full at column slots,
+    the rank stack at row slots) and its mask as the dgrad masks it (the
+    rank stack at column slots, full after the sum at row slots); None at
+    inactive slots. An inactive column slot passes the ranks' shards of the
+    fitted activation on, an inactive row slot scatters them back through
+    its sum; a trailing column slot (odd slot count) closes with the
+    full-width gather. Gelu family: the residual adds sit at row slots,
+    after the sum."""
+    L = len(dims)
+    xs, masks = [None] * L, [None] * L
+    x_prev = None
+    for l, (o, i) in enumerate(dims):
+        if l % 2 == 0:  # column-parallel: full input, every rank's band out
+            x_l = _fit(x, i)
+            x_prev = x_l
+            if not active[l]:
+                x = _tp_shard(_fit(x_l, o), tp)
+                continue
+            z = torch.matmul(x_l, _tp_w(Ws[l], l, tp).transpose(1, 2))
+            z = z + _tp_b(bs[l], tp).unsqueeze(1)
+            xs[l] = x_l
+        else:  # row-parallel: the rank stack in, one rank sum, full out
+            if not active[l]:
+                x = _rank_sum(_fit(_tp_scatter(x, i), o))
+                continue
+            part = torch.matmul(x, _tp_w(Ws[l], l, tp).transpose(1, 2))
+            z = _rank_sum(part + _tp_scatter(_tp_b(bs[l], tp).unsqueeze(1), o))
+            xs[l] = x
+        if act == "gelu":
+            masks[l] = ops.gelu_grad_mult(z) if relu[l] else None
+            y = ops.gelu(z) if relu[l] else z
+            if l % 2 == 1 and residual[l]:
+                y = y + _fit(x_prev, o)
+        else:
+            masks[l] = z > 0
+            y = ops.relu(z) if relu[l] else z
+        x = y
+    if L % 2 == 1:
+        # the trailing column slot left the output as rank bands
+        x = _rank_sum(_tp_scatter(x, dims[-1][0]))
+    return x, xs, masks
+
+
+def _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tp):
+    """The dgrad chain of the Megatron backward
+    (``executor._stage_bwd_input_tp``): the split B-input, and the first
+    half of the combined backward. Returns ``(dx, g_effs)``, the full input
+    gradient and each active slot's effective output-grad in its mask's
+    representation. Column slots sum their rank partials of dx; gelu's
+    residual grads land there, after the sum."""
+    L = len(dims)
+    g_effs = [None] * L
+    g_prev = None
+    if L % 2 == 1:
+        # the trailing column slot consumes each rank's band of the grad
+        g = _tp_shard(_fit(g, dims[-1][0]), tp)
+    for l in reversed(range(L)):
+        o, i = dims[l]
+        if l % 2 == 0:  # column-parallel: rank-stack g, summed full dx
+            if active[l]:
+                g_effs[l] = _g_eff(g, masks[l], relu[l])
+                part = torch.matmul(g_effs[l], _tp_w(Ws[l], l, tp))
+            else:
+                part = _fit(_tp_scatter(g, o), i)
+            g = _rank_sum(part)
+            if l + 1 < L and residual[l + 1]:
+                g = g + _fit(g_prev, i)
+        else:  # row-parallel: full g, each rank's dx band
+            g_l = _fit(g, o)
+            if active[l]:
+                g_effs[l] = _g_eff(g_l, masks[l], relu[l])
+                g = torch.matmul(g_effs[l], _tp_w(Ws[l], l, tp))
+            else:
+                g = _tp_shard(_fit(g_l, i), tp)
+            g_prev = g_l
+    return g, g_effs
+
+
+def _stage_bwd_weight_tp(active, xs, g_effs, tp, sink):
+    """The wgrad half of the Megatron backward
+    (``executor._stage_bwd_weight_tp``): every product contracts the
+    microbatch rows, so it is rank-local. Hands each active slot's ``(l,
+    dW, db)`` to ``sink`` as rank stacks, ``(tp,) + w_dims[l]`` and ``(tp,
+    o/tp)``; a row slot's db is each rank's band of the full row sum."""
+    for l, on in enumerate(active):
+        if not on:
+            continue
+        if l % 2 == 0:
+            dw = torch.matmul(g_effs[l].transpose(1, 2), xs[l])
+            db = g_effs[l].sum(dim=1)
+        else:
+            dw = torch.matmul(g_effs[l].T, xs[l])
+            db = _tp_shard(g_effs[l].sum(dim=0).unsqueeze(0), tp)[:, 0]
+        sink(l, dw, db)
+
+
+def _stage_bwd_tp(Ws, active, relu, residual, dims, xs, masks, g, tp, sink):
+    """The combined Megatron backward: the literal composition of the two
+    halves, so the split and combined schedules make the same calls."""
+    dx, g_effs = _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tp)
+    _stage_bwd_weight_tp(active, xs, g_effs, tp, sink)
+    return dx
+
+
+# ---------------------------------------------------------------------------
 # The two data movers between virtual ranks
 # ---------------------------------------------------------------------------
 
@@ -950,19 +1250,19 @@ def _device_of(stacked):
     return stacked["P"].device if "P" in stacked else stacked["W"][0].device
 
 
-def _apply_sharded(opt, params, grads, opt_state, P, dp):
-    """The ZeRO update: ``opt.apply`` on each ``(s, d)`` rank's chunk with
-    its state shard (``params``/``grads`` and each 'params' state part are
-    ``(pp, dp*chunk)`` rows; a chunk is a view, updated in place). Every
-    rank reads the same 'scalar' parts (Adam's t) and writes the same new
-    values back, as the JAX package's replicated scalars. Returns the new
-    state (``()`` stays ``()``)."""
+def _apply_sharded(opt, params, grads, opt_state, R, dp):
+    """The ZeRO update: ``opt.apply`` on each ``(row, d)`` rank's chunk
+    with its state shard (``params``/``grads`` and each 'params' state part
+    are ``(R, dp*chunk)`` rows, ``R = pp*tp`` devices; a chunk is a view,
+    updated in place). Every rank reads the same 'scalar' parts (Adam's t)
+    and writes the same new values back, as the JAX package's replicated
+    scalars. Returns the new state (``()`` stays ``()``)."""
     layout = opt.state_layout()
-    pv, gv = params.view(P, dp, -1), grads.view(P, dp, -1)
-    parts = {k: opt_state[k].view(P, dp, -1) for k, kd in layout.items() if kd == "params"}
+    pv, gv = params.view(R, dp, -1), grads.view(R, dp, -1)
+    parts = {k: opt_state[k].view(R, dp, -1) for k, kd in layout.items() if kd == "params"}
     scalars = {k: opt_state[k] for k, kd in layout.items() if kd == "scalar"}
     new_scalars = scalars
-    for s in range(P):
+    for s in range(R):
         for d in range(dp):
             state = join_state(opt, {k: v[s, d] for k, v in parts.items()}, dict(scalars))
             _, state = opt.apply(pv[s, d], gv[s, d], state)
@@ -977,7 +1277,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                        with_step_stats=False, with_digests=False, zero=0,
                        grad_bucket_bytes=0):
     """The step executing one ``TickProgram`` over the virtual mesh
-    (``executor.make_pipeline_step`` at tp = 1).
+    (``executor.make_pipeline_step``).
 
     Training (``prog.is_training``, ``opt`` required):
         ``step(stacked, flags, opt_state, x, y) -> (stacked, opt_state, loss)``
@@ -992,7 +1292,10 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     ``interleave_order`` when ``prog.num_chunks > 1``; ``flags`` are HOST
     numpy. ``clip_norm``: the global-norm clip on the post-sync gradient.
     ``kernel_backend``: ``"xla"`` (plain torch) or ``"pallas"`` (the flag
-    kernels).
+    kernels). A mesh with a tp axis (``mesh_tp(mesh) > 1``) runs the
+    Megatron stage functions on the plain backend (pallas is refused, in
+    the JAX package's words) over the ``stack_params(..., tp)`` layout; the
+    ZeRO layouts then hold ``pp * tp`` device rows.
 
     ``zero``: the dp-axis ZeRO stage (0-3), the JAX package's tails on the
     virtual mesh. 0: the replicas' full-slab
@@ -1038,6 +1341,13 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             "slot inside the scan); the grad_bucket_bytes knob shapes the "
             "tail sync only and has nothing to bucket at stage 3"
         )
+    tp_n = mesh_tp(mesh)
+    if tp_n > 1 and kernel_backend == "pallas":
+        raise ValueError(
+            "tensor parallelism shards each slot's W across the tp axis; "
+            "the fused pallas flag kernels compute whole slots — use "
+            "kernel_backend='xla' with --tp"
+        )
     _check_program(mesh, spec, prog, kernel_backend)
     training = prog.is_training
     if training and opt is None:
@@ -1050,6 +1360,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     if with_step_stats:
         with_grad_norm = True  # step stats carry the grad norm per step
     P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
+    R = P * tp_n  # device rows of the ZeRO layouts, (pp, tp) pp-major
     if zero >= 2 and with_digests:
         raise ValueError(
             "with_digests reads the zero1 flat-chunk segment map; the "
@@ -1066,7 +1377,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         if zero1:
             _, csz = zero1_flat_len(spec, mesh)
         else:
-            zb_slots, csz = zero_block_slots(spec, P, dp)
+            zb_slots, csz = zero_block_slots(spec, P, dp, tp_n)
         if not is_stateless(opt):
             _zero1_check_state(opt, csz)
     # anchor ZeRO-2 and ZeRO-3 sum each tick's gradients into the persistent
@@ -1074,7 +1385,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     shard_grads = zero == 3 or (zero == 2 and not grad_bucket_bytes)
     act = spec.act
     split_bwd, rec = bool(prog.backward_split), bool(prog.recompute)
-    dims = slot_shapes(spec)
+    dims = slot_shapes(spec, tp_n)
     L = len(dims)
     D_in, D_out = dims[0][1], dims[-1][0]
     W_rel = relay_width(spec)
@@ -1112,10 +1423,10 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         residual = np.asarray(flags["residual"]).tolist()
         hm = head_mask_rows(flags, dev)
         if zero == 3:
-            pv = stacked["P"].view(P, dp, csz)
+            pv = stacked["P"].view(R, dp, csz)
 
             def chunk_weights(s, ck):
-                return _gather_chunk(pv, zb_slots, s, ck, L)
+                return _gather_chunk(pv, zb_slots, s, ck, L, tp_n)
         else:
             Ws = [[w[r] for w in stacked["W"]] for r in range(P * V)]
             bs = [[b[r] for b in stacked["b"]] for r in range(P * V)]
@@ -1132,8 +1443,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             gstash = [[[None] * (Kg + 1) for _ in range(P)] for _ in range(dp)]
             xin = [[[None] * (Kx + 1) for _ in range(P)] for _ in range(dp)]
             if shard_grads:
-                gz = torch.zeros((P, dp * csz), dtype=torch.float32, device=dev)
-                gzv = gz.view(P, dp, csz)
+                gz = torch.zeros((R, dp * csz), dtype=torch.float32, device=dev)
+                gzv = gz.view(R, dp, csz)
             else:
                 acc = [
                     {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
@@ -1145,21 +1456,23 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
         def grad_sink(d, r, pending):
             """Where replica ``d``'s slot gradients of row ``r`` go: into
-            its slabs, or into the tick's running sum over the replicas
-            (replica order: ((g_0 + g_1) + g_2) ...) for the shard scatter."""
+            its slabs, through the rank views (one view of the whole row
+            at tp = 1), or into the tick's running sum over the replicas
+            (replica order: ((g_0 + g_1) + g_2) ...) for the shard
+            scatter."""
             if shard_grads:
                 def sink(l, dw, db):
-                    db = db.reshape(-1)
+                    db = db.reshape(tp_n, -1)
                     if l in pending:
                         dw, db = pending[l][0] + dw, pending[l][1] + db
                     pending[l] = (dw, db)
             else:
-                gW = [w[r] for w in acc[d]["W"]]
-                gb = [b[r] for b in acc[d]["b"]]
+                gW = [_tp_w(w[r], l, tp_n) for l, w in enumerate(acc[d]["W"])]
+                gb = [_tp_b(b[r], tp_n) for b in acc[d]["b"]]
 
                 def sink(l, dw, db):
                     gW[l].add_(dw)
-                    gb[l].add_(db.reshape(-1))
+                    gb[l].add_(db.reshape(tp_n, -1))
             return sink
 
         def head_or_mail(d, s, t, r, z, mb_r):
@@ -1187,6 +1500,13 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                 pending = {}  # slot -> the replicas' summed gradients (shard sync)
 
                 def fwd(x_in):
+                    """The one stage-forward call of the forward and the
+                    recompute tick (the same calls: recompute's bitwise
+                    contract)."""
+                    if tp_n > 1:
+                        return _stage_fwd_tp(
+                            W_r, b_r, active[r], relu[r], residual[r], dims, x_in, act, tp_n,
+                        )
                     return _stage_fwd(
                         W_r, b_r, active[r], relu[r], residual[r], dims, x_in,
                         kernel_backend, act,
@@ -1226,34 +1546,51 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         if split_bwd:
                             # B-input: peek the stash (the B-weight frees it)
                             _, masks_r, z_r = stash[d][s][tab["sp"][t][s]]
-                            dx, g_effs = _stage_bwd_input(
-                                W_r, active[r], relu[r], residual[r], dims, masks_r,
-                                head_or_mail(d, s, t, r, z_r, mb_r),
-                            )
+                            g_in = head_or_mail(d, s, t, r, z_r, mb_r)
+                            if tp_n > 1:
+                                dx, g_effs = _stage_bwd_input_tp(
+                                    W_r, active[r], relu[r], residual[r], dims, masks_r,
+                                    g_in, tp_n,
+                                )
+                            else:
+                                dx, g_effs = _stage_bwd_input(
+                                    W_r, active[r], relu[r], residual[r], dims, masks_r, g_in,
+                                )
                             gstash[d][s][tab["gw"][t][s]] = g_effs
                         else:
                             sr = tab["sr"][t][s]
                             xs_r, masks_r, z_r = stash[d][s][sr]
                             stash[d][s][sr] = None
-                            dx = _stage_bwd(
-                                W_r, active[r], relu[r], residual[r], dims, xs_r, masks_r,
-                                head_or_mail(d, s, t, r, z_r, mb_r), kernel_backend,
-                                grad_sink(d, r, pending),
-                            )
+                            g_in = head_or_mail(d, s, t, r, z_r, mb_r)
+                            if tp_n > 1:
+                                dx = _stage_bwd_tp(
+                                    W_r, active[r], relu[r], residual[r], dims, xs_r,
+                                    masks_r, g_in, tp_n, grad_sink(d, r, pending),
+                                )
+                            else:
+                                dx = _stage_bwd(
+                                    W_r, active[r], relu[r], residual[r], dims, xs_r,
+                                    masks_r, g_in, kernel_backend, grad_sink(d, r, pending),
+                                )
                         if tab["sb"][t][s] == 1:
                             n = (s - 1) % P
                             sends.append((bwd_mail[d][n], tab["inb"][t][n], _fit(dx, W_rel)))
                     elif op[s] == OP_BWD_W:
                         sr, gr = tab["sr"][t][s], tab["gr"][t][s]
-                        _stage_bwd_weight(
-                            active[r], stash[d][s][sr][0], gstash[d][s][gr],
-                            grad_sink(d, r, pending),
-                        )
+                        sink = grad_sink(d, r, pending)
+                        if tp_n > 1:
+                            _stage_bwd_weight_tp(
+                                active[r], stash[d][s][sr][0], gstash[d][s][gr], tp_n, sink,
+                            )
+                        else:
+                            _stage_bwd_weight(
+                                active[r], stash[d][s][sr][0], gstash[d][s][gr], sink,
+                            )
                         stash[d][s][sr] = gstash[d][s][gr] = None
                     else:
                         raise ValueError(f"tick {t} stage {s}: op code {op[s]} not ported")
                 if pending:
-                    _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending)
+                    _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending, tp_n)
             for mailbox, slot, payload in sends:
                 relay(mailbox, slot, payload)
         if training:
@@ -1282,14 +1619,14 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         if zero == 3:
             pch = stacked["P"]
         elif zero1:
-            pch = _flat_rows(stacked, P, dp * csz)
+            pch = _flat_rows(stacked, P, dp * csz, tp_n)
         else:
-            pch = _deal(stacked, zb_slots, P, dp)
-        opt_state = _apply_sharded(opt, pch, gsh, opt_state, P, dp)
+            pch = _deal(stacked, zb_slots, P, dp, tp_n)
+        opt_state = _apply_sharded(opt, pch, gsh, opt_state, R, dp)
         if zero1:
-            _unflat_rows_into(pch, stacked)
+            _unflat_rows_into(pch, stacked, tp_n)
         elif zero == 2:
-            _undeal_into(pch, zb_slots, stacked, P, dp)
+            _undeal_into(pch, zb_slots, stacked, P, dp, tp_n)
         return stacked, opt_state, gnorm
 
     if training:
@@ -1315,15 +1652,15 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                 elif zero1:
                     # each replica's slabs flattened per pp row, then summed
                     # in replica order
-                    gvecs = [_flat_rows(acc.pop(0), P, dp * csz) for _ in range(dp)]
+                    gvecs = [_flat_rows(acc.pop(0), P, dp * csz, tp_n) for _ in range(dp)]
                     gsh = functools.reduce(torch.add, gvecs)
                     del gvecs
                     if with_digests:
-                        raw = _unflat_rows(gsh, stacked)
+                        raw = _unflat_rows(gsh, stacked, tp_n)
                 else:
                     # bucketed zero 2: the slabs dealt into the block-cyclic
                     # layout, summed in replica order
-                    deals = [_deal(acc.pop(0), zb_slots, P, dp) for _ in range(dp)]
+                    deals = [_deal(acc.pop(0), zb_slots, P, dp, tp_n) for _ in range(dp)]
                     gsh = functools.reduce(torch.add, deals)
                     del deals
                 stacked, opt_state, gnorm = sharded_tail(stacked, opt_state, gsh)

@@ -5,7 +5,7 @@ The JAX package issues one collective per byte-bounded BUCKET of the
 gradient, in backward order (output layer first), instead of one whole-tree
 ``psum`` at the sync anchor, so XLA can overlap each bucket's communication
 with the tail's compute. This module keeps its planning half as it is, pure
-host data at tp = 1: ``BucketLeaf``, ``BucketPlan``, the three planners,
+host data: ``BucketLeaf``, ``BucketPlan``, the three planners,
 ``plan_buckets`` and the analytical ``sync_comm_bytes``. The plans feed the
 session's ``grad_sync_plan`` record and choose the executor's ZeRO-2 tail.
 
@@ -15,17 +15,17 @@ communication to overlap, and a per-bucket sum is the unbucketed
 replica-order sum sliced and put back together (both are elementwise: the
 JAX module's bitwise contract). The executor runs the unbucketed sum; the
 multi-card runtime, where a bucket is a real collective, brings per-bucket
-emission back (ROADMAP.md §A item 7). tp > 1 raises
-``NotImplementedError``: the port's mesh has no tp axis yet (ROADMAP.md §A
-item 3).
+emission back (ROADMAP.md §A item 7). At tp > 1 every plan covers one
+device's Megatron shards (``executor.tp_local_dims``), so the dp payload
+shrinks by tp, as in the JAX package.
 """
 
 import dataclasses
 
 from shallowspeed_tpu_torch.parallel.executor import (
-    _tp1,
     slot_shapes,
     stacked_flat_len,
+    tp_local_dims,
     zero_block_slots,
 )
 
@@ -111,15 +111,15 @@ def _stacked_leaves(spec, pp, tp=1):
     """The executor's per-device gradient leaves in BACKWARD order: the
     backward finalizes slot L-1 (the output layer) first and computes each
     slot's dW and db together, so the order is [W_{L-1}, b_{L-1}, ...,
-    W_0, b_0]."""
-    _tp1(tp)
-    dims = slot_shapes(spec)
+    W_0, b_0]. Under tp the leaves are one rank's Megatron shards."""
+    dims = slot_shapes(spec, tp)
+    w_dims, b_widths, _, _ = tp_local_dims(dims, tp)
     V = spec.n_stages // pp
     leaves = []
     for l in reversed(range(len(dims))):
-        o, i = dims[l]
+        o, i = w_dims[l]
         leaves.append(BucketLeaf("W", l, (V, o, i)))
-        leaves.append(BucketLeaf("b", l, (V, o)))
+        leaves.append(BucketLeaf("b", l, (V, b_widths[l])))
     return leaves
 
 
@@ -203,10 +203,10 @@ def sync_comm_bytes(spec, dp, pp, plan=None, tp=1, zero=0, mubatches=1, gather_p
     ``mubatches``) and all-gathers the updated chunk once; a bucketed plan
     keeps stage 1's total over the block-cyclic ``4*csz3*dp``. Stage 3:
     the per-tick reduce-scatter plus ``gather_passes`` param-gather sweeps
-    per microbatch. On the port's virtual mesh the same bytes move between
-    ranks' buffers on one device; the multi-card runtime will put them on
-    the wire."""
-    _tp1(tp)
+    per microbatch. Under tp each device syncs only its Megatron shard, so
+    the dp payload shrinks by tp. On the port's virtual mesh the same bytes
+    move between ranks' buffers on one device; the multi-card runtime will
+    put them on the wire."""
     flat = stacked_flat_len(spec, pp, tp)
     if zero >= 2:
         _, csz3 = zero_block_slots(spec, pp, dp, tp)

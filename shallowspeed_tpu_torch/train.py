@@ -11,6 +11,7 @@
         --backward-split --recompute --model transformer
     python -m shallowspeed_tpu_torch.train --dp 2 --pp 4 --zero 2 \
         --grad-bucket-bytes 65536 --kernel-backend pallas
+    python -m shallowspeed_tpu_torch.train --dp 2 --pp 2 --tp 2 --zero 2
 
 The reference's recipe by default: the flagship MLP, 20 epochs, global
 batch 128 in 4 microbatches, SGD at lr 0.006, with the validation accuracy
@@ -28,7 +29,12 @@ transformer`` takes a mesh layout too (the last three on ``--kernel-backend
 xla``, as in the root CLI). ``--zero N`` (``--zero1`` = ``--zero 1``) shards
 the optimizer state (1), the gradients (2) and the params at rest (3, on
 ``--kernel-backend xla``) over dp, and ``--grad-bucket-bytes B`` buckets
-the gradient sync (stages 0-2), with the root CLI's refusals.
+the gradient sync (stages 0-2), with the root CLI's refusals. ``--tp N``
+Megatron-shards every Linear over N tensor-parallel ranks of the virtual
+mesh and composes with all of the above on ``--kernel-backend xla``.
+``--precision highest``, ``--scan-unroll 1`` and ``--tick-unroll 1`` are
+accepted so that a root CLI command line runs as it is; other values are
+refused.
 
 Preemption-safe runs, as the root ``train.py``'s::
 
@@ -70,10 +76,24 @@ import sys
 import time
 
 
-def main(argv=None):
+def build_parser():
+    """The CLI's argument parser (the root ``train.py``'s flags that the port
+    runs, with its help texts)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas")
     ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    ap.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor (model-axis) parallelism: shard every Linear "
+        "Megatron-style across tp ranks — even layers column-parallel "
+        "(W split on the output dim, no forward collective), odd layers "
+        "row-parallel (W split on the input dim, one all-reduce over tp) — "
+        "so each fwd+bwd pass costs 2 all-reduces per layer pair and "
+        "per-rank weight memory/matmul FLOPs drop by tp. Composes with "
+        "--dp/--pp/--zero/--grad-bucket-bytes/--backward-split into a "
+        "dp x pp x tp lattice (every rank on the one device; "
+        "--kernel-backend xla)",
+    )
     ap.add_argument(
         "--schedule", choices=["naive", "gpipe", "pipedream", "interleaved"],
         default="naive",
@@ -158,6 +178,21 @@ def main(argv=None):
     ap.add_argument(
         "--clip-norm", type=float, default=None,
         help="global-norm gradient clipping over all params; off by default",
+    )
+    ap.add_argument(
+        "--precision", choices=["highest", "default"], default="highest",
+        help="matmul precision: 'highest' = IEEE fp32 (the only one the port "
+        "computes); 'default' (the TPU's bf16-input passes) is refused",
+    )
+    ap.add_argument(
+        "--scan-unroll", type=int, default=1,
+        help="the root CLI's lax.scan unroll factor of the epoch loop (an XLA "
+        "compile knob); the port's loop is eager, so only 1 is accepted",
+    )
+    ap.add_argument(
+        "--tick-unroll", type=int, default=1,
+        help="the root CLI's lax.scan unroll factor of the pipeline tick loop "
+        "(an XLA compile knob); the port's loop is eager, so only 1 is accepted",
     )
     ap.add_argument(
         "--fuse-mubatches", action="store_true",
@@ -279,6 +314,14 @@ def main(argv=None):
         "--audit", action="store_true",
         help="the root CLI's XLA program audit; not ported (refused)",
     )
+    return ap
+
+
+def parse_args(argv=None, ap=None):
+    """``argv`` parsed and checked before any device or data is touched:
+    an incoherent command line exits 2 with the root CLI's words. ``zero``
+    comes back resolved (``--zero1`` is stage 1)."""
+    ap = ap or build_parser()
     args = ap.parse_args(argv)
     # incoherent fault-tolerance flags fail at parse time, before any device
     # or data is touched (the root train.py's checks and words)
@@ -304,7 +347,22 @@ def main(argv=None):
         )
     if args.keep < 1:
         ap.error("--keep must be >= 1")
-    if args.recompute and (args.dp, args.pp) == (1, 1):
+    if args.precision == "default":
+        from shallowspeed_tpu_torch.api import PRECISION_DEFAULT_REFUSAL
+
+        ap.error(PRECISION_DEFAULT_REFUSAL)
+    for flag, v, loop in (
+        ("--scan-unroll", args.scan_unroll, "the per-batch epoch loop"),
+        ("--tick-unroll", args.tick_unroll, "the pipeline tick loop"),
+    ):
+        if v != 1:
+            ap.error(
+                f"{flag} {v}: the root CLI's flag sets the lax.scan unroll "
+                f"factor of {loop}, a knob of XLA's compiled program with "
+                "bit-identical numerics; the port runs that loop eagerly in "
+                f"Python and has nothing to unroll — pass {flag} 1 or drop it"
+            )
+    if args.recompute and (args.dp, args.pp, args.tp) == (1, 1, 1):
         ap.error(
             "--recompute drops pipeline activation stashes; the "
             "sequential path holds no cross-tick stash — use a mesh "
@@ -370,6 +428,13 @@ def main(argv=None):
             "run for a survived crash; drop --fused-run (the fault harness "
             "needs the step loop)"
         )
+    args.zero = zero_stage
+    return args
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = parse_args(argv, ap)
 
     from shallowspeed_tpu_torch.api import TrainingSession
     from shallowspeed_tpu_torch.checkpoint import CheckpointError
@@ -384,12 +449,13 @@ def main(argv=None):
             digests=args.digests,
             dp=args.dp,
             pp=args.pp,
+            tp=args.tp,
             schedule=args.schedule,
             virtual_stages=args.virtual_stages,
             backward_split=args.backward_split,
             recompute=args.recompute,
             kernel_backend=args.kernel_backend,
-            zero=zero_stage,
+            zero=args.zero,
             grad_bucket_bytes=args.grad_bucket_bytes,
             model=args.model,
             global_batch_size=args.global_batch_size,
@@ -405,6 +471,7 @@ def main(argv=None):
             momentum=args.momentum,
             weight_decay=args.weight_decay,
             clip_norm=args.clip_norm,
+            precision=args.precision,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_keep=args.keep,
             async_checkpoint=args.async_checkpoint,
@@ -440,11 +507,15 @@ def main(argv=None):
         layout = f"interleaved pipeline, V={args.virtual_stages}"
     elif args.pp > 1:
         layout = f"{args.schedule} pipeline"
-    else:
+    elif args.dp > 1:
         layout = "data-parallel"
+    else:
+        layout = "tensor-parallel"
+    if args.tp > 1 and layout != "tensor-parallel":
+        layout += " + tensor-parallel"
     print(
-        f"device={run.device} layout: DP={args.dp} x PP={args.pp} x TP=1 "
-        f"({layout}) batches/epoch={run.batches_per_epoch}" + note
+        f"devices=[{run.device}] layout: DP={args.dp} x PP={args.pp} x "
+        f"TP={args.tp} ({layout}) batches/epoch={run.batches_per_epoch}" + note
     )
 
     t0 = time.time()
@@ -514,7 +585,7 @@ def _dispatch_probe(run, args):
             "bench": "dispatch_overhead",
             "bench_version": 1,
             "config": {
-                "dp": args.dp, "pp": args.pp, "tp": 1, "schedule": args.schedule,
+                "dp": args.dp, "pp": args.pp, "tp": args.tp, "schedule": args.schedule,
                 "global_batch_size": args.global_batch_size,
                 "mubatches": args.mubatches, "backward_split": args.backward_split,
                 "grad_bucket_bytes": args.grad_bucket_bytes, "platform": rec["platform"],

@@ -9,7 +9,9 @@ gradsync.py) against the JAX package's.
 - A bucketed step is bitwise the anchor step at every budget (stages 0
   and 1; bucketed stage 2 is stage 1), and the device layouts the sums
   run in equal the host helpers.
-- tp > 1 raises ``NotImplementedError`` with its ROADMAP pointer.
+- tp > 1: the plans, ``sync_comm_bytes`` and the layout lengths equal the
+  JAX module's over one rank's Megatron shards, and the device layouts and
+  sums hold at pp*tp device rows.
 """
 
 import numpy as np
@@ -118,23 +120,40 @@ def test_layout_lengths_equal_jax():
         assert tc == jc and [tuple(s) for s in ts] == [tuple(s) for s in js]
 
 
-def test_tp_is_refused_with_its_pointer():
-    _, tspec = _specs(SIZES, 2, 1)
-    for fn in (
-        lambda: tgs.plan_buckets(tspec, 2, 2, 256, tp=2),
-        lambda: tgs.sync_comm_bytes(tspec, 2, 2, tp=2),
-        lambda: TE.stacked_flat_len(tspec, 2, tp=2),
-        lambda: TE.zero_block_slots(tspec, 2, 2, tp=2),
-    ):
-        with pytest.raises(NotImplementedError, match=r"§A item 3, tp"):
-            fn()
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_plans_and_lengths_equal_jax(tp):
+    """At tp > 1 the planners bucket one rank's Megatron shards: plans,
+    ``sync_comm_bytes`` and the layout lengths equal the JAX module's, and
+    the dp payload is the tp = 1 one's over tp (before the tp rounding)."""
+    from shallowspeed_tpu.parallel import executor as JE
+
+    jspec, tspec = _specs(SIZES, 2, 1)
+    for zero in (0, 1, 2):
+        for budget in (256, 4096):
+            tp_plan = tgs.plan_buckets(tspec, 2, 2, budget, zero=zero, tp=tp)
+            jp_plan = jgs.plan_buckets(jspec, 2, 2, budget, zero=zero, tp=tp)
+            assert tp_plan.describe() == jp_plan.describe()
+            assert tgs.sync_comm_bytes(tspec, 2, 2, plan=tp_plan, tp=tp, zero=zero, mubatches=4) == (
+                jgs.sync_comm_bytes(jspec, 2, 2, plan=jp_plan, tp=tp, zero=zero, mubatches=4)
+            )
+    for zero in (0, 1, 2, 3):
+        assert tgs.sync_comm_bytes(tspec, 2, 2, tp=tp, zero=zero, mubatches=4) == (
+            jgs.sync_comm_bytes(jspec, 2, 2, tp=tp, zero=zero, mubatches=4)
+        )
+    assert TE.stacked_flat_len(tspec, 2, tp) == JE.stacked_flat_len(jspec, 2, tp)
+    ts, tc = TE.zero_block_slots(tspec, 2, 2, tp)
+    js, jc = JE.zero_block_slots(jspec, 2, 2, tp)
+    assert tc == jc and [tuple(s) for s in ts] == [tuple(s) for s in js]
+    # every leaf of a dp plan is one rank's shard
+    leaves = [l for g in tgs.plan_dp_buckets(tspec, 2, 4096, tp=tp).buckets for l in g]
+    assert 4 * sum(l.size for l in leaves) == 4 * TE.stacked_flat_len(tspec, 2, tp)
 
 
-def _replica_trees(tspec, dp, seed):
+def _replica_trees(tspec, dp, seed, tp=1):
     """``dp`` seeded gradient-shaped trees on the stacked layout (padding
     included: the layout movers are data-blind)."""
     gen = torch.Generator().manual_seed(seed)
-    dims = TE.slot_shapes(tspec)
+    dims = TE.slot_shapes(tspec, tp)
     S = tspec.n_stages
     return [
         {
@@ -218,3 +237,35 @@ def test_device_layouts_equal_the_host_helpers():
         TE._flat_rows(tree, pp, dp * csz).numpy()[:, :flat],
         TE._zero1_flatten_rows(host, tspec, mesh),
     )
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_device_layouts_and_sums_hold(tp):
+    """At tp > 1 the device layouts hold pp*tp rows of rank shards: the
+    flat and dealt rows equal the host helpers (the checkpoints' and the
+    JAX package's layout), their replica sums ``dp_sum``'s values, and the
+    gathers write the global slabs back exactly."""
+    dp, pp, V = 2, 2, 2
+    _, tspec = _specs(SIZES, pp, V)
+    mesh = VirtualMesh(dp, pp, "cpu", tp=tp)
+    trees = _replica_trees(tspec, dp, seed=7, tp=tp)
+    host = {k: tuple(a.numpy() for a in trees[0][k]) for k in ("W", "b")}
+    slots, _ = TE.zero_block_slots(tspec, pp, dp, tp)
+    np.testing.assert_array_equal(
+        TE._deal(trees[0], slots, pp, dp, tp).numpy(), TE.zero_block_flatten_rows(host, tspec, mesh)
+    )
+    flat, csz = TE.zero1_flat_len(tspec, mesh)
+    rows = TE._flat_rows(trees[0], pp, dp * csz, tp)
+    assert rows.shape == (pp * tp, dp * csz)
+    np.testing.assert_array_equal(rows.numpy()[:, :flat], TE._zero1_flatten_rows(host, tspec, mesh))
+    anchor = TE.dp_sum(trees)
+    summed = TE._flat_rows(trees[0], pp, dp * csz, tp) + TE._flat_rows(trees[1], pp, dp * csz, tp)
+    dealt = TE._deal(trees[0], slots, pp, dp, tp) + TE._deal(trees[1], slots, pp, dp, tp)
+    for got in (TE._unflat_rows(summed, anchor, tp), TE._undeal(dealt, slots, pp, dp, tp)):
+        assert all(torch.equal(a, b) for k in ("W", "b") for a, b in zip(got[k], anchor[k]))
+    into = {k: tuple(torch.zeros_like(a) for a in anchor[k]) for k in ("W", "b")}
+    TE._unflat_rows_into(summed, into, tp)
+    assert all(torch.equal(a, b) for k in ("W", "b") for a, b in zip(into[k], anchor[k]))
+    into = {k: tuple(torch.zeros_like(a) for a in anchor[k]) for k in ("W", "b")}
+    TE._undeal_into(dealt, slots, into, pp, dp, tp)
+    assert all(torch.equal(a, b) for k in ("W", "b") for a, b in zip(into[k], anchor[k]))

@@ -194,15 +194,16 @@ def test_refusals(split):
     with pytest.raises(ValueError, match="requires schedule='interleaved'"):
         TorchSession(device="cpu", **dict(MESH, virtual_stages=2))
     # ZeRO and the bucketed sync are ported: every stage builds (the JAX
-    # refusals are in tests/test_torch_zero.py); tp keeps its refusal
+    # refusals are in tests/test_torch_zero.py); so is tp, on the plain
+    # backend (its refusals are in tests/test_torch_tensor_parallel.py)
     for kw in (
         dict(zero=1), dict(zero1=True), dict(zero=2), dict(grad_bucket_bytes=1 << 16),
         dict(zero=2, grad_bucket_bytes=1 << 16), dict(zero=3, kernel_backend="xla"),
     ):
         TorchSession(device="cpu", data_dir=split, **dict(MESH, **kw))
-    with pytest.raises(NotImplementedError, match="tp=2") as e:
+    with pytest.raises(ValueError, match="tensor parallelism"):
         TorchSession(device="cpu", data_dir=split, **dict(MESH, tp=2))
-    assert "§A item 3" in str(e.value) and "Megatron" in str(e.value)
+    assert TorchSession(device="cpu", data_dir=split, **dict(MESH, tp=2, kernel_backend="xla")).tp == 2
     with pytest.raises(NotImplementedError, match="§A item 7\\)"):
         TorchSession(device="cpu", runtime="mpmd", **MESH)
     with pytest.raises(ValueError, match="schedule must be one of"):
@@ -290,6 +291,106 @@ def test_cli_trains_a_mesh_layout_on_cpu(split, capsys):
     assert "Epoch: 0, mean train loss:" in capsys.readouterr().out
     with pytest.raises(ValueError, match="needs a mesh layout"):
         tcli.main(["--device", "cpu", "--data-dir", str(split), "--kernel-backend", "pallas"])
+
+
+def test_cli_trains_a_tp_layout_on_cpu(split, capsys):
+    """``--tp 2`` through the CLI: the root CLI's layout line, and the hash
+    line of the same session driven directly."""
+    argv = [
+        "--device", "cpu", "--epochs", "1", "--no-eval", "--data-dir", str(split),
+        "--dp", "2", "--pp", "2", "--tp", "2", "--zero", "2",
+        "--precision", "highest", "--scan-unroll", "1", "--tick-unroll", "1",
+    ]
+    assert tcli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "layout: DP=2 x PP=2 x TP=2 (naive pipeline + tensor-parallel) batches/epoch=8" in out
+    lines = out.splitlines()
+    assert lines[-2] == "DP replicas in sync ✓"
+    s = TorchSession(data_dir=split, device="cpu", dp=2, pp=2, tp=2, zero=2, schedule="naive")
+    s.train_epoch()
+    assert lines[-1] == f"final model hash: {s.model_hash()}"
+    assert tcli.main(["--device", "cpu", "--data-dir", str(split), "--epochs", "0", "--no-eval",
+                      "--tp", "2"]) == 0
+    assert "(tensor-parallel)" in capsys.readouterr().out
+
+
+# The root CLI tests' command lines (tests/test_cli.py; without --audit,
+# --runtime mpmd and --aot-cache, which the port refuses or lacks), each
+# with None (parses) or the refusal the root CLI prints (exit 2)
+ROOT_CLI_LINES = [
+    (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2"], None),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--fuse-mubatches"], None),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--fuse-mubatches", "--epoch-kernel"], None),
+    (["--dp", "2", "--pp", "2", "--schedule", "pipedream", "--epochs", "1",
+      "--global-batch-size", "32", "--mubatches", "2", "--no-eval"], None),
+    (["--dp", "2", "--epochs", "1", "--global-batch-size", "32", "--mubatches", "2",
+      "--no-eval", "--grad-bucket-bytes", "65536"], None),
+    (["--pp", "4", "--schedule", "pipedream", "--epochs", "1", "--global-batch-size", "32",
+      "--mubatches", "2", "--no-eval", "--backward-split"], None),
+    (["--dp", "2", "--pp", "2", "--schedule", "interleaved", "--virtual-stages", "2",
+      "--zero1", "--optimizer", "momentum", "--epochs", "1", "--global-batch-size", "32",
+      "--mubatches", "2", "--no-eval"], None),
+    (["--dp", "2", "--pp", "2", "--optimizer", "momentum", "--epochs", "1",
+      "--global-batch-size", "32", "--mubatches", "1", "--zero", "2", "--no-eval"], None),
+    (["--dp", "2", "--pp", "2", "--optimizer", "momentum", "--epochs", "1",
+      "--global-batch-size", "32", "--mubatches", "1", "--zero", "3"], None),
+    (["--zero1", "--zero", "2"], "conflicting dp-stage selectors"),
+    (["--zero", "3", "--dp", "2", "--fused-run"], "incompatible with --fused-run"),
+    (["--zero", "3", "--dp", "2", "--kernel-backend", "pallas"],
+     "incompatible with --kernel-backend pallas"),
+    (["--zero", "3", "--dp", "2", "--grad-bucket-bytes", "1024"], "syncs gradients per tick"),
+    (["--zero", "2", "--dp", "2", "--digests"], "--digests is incompatible"),
+    (["--dp", "2", "--pp", "2", "--schedule", "gpipe", "--epochs", "1",
+      "--global-batch-size", "32", "--mubatches", "2", "--no-eval", "--kernel-backend",
+      "pallas"], None),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--clip-norm", "0.5", "--weight-decay", "0.01", "--optimizer", "momentum", "--lr",
+      "0.001"], None),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--checkpoint", "ck.npz"], None),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--resume", "ck.npz"], None),
+    (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2", "--fused-run"], None),
+    (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--fuse-mubatches", "--fused-run", "--run-kernel"], None),
+    (["--fused-run", "--checkpoint-every-steps", "2", "--checkpoint-dir", "d"],
+     "incompatible with --fused-run"),
+    (["--fused-run", "--resume", "auto", "--checkpoint-dir", "d"], "no mid-epoch entry point"),
+    (["--checkpoint-every-steps", "2"], "--checkpoint-dir"),
+    (["--resume", "auto"], "--checkpoint-dir"),
+    (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--health", "halt"], None),
+    (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
+      "--checkpoint-dir", "d", "--checkpoint-every-steps", "4", "--resume", "auto"], None),
+]
+
+
+@pytest.mark.parametrize("case", range(len(ROOT_CLI_LINES)))
+def test_cli_parses_the_root_cli_command_lines(case, capsys):
+    """Each root CLI test's command line parses on the port's CLI as the
+    root CLI parses it, also with the root CLI's XLA knobs spelled out at
+    their neutral values; other values of those knobs are refused."""
+    argv, refusal = ROOT_CLI_LINES[case]
+    for extra in ([], ["--precision", "highest", "--scan-unroll", "1", "--tick-unroll", "1"]):
+        if refusal is None:
+            args = tcli.parse_args(argv + extra)
+            assert (args.tp, args.precision, args.scan_unroll, args.tick_unroll) == (1, "highest", 1, 1)
+        else:
+            with pytest.raises(SystemExit) as e:
+                tcli.parse_args(argv + extra)
+            assert e.value.code == 2 and refusal in capsys.readouterr().err
+    if refusal is not None:
+        return
+    for knob, words in (
+        (["--scan-unroll", "2"], "lax.scan unroll factor"),
+        (["--tick-unroll", "4"], "lax.scan unroll factor"),
+        (["--precision", "default"], "precision='default'"),
+    ):
+        with pytest.raises(SystemExit) as e:
+            tcli.parse_args(argv + knob)
+        assert e.value.code == 2 and words in capsys.readouterr().err
 
 
 def test_mesh_session_needs_a_gpu_without_device_cpu(monkeypatch):

@@ -174,8 +174,12 @@ def test_serving_session_refuses_training_and_unported_options(split, tmp_path):
         with pytest.raises(RuntimeError, match="data_dir"):
             call()
     assert ts.batches_per_epoch == 0 and ts.global_step == 0
-    with pytest.raises(NotImplementedError, match="§A item 3"):
-        TorchSession(device="cpu", data_dir=split, tp=2)
+    # tp is ported: tp = 2 alone is a mesh layout (the sequential path's
+    # options refuse it in the JAX session's words)
+    tp2 = TorchSession(device="cpu", data_dir=split, tp=2)
+    assert tp2.tp == 2 and not tp2.sequential and tp2.batches_per_epoch == 8
+    with pytest.raises(ValueError, match="sequential path only"):
+        TorchSession(device="cpu", data_dir=split, tp=2, fuse_mubatches=True)
     # ZeRO and the buckets are ported; the sequential path refuses them in
     # the JAX session's words (it has no dp axis and no gradient sync)
     for kw, match in (

@@ -561,8 +561,15 @@ def test_session_refusals_in_jax_words(split):
             TorchSession(**kw)
         with pytest.raises(ValueError, match=match):
             JaxSession(**{k: v for k, v in kw.items() if k != "device"})
-    with pytest.raises(NotImplementedError, match=r"tp=2.*§A item 3"):
-        TorchSession(**dict(mesh, tp=2))
+    # tp composes with every stage; its pallas refusal is the JAX session's
+    for zero in (1, 2, 3):
+        assert TorchSession(**dict(mesh, tp=2, zero=zero)).tp == 2
+    kw = dict(mesh, tp=2, zero=2, kernel_backend="pallas")
+    with pytest.raises(ValueError, match="tensor parallelism") as got:
+        TorchSession(**kw)
+    with pytest.raises(ValueError, match="tensor parallelism") as want:
+        JaxSession(**{k: v for k, v in kw.items() if k != "device"})
+    assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match=r"§A item 7"):
         TorchSession(**dict(mesh, zero=2, runtime="mpmd"))
 
