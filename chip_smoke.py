@@ -228,6 +228,33 @@ in phases:
    hash. Each leg prints, beside its tp = 1 twin, device busy and GPU
    operations a step and samples/s from one traced steady epoch, and the
    peak memory above the built session.
+16. single-card serving, every leg's line naming the card and its power
+   limit: 16a phase 4's drive (200 seeded requests of 1-8 rows at 1000
+   rps, ``loadgen.run_open_loop``) through the engine with a JSONL
+   recorder, breaker 2, a reload directory holding a step checkpoint of a
+   card session trained 8 steps, and the plan ``SERVE_CHAOS`` (an error
+   retried, a 20 ms stall, a dispatch-loop death the drive loop absorbs,
+   two poisoned dispatches that trip the breaker, whose reload recovers): every
+   id terminal, every fault fired, exactly one death absorbed, B1 launched
+   6 times a slot of the dispatches that reached ``predict()`` and nowhere
+   else, a reload launching nothing, every "ok" response bitwise a direct
+   ``predict()`` under its era's weights (the init, then the snapshot),
+   within 1e-6 of the CPU's, ``recovery_s`` recorded, the report CLI's
+   Serving, Degradation and Tracing sections rendered and every span
+   chain complete; 16b the serve CLI (its ``main``, in this process so its
+   launches count) at DP=2 x PP=2 x TP=2 and DP=2 x PP=4 GPipe with
+   ``--verify``: exit 0, the JAX CLI's layout line, 40/40 bitwise, no port
+   kernel launched (the plain backend, as the JAX CLI's sessions); ``python
+   -m shallowspeed_tpu_torch.serving --faults nan@dispatch=1 --breaker 1``
+   exits 3; the DP=2 x PP=2 x TP=2 predict within 1e-6 of the CPU's; 16c
+   ``bench_serving.sweep`` of the flagship at 500-8000 rps and of mlp-deep
+   (B2) at 0.5, 1 and 2 x its measured closed-loop capacity, 200 requests a
+   rate, SLO 50 ms, every request of every rate "ok" and bitwise a direct
+   ``predict()``, launches exact (its warm-up's rungs and every slot); per
+   rate p50/p99, goodput, achieved rate, queue-depth maximum, padding waste
+   beside the H100 floor, and the knee; then the JAX chaos-soak recipe
+   through ``bench_serving.main``: zero lost, zero parity mismatches.
+   No speed is gated.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -245,9 +272,11 @@ drives and phase 11's interleaved ones (11a, 11e), and their times summed
 over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
 to the B1/B3 kernels' and the run mode's ``launches``, phase 13's to
 every kernel's (its CLI subprocess counts in its own process, not here),
-and phase 14's (14a, 14c) to the flag entries'; ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or
-9a), then ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before either; so does a machine without CUDA, or a directory without the
+phase 14's (14a, 14c) to the flag entries', and phase 16's drives (16a, the
+16c sweeps, their oracle's predicts excluded) to the forward's;
+``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or 9a),
+then ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
+either; so does a machine without CUDA, or a directory without the
 package.
 """
 
@@ -3165,6 +3194,332 @@ def phase_tp(torch, cuda_ops, TrainingSession, data_dir, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: single-card serving — the engine under chaos, the serve CLI on
+# mesh layouts, the offered-load sweep and the chaos soak
+# ---------------------------------------------------------------------------
+
+# 16a's plan on phase 4's drive: an error (retried), a stall, a dispatch-loop
+# death the drive loop absorbs, and two poisoned dispatches that trip a breaker
+# of 2, whose reload recovers
+SERVE_CHAOS = "error@dispatch=3,slow@dispatch=5:ms=20,die@dispatch=7,nan@dispatch=9,nan@dispatch=10"
+# the JAX package's chaos-soak recipe (its bench_serving docstring)
+SOAK_CHAOS = "error@dispatch=3,slow@dispatch=5:ms=30,die@dispatch=7,nan@dispatch=9"
+SWEEP_RATES = (500.0, 1000.0, 2000.0, 4000.0, 8000.0)
+SERVE_SLO_MS = 50.0
+SERVE_CKPT_STEPS = 8  # the card session's steps before its step checkpoint
+
+
+def _capture(fn, *args):
+    """``fn(*args)`` with stdout and stderr captured: (result, out, err)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(*args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _era_check(np, label, oks, payloads, oracles):
+    """Every "ok" response bitwise a direct predict() under the weights
+    active at its dispatch: ``oracles`` are sessions holding each era's
+    weights in order; the responses, in id order, must walk the eras
+    forward. Returns the number of responses in each era."""
+    eras, counts = [], [0] * len(oracles)
+    for r in sorted(oks, key=lambda r: r.id):
+        hits = [i for i, o in enumerate(oracles)
+                if np.array_equal(r.result, o.predict(payloads[r.id]))]
+        if not hits:
+            fail(f"{label}: response {r.id} is no era's direct predict()")
+        if len(hits) == 1:
+            eras.append(hits[0])
+            counts[hits[0]] += 1
+    if eras != sorted(eras):
+        fail(f"{label}: responses leave an era and come back: {eras}")
+    return counts
+
+
+def _sweep_checked(torch, np, cuda_ops, bench_serving, session, rates, n_requests):
+    """``bench_serving.sweep`` on the card with every request of every rate
+    checked (terminal, "ok", bitwise a direct predict()) between rates.
+    Returns (record, the sweep's own forward launches, the launches it
+    must have made)."""
+    seen = {"oracle": 0, "slots": 0}
+
+    def on_rate(rate, payloads, done):
+        torch.cuda.synchronize()
+        before = cuda_ops.LAUNCHES["linear_act_fwd"]
+        n = len(payloads)
+        if sorted(r.id % n for r in done) != list(range(n)):
+            fail(f"16c sweep at {rate:.0f} rps: {len(done)} of {n} requests terminal")
+        for r in done:
+            if r.verdict != "ok":
+                fail(f"16c sweep at {rate:.0f} rps: request {r.id} {r.verdict}")
+            if not np.array_equal(r.result, session.predict(payloads[r.id % n])):
+                fail(f"16c sweep at {rate:.0f} rps: response {r.id} differs from predict()")
+            seen["slots"] += r.slots
+        torch.cuda.synchronize()
+        seen["oracle"] += cuda_ops.LAUNCHES["linear_act_fwd"] - before
+
+    rec, counts = _card_counts(
+        torch, cuda_ops,
+        lambda: bench_serving.sweep(session, rates=rates, n_requests=n_requests,
+                                    slo_ms=SERVE_SLO_MS, on_rate=on_rate),
+    )
+    others = {k: v for k, v in counts.items() if v and k != "linear_act_fwd"}
+    if others:
+        fail(f"16c sweep launched {others}")
+    relu = sum(sum(s.relu_flags) for s in session.spec.stages)
+    warm = sum(session.slot_ladder)  # the sweep's warm_ladder: every rung once
+    return rec, counts["linear_act_fwd"] - seen["oracle"], relu * (warm + seen["slots"])
+
+
+def _sweep_line(rec):
+    def ms(v):
+        return "n/a" if v is None else f"{v * 1e3:.3f}"
+
+    return "; ".join(
+        f"{r['offered_rps']:.0f} rps: p50 {ms(r['p50_latency_s'])} / p99 "
+        f"{ms(r['p99_latency_s'])} ms, goodput {r['goodput_rps']:.1f}, achieved "
+        f"{r['achieved_rps']:.1f}, queue max {r['queue_depth_max']}, padding "
+        f"{r['padding_waste'] * 100:.1f}%"
+        for r in rec["sweep"]
+    )
+
+
+def phase_serving_faults(torch, cuda_ops, TrainingSession, data_dir, card):
+    """16: single-card serving on the card. Returns the forward launches of
+    16a's drive and 16c's sweeps (the oracle's predicts excluded)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.observability import JsonlMetrics, read_jsonl, report, tracing
+    from shallowspeed_tpu_torch.serving import __main__ as serve_cli
+    from shallowspeed_tpu_torch.serving import bench_serving, loadgen
+    from shallowspeed_tpu_torch.serving.engine import TERMINAL_VERDICTS, ServingEngine
+
+    t_phase = time.perf_counter()
+    tmp = Path(data_dir) / "serving"
+    ck = tmp / "ck"
+    rows = {}
+
+    def note(line):
+        say(f"  {line}")
+
+    # the reload directory: one step checkpoint written by a card session
+    trainer = TrainingSession(device="cuda", data_dir=data_dir, checkpoint_dir=ck)
+    trainer.train_steps(SERVE_CKPT_STEPS)
+    ck_path = trainer.save_step_checkpoint()
+    trainer.close()
+    del trainer
+
+    # 16a: phase 4's drive through the engine under the chaos plan
+    t_leg = time.perf_counter()
+    stream = tmp / "16a.jsonl"
+    m = JsonlMetrics(stream)
+    session = TrainingSession(device="cuda", metrics=m)
+    engine = ServingEngine(session, slo_ms=SERVE_SLO_MS, metrics=m, breaker_threshold=2,
+                           reload_dir=ck, faults=SERVE_CHAOS)
+    n_req, rate = 200, 1000.0
+    payloads = loadgen.request_payloads(n_req, session.spec.in_dim, seed=0,
+                                        rows_choices=tuple(range(1, 9)))
+    arrivals = loadgen.poisson_arrivals(rate, n_req, seed=0)
+    engine.warm_ladder()
+    done, counts = _card_counts(
+        torch, cuda_ops, lambda: loadgen.run_open_loop(engine, payloads, arrivals)
+    )
+    rec = engine.record_summary(offered_rps=rate, name="chaos")
+    st = engine.stats()
+    if sorted(r.id for r in done) != list(range(n_req)):
+        fail(f"16a: {len(done)} of {n_req} requests reached a verdict")
+    verdicts = {}
+    for r in done:
+        if r.verdict not in TERMINAL_VERDICTS:
+            fail(f"16a: request {r.id} ended {r.verdict!r}")
+        verdicts[r.verdict] = verdicts.get(r.verdict, 0) + 1
+    absorbed = engine.dispatch_seq - st["dispatches"] - st["failed_dispatches"]
+    if engine._faults.pending_dispatch or absorbed != 1:
+        fail(f"16a: faults unfired {engine._faults.pending_dispatch}, {absorbed} dies absorbed (want 1)")
+    if (st["failed_dispatches"], st["errors"], st["breaker_trips"], st["reloads"]) != (1, 0, 1, 1):
+        fail(f"16a: failed dispatches / errors / breaker trips / reloads "
+             f"{st['failed_dispatches']} / {st['errors']} / {st['breaker_trips']} / {st['reloads']}, "
+             "want 1 / 0 / 1 / 1")
+    if st["recovery_s"] is None or st["degraded"] or not verdicts.get("unhealthy"):
+        fail(f"16a: recovery_s {st['recovery_s']}, degraded {st['degraded']}, verdicts {verdicts}")
+    relu = sum(sum(s.relu_flags) for s in session.spec.stages)
+    a_launches = relu * st["slots_dispatched"]
+    others = {k: v for k, v in counts.items() if v and k != "linear_act_fwd"}
+    if others or counts["linear_act_fwd"] != a_launches:
+        fail(f"16a: launches {counts}, want {relu} x {st['slots_dispatched']} slots of the "
+             "dispatches that reached predict() and nothing else")
+    oks = [r for r in done if r.verdict == "ok"]
+    eras = _era_check(np, "16a", oks, payloads, [
+        TrainingSession(device="cuda"), TrainingSession(device="cuda", resume=ck_path),
+    ])
+    if min(eras) == 0:
+        fail(f"16a: ok responses per weights era {eras}: the reload served nothing")
+    # the reload itself launches nothing
+    _, counts = _card_counts(torch, cuda_ops, lambda: engine.reload(reason="manual"))
+    if any(counts.values()):
+        fail(f"16a: a reload launched {counts}")
+    cpu = [TrainingSession(device="cpu"), TrainingSession(device="cpu", resume=ck_path)]
+    worst = max(
+        min(float(np.abs(r.result - o.predict(payloads[r.id])).max()) for o in cpu)
+        for r in sorted(oks, key=lambda r: r.id)[:48]
+    )
+    if worst > 1e-6:
+        fail(f"16a: card vs CPU {worst:.3e} > 1e-6")
+    session.close()
+    m.close()
+    recs = read_jsonl(stream)
+    tracing.verify_terminal_chains(recs, strict=True)
+    rc, text, err = _capture(report.main, [str(stream), "--format", "md", "--slo-ms", "50"])
+    for section in ("## Serving", "### Degradation", "## Tracing"):
+        if section not in text:
+            fail(f"16a report: no {section!r} section (rc {rc}, {err[-300:]})")
+    if "INCOMPLETE" in text:
+        fail("16a report: incomplete span chains")
+    reload_rec = [r for r in recs if r.get("kind") == "reload" and r.get("reason") == "breaker"][0]
+    kinds = sorted({r["kind"] for r in recs})
+    rows["16a"] = dict(verdicts=verdicts, launches=a_launches,
+                       slots=st["slots_dispatched"], dispatches=st["dispatches"],
+                       dispatch_seq=engine.dispatch_seq, retries=st["retries"],
+                       recovery_s=st["recovery_s"], reload_wall_s=reload_rec["wall_s"],
+                       reload_verify_s=reload_rec["verify_s"], availability=rec["availability"],
+                       p50_latency_s=rec["p50_latency_s"], p99_latency_s=rec["p99_latency_s"],
+                       goodput_rps=rec["goodput_rps"], eras=eras, card_vs_cpu=worst)
+    note(
+        f"16a engine under chaos ({card}): {n_req}/{n_req} ids terminal {verdicts}; "
+        f"{a_launches} B1 launches = {relu} x {st['slots_dispatched']} slots of the "
+        f"{st['dispatches']} dispatches that reached predict() (of {engine.dispatch_seq} "
+        f"attempted: 1 error retried ({st['retries']} requests), 1 die absorbed); the breaker's "
+        f"reload {reload_rec['wall_s'] * 1e3:.2f} ms (verify {reload_rec['verify_s'] * 1e3:.2f} ms), "
+        f"a manual reload 0 launches; recovery_s {st['recovery_s'] * 1e3:.2f} ms; ok per weights "
+        f"era {eras}, bitwise; card vs CPU {worst:.3e}; p50 {rec['p50_latency_s'] * 1e3:.3f} / p99 "
+        f"{rec['p99_latency_s'] * 1e3:.3f} ms, availability {rec['availability']:.4f}; "
+        f"records {kinds}; report Serving/Degradation/Tracing, chains complete; "
+        f"{time.perf_counter() - t_leg:.2f} s"
+    )
+    del session, engine, cpu
+    torch.cuda.empty_cache()
+
+    # 16b: the serve CLI on mesh layouts (in this process, so its launches
+    # count), then the degraded exit code through `python -m`
+    t_leg = time.perf_counter()
+    load = ["--requests", "40", "--rate", "400", "--slo-ms", "2000", "--verify"]
+    cli_rows = []
+    for i, (label, layout, line) in enumerate((
+        ("DP=2 x PP=2 x TP=2", ["--dp", "2", "--pp", "2", "--tp", "2"],
+         "serving: DP=2 x PP=2 (gpipe), slot_rows=8"),
+        ("DP=2 x PP=4 GPipe", ["--dp", "2", "--pp", "4", "--schedule", "gpipe"],
+         "serving: DP=2 x PP=4 (gpipe), slot_rows=8"),
+    )):
+        argv = layout + load + ["--metrics-out", str(tmp / f"16b-{i}.jsonl")]
+        (rc, out, err), counts = _card_counts(torch, cuda_ops, lambda: _capture(serve_cli.main, argv))
+        lines = out.splitlines()
+        if rc != 0 or not lines or not lines[0].startswith(line):
+            fail(f"16b {label}: exit {rc}, first line {lines[:1]}, {err[-400:]}")
+        if "verify: 40/40 responses bitwise-equal to direct predict()" not in lines:
+            fail(f"16b {label}: {[l for l in lines if l.startswith('verify')]}")
+        if any(counts.values()):
+            fail(f"16b {label}: the plain mesh path launched {counts}")
+        lat = next(l for l in lines if l.startswith("latency"))
+        cli_rows.append(f"{label}: {lat}")
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
+    env["PYTHONPATH"] = str(root)
+    proc = subprocess.run(
+        [sys.executable, "-m", "shallowspeed_tpu_torch.serving", "--requests", "20",
+         "--rate", "2000", "--faults", "nan@dispatch=1", "--breaker", "1"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != 3 or "DEGRADED" not in proc.stderr:
+        fail(f"16b degraded leg: exit {proc.returncode} (want 3), {proc.stderr[-400:]}")
+    x = np.concatenate(loadgen.request_payloads(40, 784, seed=0))
+    kw = dict(dp=2, pp=2, tp=2)
+    diff = float(np.abs(TrainingSession(device="cuda", **kw).predict(x)
+                        - TrainingSession(device="cpu", **kw).predict(x)).max())
+    if diff > 1e-6:
+        fail(f"16b DP=2 x PP=2 x TP=2: card vs CPU {diff:.3e} > 1e-6")
+    rows["16b"] = dict(cli=cli_rows, card_vs_cpu=diff)
+    note(
+        f"16b serve CLI ({card}): {'; '.join(cli_rows)}; both exit 0, the JAX layout line, "
+        f"40/40 bitwise under --verify, no port kernel launched (plain backend); "
+        f"`python -m ... --faults nan@dispatch=1 --breaker 1` exits 3; DP=2 x PP=2 x TP=2 "
+        f"card vs CPU {diff:.3e} on the 40 requests' {x.shape[0]} rows; "
+        f"{time.perf_counter() - t_leg:.2f} s"
+    )
+    torch.cuda.empty_cache()
+
+    # 16c: the sweep at full width, flagship then mlp-deep, then the soak
+    t_leg = time.perf_counter()
+    flagship = TrainingSession(device="cuda")
+    rec, got, want = _sweep_checked(torch, np, cuda_ops, bench_serving, flagship, SWEEP_RATES, 200)
+    if got != want:
+        fail(f"16c flagship sweep: {got} launches, want {want}")
+    launches = a_launches + got
+    knee = rec["knee_rps"]
+    rows["16c flagship"] = rec
+    note(
+        f"16c flagship sweep ({card}), 200 requests a rate, SLO {SERVE_SLO_MS:.0f} ms, floor "
+        f"{rec['latency_bound_s'] * 1e3:.6f} ms ({rec['latency_bound_source']}): {_sweep_line(rec)}; "
+        f"knee {f'{knee:.0f} rps' if knee else 'none below 8000 rps'}; {got} B1 launches, "
+        f"every response bitwise; {time.perf_counter() - t_leg:.2f} s"
+    )
+    del flagship
+    t_leg = time.perf_counter()
+    deep = TrainingSession(model="mlp-deep", device="cuda")
+    probe = ServingEngine(deep)
+    probe.warm_ladder()
+    loadgen.run_closed_loop(probe, loadgen.request_payloads(64, deep.spec.in_dim, seed=9),
+                            concurrency=16)
+    capacity = probe.stats()["achieved_rps"]
+    deep_rates = tuple(float(round(capacity * f, -1)) for f in (0.5, 1.0, 2.0))
+    rec, got, want = _sweep_checked(torch, np, cuda_ops, bench_serving, deep, deep_rates, 200)
+    if got != want:
+        fail(f"16c mlp-deep sweep: {got} launches, want {want}")
+    launches += got
+    knee = rec["knee_rps"]
+    rows["16c mlp-deep"] = dict(rec, closed_loop_capacity_rps=capacity)
+    note(
+        f"16c mlp-deep sweep ({card}) at 0.5 / 1 / 2 x its closed-loop capacity "
+        f"{capacity:.1f} rps, floor {rec['latency_bound_s'] * 1e3:.6f} ms: {_sweep_line(rec)}; "
+        f"knee {f'{knee:.0f} rps' if knee else f'none below {deep_rates[-1]:.0f} rps'}; "
+        f"{got} B2 launches, every response bitwise; {time.perf_counter() - t_leg:.2f} s"
+    )
+    del deep, probe
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    soak_out = tmp / "chaos.json"
+    rc, out, err = _capture(bench_serving.main, [
+        "--device", "cuda", "--chaos", SOAK_CHAOS, "--reload-dir", str(ck), "--reload-at", "5",
+        "--requests", "80", "--rates", "300", "--slo-ms", "2000", "--chaos-out", str(soak_out),
+    ])
+    soak = json.loads(soak_out.read_text()) if soak_out.exists() else {}
+    if rc != 0 or soak.get("silently_lost") != [] or soak.get("parity_mismatches") != 0:
+        fail(f"16c chaos soak: exit {rc}, lost {soak.get('silently_lost')}, parity "
+             f"{soak.get('parity_mismatches')}, {err[-400:]}")
+    if soak["faults_unfired"] or soak["crashes_recovered"] != 1 or soak["degraded_at_exit"]:
+        fail(f"16c chaos soak: unfired {soak['faults_unfired']}, crashes "
+             f"{soak['crashes_recovered']}, degraded {soak['degraded_at_exit']}")
+    rows["16c soak"] = soak
+    note(
+        f"16c chaos soak ({card}), the JAX recipe: {soak['submitted']} submitted, verdicts "
+        f"{soak['verdicts']}, 0 lost, 0 parity mismatches, {soak['crashes_recovered']} die "
+        f"absorbed, {soak['breaker_trips']} breaker trip(s), {soak['reloads']} reload(s); "
+        f"availability {soak['availability']:.4f}, goodput retention "
+        f"{soak['goodput_retention']:.4f}, recovery {soak['recovery_s'] * 1e3:.2f} ms, p99 "
+        f"{soak['p99_latency_s'] * 1e3:.3f} ms (baseline {soak['baseline_p99_latency_s'] * 1e3:.3f}); "
+        f"{time.perf_counter() - t_leg:.2f} s"
+    )
+    say(f"  16 rows: {json.dumps(rows)}")
+    say(
+        f"phase 16 serving: ok: the engine under chaos with exact launches and every id "
+        f"terminal, the serve CLI's mesh legs bitwise and its exit 3, the sweeps bitwise, "
+        f"the soak's invariants held; {time.perf_counter() - t_phase:.2f} s"
+    )
+    return {"linear_act_fwd": launches}
+
+
 def main():
     import torch
 
@@ -3213,12 +3568,14 @@ def main():
             fail(f"phase 14 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
         say(f"phase 14 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 14 launched was checked in 9a")
         phase_tp(torch, cuda_ops, TrainingSession, tmp, card)
+        served = phase_serving_faults(torch, cuda_ops, TrainingSession, tmp, card)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
     entries = [
         ("linear_act_fwd", "linear_act_fwd",
-         serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"],
+         serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"]
+         + served["linear_act_fwd"],
          fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd",
          training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"],

@@ -1508,14 +1508,40 @@ class TrainingSession:
             self._opt, self._opt_state, self.spec, order=self._order
         )
 
-    def load_weights(self, path):
-        """Swap this session's weights from a checkpoint between dispatches.
-        The checkpoint must have this session's sizes and activation family.
-        Weights only: the optimizer state and the cursor are untouched.
-        Returns the metadata; unreadable or corrupt files raise
-        ``CheckpointError`` before any state changes."""
-        host_params, loaded_spec, meta = load_checkpoint(path, self.spec.n_stages, self.B)
-        self._check_compatible(loaded_spec, "this session")
+    def load_weights(self, path, verified=None):
+        """Hot-swap this session's weights from a checkpoint between
+        dispatches. The checkpoint must have this session's sizes and
+        activation family (refused in the JAX session's words), so every
+        cached inference program keeps its shapes: the mesh's rung programs
+        take the params at call time and survive the swap. Weights only:
+        the optimizer state and the cursor are untouched. Returns the
+        metadata; unreadable or corrupt files raise ``CheckpointError``
+        before any state changes.
+
+        ``verified=(meta, arrays)``: the pair a ``with_arrays=True``
+        discovery (``find_latest_good`` / ``find_newer_good``) already read
+        and checksummed; the swap assembles those arrays instead of reading
+        the file again, so a reload is ONE verified read."""
+        if verified is not None:
+            host_params, loaded_spec, meta = assemble_checkpoint(
+                path, verified[0], verified[1], self.spec.n_stages, self.B
+            )
+        else:
+            host_params, loaded_spec, meta = load_checkpoint(
+                path, self.spec.n_stages, self.B
+            )
+        if tuple(loaded_spec.sizes) != tuple(self.spec.sizes):
+            raise ValueError(
+                f"checkpoint sizes {loaded_spec.sizes} do not match this "
+                f"session's model sizes {self.spec.sizes} — a hot reload "
+                "must preserve every compiled program's shapes"
+            )
+        if loaded_spec.act != self.spec.act:
+            raise ValueError(
+                f"checkpoint activation family {loaded_spec.act!r} does not "
+                f"match this session's {self.spec.act!r} — a hot reload must "
+                "preserve every compiled program's structure"
+            )
         if self._sequential:
             self._params = convert.params_from_numpy(host_params, self.device)
         elif self._zero == 3:

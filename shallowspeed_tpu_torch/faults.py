@@ -34,9 +34,9 @@ step_in_epoch — the same cursor the step checkpoints store). Saves are
 ``save_step_checkpoint``'s save sequence numbers (the Nth snapshot this
 process attempts) — the anchor the checkpoint writer consults, so a kill
 lands at a DETERMINISTIC point inside the write/verify/rename window. The
-dispatch anchor (``error``/``slow``/``nan``/``die@dispatch=N``) parses
-here as in the JAX package; the port's serving engine does not fire it yet
-(ROADMAP.md §A item 5), and a training entry point never waits on it.
+dispatch anchor (``error``/``slow``/``nan``/``die@dispatch=N``) is the
+serving engine's attempted-dispatch sequence (``ServingEngine.step`` fires
+it, as the JAX engine does); a training entry point never waits on it.
 
 Injection points, all fired by the host between dispatches:
 

@@ -1,4 +1,4 @@
-"""Training telemetry for the port: the counterpart of
+"""Training and serving telemetry for the port: the counterpart of
 ``shallowspeed_tpu/observability`` (same JSONL schema, v13, so the JAX
 package's report, watch and divergence CLIs read the port's files).
 
@@ -19,11 +19,13 @@ package's report, watch and divergence CLIs read the port's files).
                    alert rules behind ``LiveTelemetry``, and the shared
                    percentile;
 - ``report``, ``watch``, ``divergence`` (copied CLIs, ``python -m
-                   shallowspeed_tpu_torch.observability.<name>``).
+                   shallowspeed_tpu_torch.observability.<name>``);
+- ``tracing``      (copied) the request span chains the serving engine
+                   emits, their assembly, clock alignment and per-phase
+                   latency attribution behind the report's Tracing section.
 
 Not ported yet: ``program_audit`` (the XLA program audit) and the
-``aot_cache``, each a ROADMAP item of its own, and ``tracing`` (the
-serving fleet's request traces), which comes with the rest of serving.
+``aot_cache``, each a ROADMAP item of its own.
 """
 
 from shallowspeed_tpu_torch.observability.flight import FlightRecorder

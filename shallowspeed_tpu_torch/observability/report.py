@@ -1,12 +1,10 @@
 """Run report generator: render a metrics JSONL into a human/CI report.
 
 Copied from ``shallowspeed_tpu/observability/report.py``: the same text
-for the same file, so a port run and a JAX run render alike. Two lines
-differ. ``format_bytes`` is a local copy (``program_audit`` is not
-ported), and the Tracing section needs ``observability.tracing``, which
-comes with the rest of serving: a stream holding ``trace`` records (the
-JAX package's serving fleet writes them) renders without that section
-and says so.
+for the same file, so a port run and a JAX run render alike, the Tracing
+section included (through the port's ``observability.tracing``). Only
+the divergence hint names the port's module, and ``format_bytes`` is a
+local copy (``program_audit`` is not ported).
 
     python -m shallowspeed_tpu_torch.observability.report run.jsonl \
         [--baseline other.jsonl|BENCH.json] [--format md|text|json] \
@@ -503,19 +501,54 @@ def _rollups_info(records):
 
 
 def _tracing_info(records, slo_ms=None):
-    """The schema-v10 ``trace`` records' count; None when the run recorded
-    none. The JAX report assembles them into chains with
-    ``observability.tracing``, which the port has not ported yet (it comes
-    with the rest of serving), so the port names what it cannot render
-    instead of rendering half a story."""
-    spans = sum(
-        1
-        for r in records
-        if r.get("kind") == "trace" and r.get("name") != "clock_offset"
-    )
+    """Fold the schema-v10 ``trace`` records into the Tracing story;
+    None when the run recorded none (trace-free and pre-v10 files render
+    exactly as before). Chains are assembled (and worker clocks aligned)
+    by ``observability.tracing``; the report NAMES incomplete chains
+    rather than rendering half a story as whole."""
     if not any(r.get("kind") == "trace" for r in records):
         return None
-    return {"unrendered": True, "spans": spans}
+    from shallowspeed_tpu_torch.observability import tracing
+
+    chains = tracing.assemble_chains(records)
+    problems = tracing.verify_terminal_chains(records, chains)
+    att = tracing.attribution(chains, slo_ms=slo_ms)
+    offsets = tracing.clock_offsets(records)
+    degraded = sorted(
+        {
+            s.get("replica_id")
+            for c in chains.values()
+            if c.alignment == "missing"
+            for s in c.spans
+            if s.get("clock") == "worker"
+        }
+    )
+    worst = []
+    if att:
+        worst = [
+            {
+                "trace_id": c.trace_id,
+                "latency_s": c.latency_s,
+                "verdict": c.verdict,
+                "lines": tracing.waterfall(c),
+            }
+            for c in att.pop("worst")
+        ]
+    return {
+        "spans": sum(
+            1
+            for r in records
+            if r.get("kind") == "trace" and r.get("name") != "clock_offset"
+        ),
+        "chains": len(chains),
+        "problems": problems,
+        "alignment": {
+            str(rid): off for rid, off in sorted(offsets.items(), key=lambda kv: str(kv[0]))
+        },
+        "alignment_missing_replicas": degraded,
+        "attribution": att,
+        "worst": worst,
+    }
 
 
 def _static_analysis_info(records):
@@ -1633,14 +1666,6 @@ def _tracing_lines(tr, md):
     if not tr:
         return []
     lines = ["## Tracing" if md else "tracing:"]
-    if tr.get("unrendered"):
-        lines.append(
-            f"{tr['spans']} trace spans not rendered: the port's report has "
-            "no observability.tracing yet (render with the JAX package's "
-            "report)"
-        )
-        lines.append("")
-        return lines
     line = f"span chains: {tr['chains']} ({tr['spans']} spans)"
     if tr["problems"]:
         line += f" — {len(tr['problems'])} INCOMPLETE:"

@@ -29,6 +29,10 @@ class ThroughputWindow:
         self.first_enqueue_t = None
         self.last_complete_t = None
 
+    def reset(self):
+        self.first_enqueue_t = None
+        self.last_complete_t = None
+
     def note_enqueue(self, t):
         """Earliest noted enqueue wins."""
         if self.first_enqueue_t is None or t < self.first_enqueue_t:

@@ -1,32 +1,52 @@
 """Serve entry point: wire weights to an engine and drive seeded load.
 
     python -m shallowspeed_tpu_torch.serving [--device cuda|cpu]
+        [--dp N] [--pp M] [--tp T] [--schedule gpipe] [--virtual-stages V]
         [--checkpoint ck.npz] [--requests 200] [--rate 100] [--seed 0]
-        [--rows 1,2,3,4,8] [--slot-rows 8] [--slot-ladder 1,2,4,8,16]
-        [--max-slots N] [--closed-loop C] [--deadline-ms D] [--slo-ms S]
-        [--retry-budget 2] [--breaker 3] [--verify] [--metrics-out serve.jsonl]
+        [--slo-ms 50] [--verify] [--metrics-out serve.jsonl]
+        [--faults SPEC] [--retry-budget 2] [--breaker 3] [--knee-rps R]
 
-Builds the port's ``TrainingSession`` (the flagship MLP from the
-deterministic init, or ``--checkpoint`` — any checkpoint the JAX package
-wrote), wraps it in a ``ServingEngine``, warms every ladder rung, and
-drives seeded Poisson load (or a closed-loop population) through it.
-``--verify`` re-computes every ``"ok"`` response with a direct
-``session.predict()`` of the same rows and demands bitwise equality.
-Runs on the GPU unless ``--device cpu`` is given; a missing GPU is an
-error, not a fallback.
+The JAX serve CLI's (``python -m shallowspeed_tpu.serving``) flags and
+output, on the port: builds a ``TrainingSession`` on the requested layout
+(the flagship MLP from the deterministic init, or ``--checkpoint`` — any
+layout's checkpoint, the JAX package's included, restores onto the serving
+layout), wraps it in a ``ServingEngine``, warms every ladder rung, and
+drives seeded Poisson load (or a closed-loop population) through it. The
+sequential layout runs the CUDA forward kernel; the mesh layouts (dp, pp,
+tp, the four schedules, virtual stages) serve on the plain backend, as the
+JAX CLI's sessions do. ``--verify`` re-computes every ``"ok"`` response
+with a direct ``session.predict()`` of the same rows and demands bitwise
+equality. ``--faults`` injects the chaos plan (``@dispatch=`` grammar;
+also read from ``SHALLOWSPEED_FAULTS``). The loadgen drive loops are the
+operator loop: an injected ``die`` (mode=exc) is absorbed and the loop
+re-enters with the queue intact; ``mode=sigkill`` kills the process. Runs
+on the GPU unless ``--device cpu`` is given; a missing GPU is an error,
+not a fallback.
 
-``--metrics-out`` records what the session records (its construction
-spans and the ``cost_model`` behind the latency floor, schema v13); the
-engine's per-request records come with the rest of serving.
+With ``--metrics-out`` the stream carries the engine's ``request``,
+``serving``, ``serving_health``, ``reload`` and ``trace`` records (one
+span chain a request: queue/pack/dispatch/verify/ack) and its live
+telemetry (``rollup`` windows, ``alert`` transitions) beside the
+session's: render it with ``python -m
+shallowspeed_tpu_torch.observability.report <metrics-out>`` (the Serving,
+Degradation and Tracing sections) or tail it with ``...observability.watch
+<metrics-out> --follow``. ``--knee-rps`` arms the knee-proximity alert rule
+with a measured saturation knee from a ``bench_serving`` sweep record.
 
-SIGTERM/SIGINT stop admission, drain what was accepted, and exit under the
+Refused with exit 2 and a pointer: ``--audit`` (ROADMAP.md §A item 13),
+``--aot-cache`` (item 14) and ``--fleet``, ``--fleet-policy``,
+``--fleet-retry``, ``--fleet-max-queue`` (item 5's fleet slice).
+
+Graceful drain: SIGTERM/SIGINT stop ADMISSION, drain everything already
+queued to a terminal verdict, flush the metrics sink, and exit under the
 normal code contract.
 
 Exit codes (the JAX CLI's contract):
-  0  clean;
+  0  clean — including a signal-drained run whose accepted requests all
+     served;
   1  failed responses: dropped / expired / error / unhealthy verdicts, or a
      bitwise mismatch under --verify;
-  2  usage errors (argparse);
+  2  usage errors (argparse) and the refused flags above;
   3  DEGRADED at exit — the health breaker is still open.
 """
 
@@ -63,14 +83,56 @@ class GracefulStop:
         self._previous.clear()
 
 
-def main(argv=None):
+# refused flags: (flag, pointer) — parsed so a JAX serve command line
+# reads, then refused with exit 2 before anything is built
+REFUSED = (
+    ("audit", "--audit (the compiled-program collective census) is not "
+     "ported: the port compiles no XLA program (ROADMAP.md §A item 13)"),
+    ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
+     "(ROADMAP.md §A item 14)"),
+    ("fleet", "--fleet (replica worker processes behind a router) comes "
+     "with the fleet slice (ROADMAP.md §A item 5)"),
+    ("fleet_policy", "--fleet-policy comes with the fleet slice (ROADMAP.md "
+     "§A item 5)"),
+    ("fleet_retry", "--fleet-retry comes with the fleet slice (ROADMAP.md "
+     "§A item 5)"),
+    ("fleet_max_queue", "--fleet-max-queue comes with the fleet slice "
+     "(ROADMAP.md §A item 5)"),
+)
+
+
+def build_parser():
     ap = argparse.ArgumentParser(
         prog="python -m shallowspeed_tpu_torch.serving",
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--checkpoint", default=None, help="weights to serve")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1)
+    ap.add_argument(
+        "--tp",
+        type=int,
+        default=1,
+        help="tensor (model-axis) parallelism: serve through Megatron-"
+        "sharded layers (forward-only — one all-reduce per row-parallel "
+        "layer)",
+    )
+    ap.add_argument(
+        "--schedule",
+        choices=["naive", "gpipe", "pipedream", "interleaved"],
+        default="gpipe",
+    )
+    ap.add_argument("--virtual-stages", type=int, default=1)
+    ap.add_argument("--global-batch-size", type=int, default=128)
+    ap.add_argument("--mubatches", type=int, default=4)
+    ap.add_argument("--data-dir", default=None)
+    ap.add_argument(
+        "--checkpoint",
+        default=None,
+        help="weights to serve (any layout's checkpoint restores onto the "
+        "serving layout)",
+    )
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--rate", type=float, default=100.0, help="offered rps")
     ap.add_argument("--seed", type=int, default=0)
@@ -78,6 +140,13 @@ def main(argv=None):
         "--rows", default="1,2,3,4,8", help="request row-count choices"
     )
     ap.add_argument("--slo-ms", type=float, default=None)
+    ap.add_argument(
+        "--knee-rps",
+        type=float,
+        default=None,
+        help="measured saturation knee (bench_serving sweep record's "
+        "knee_rps) — arms the knee-proximity alert rule; absent = rule off",
+    )
     ap.add_argument(
         "--deadline-ms",
         type=float,
@@ -100,18 +169,30 @@ def main(argv=None):
         help="packing capacity per dispatch (default: the ladder's top rung)",
     )
     ap.add_argument(
-        "--slot-rows", type=int, default=None, help="rows per slot (default 8)"
+        "--slot-rows",
+        type=int,
+        default=None,
+        help="global rows per microbatch slot (default: 8, rounded up to a "
+        "dp multiple)",
     )
     ap.add_argument(
         "--slot-ladder",
         default=None,
-        help="comma-separated slot counts per dispatch (default 1,2,4,8,16)",
+        help="comma-separated slot counts per dispatch (default 1,2,4,8,16) "
+        "— bounds the mesh's inference programs at one per rung",
+    )
+    ap.add_argument(
+        "--faults",
+        default=None,
+        help="chaos injection spec (e.g. 'error@dispatch=4,slow@dispatch=6"
+        ":ms=50'); default: the SHALLOWSPEED_FAULTS environment plan",
     )
     ap.add_argument(
         "--retry-budget",
         type=int,
         default=2,
-        help="total dispatch attempts per request before verdict 'error'",
+        help="total dispatch attempts per request before verdict 'error' "
+        "(the shared retry.RetryPolicy budget)",
     )
     ap.add_argument(
         "--breaker",
@@ -121,16 +202,46 @@ def main(argv=None):
         "(degraded: admission refused; exit 3 if still open at exit)",
     )
     ap.add_argument(
+        "--fleet", type=int, default=0, metavar="N",
+        help="refused: the fleet slice (ROADMAP.md §A item 5)",
+    )
+    ap.add_argument(
+        "--fleet-policy", choices=["least_queue", "p2c"], default=None,
+        help="refused: the fleet slice",
+    )
+    ap.add_argument(
+        "--fleet-retry", type=int, default=None,
+        help="refused: the fleet slice",
+    )
+    ap.add_argument(
+        "--fleet-max-queue", type=int, default=None,
+        help="refused: the fleet slice",
+    )
+    ap.add_argument(
+        "--aot-cache", default=None, metavar="DIR",
+        help="refused: ROADMAP.md §A item 14",
+    )
+    ap.add_argument(
         "--verify",
         action="store_true",
         help="re-compute every 'ok' response with a direct predict() of the "
         "same rows and demand bitwise equality (exit 1 on any mismatch)",
     )
     ap.add_argument(
-        "--metrics-out", default=None,
-        help="record the session's telemetry (spans, cost_model) to this JSONL file",
+        "--audit", action="store_true",
+        help="refused: ROADMAP.md §A item 13",
     )
+    ap.add_argument("--metrics-out", default=None)
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
+    for dest, why in REFUSED:
+        if getattr(args, dest):
+            print(f"{ap.prog}: error: {why}", file=sys.stderr)
+            return 2
 
     from shallowspeed_tpu_torch.api import TrainingSession
     from shallowspeed_tpu_torch.observability import JsonlMetrics
@@ -144,8 +255,16 @@ def main(argv=None):
 
     metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
     session = TrainingSession(
-        metrics=metrics,
+        dp=args.dp,
+        pp=args.pp,
+        tp=args.tp,
+        schedule=args.schedule,
+        virtual_stages=args.virtual_stages,
+        global_batch_size=args.global_batch_size,
+        mubatches=args.mubatches,
+        data_dir=args.data_dir,
         resume=args.checkpoint,
+        metrics=metrics,
         predict_slot_rows=args.slot_rows,
         predict_slot_ladder=(
             tuple(int(r) for r in args.slot_ladder.split(","))
@@ -158,8 +277,11 @@ def main(argv=None):
         session,
         max_slots=args.max_slots,
         slo_ms=args.slo_ms,
+        metrics=metrics,
         retry=args.retry_budget,
         breaker_threshold=args.breaker,
+        faults=args.faults,
+        knee_rps=args.knee_rps,
     )
     payloads = request_payloads(
         args.requests,
@@ -168,7 +290,7 @@ def main(argv=None):
         rows_choices=tuple(int(r) for r in args.rows.split(",") if r.strip()),
     )
     print(
-        f"serving: sequential on {session.device}, "
+        f"serving: DP={args.dp} x PP={args.pp} ({args.schedule}), "
         f"slot_rows={session.slot_rows}, ladder={session.slot_ladder}, "
         f"{args.requests} requests"
         + (
@@ -179,7 +301,7 @@ def main(argv=None):
         + (f", weights from {args.checkpoint}" if args.checkpoint else "")
     )
     # warm every rung before traffic: the percentiles must measure serving,
-    # not the kernel build and first-launch costs
+    # not the kernel build, first launches or a rung program's build
     engine.warm_ladder()
     stopper = GracefulStop().install()
     try:
@@ -196,6 +318,7 @@ def main(argv=None):
             )
     finally:
         stopper.restore()
+    last_error = engine.stats()["last_error"]
     rec = engine.record_summary(
         offered_rps=None if args.closed_loop else args.rate
     )
@@ -235,11 +358,12 @@ def main(argv=None):
     if rec["failed_dispatches"]:
         print(
             f"dispatch errors: {rec['failed_dispatches']} failed dispatch(es), "
-            f"last: {rec['last_error']}"
+            f"last: {last_error}"
         )
-    if rec["breaker_trips"]:
+    if rec["breaker_trips"] or rec["reloads"]:
         print(
-            f"degradation: {rec['breaker_trips']} breaker trip(s)"
+            f"degradation: {rec['breaker_trips']} breaker trip(s), "
+            f"{rec['reloads']} reload(s)"
             + (
                 f", recovered in {rec['recovery_s'] * 1e3:.1f} ms"
                 if rec["recovery_s"] is not None
@@ -265,7 +389,10 @@ def main(argv=None):
     if metrics is not None:
         session.close()
         metrics.close()
-        print(f"telemetry written: {metrics.path}")
+        print(
+            f"telemetry written: {metrics.path} (request + trace records; "
+            "the report CLI renders the Serving and Tracing sections)"
+        )
     if engine.degraded:
         print("serving: engine DEGRADED at exit (breaker open)", file=sys.stderr)
         return 3
