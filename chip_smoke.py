@@ -255,6 +255,33 @@ in phases:
    beside the H100 floor, and the knee; then the JAX chaos-soak recipe
    through ``bench_serving.main``: zero lost, zero parity mismatches.
    No speed is gated.
+17. the serving fleet, replica worker processes sharing the card, each
+   with its own CUDA context, serving a card session's step checkpoint
+   (``FleetProbe`` keeps every fleet's requests and drains each live
+   replica at ``stop()``, so it reports its process's launch counts):
+   17a ``bench_serving.fleet_chaos_soak`` with 3 CUDA replicas and
+   ``verify``, 600 seeded requests of 1-8 rows at 1500 rps, the busiest
+   replica SIGKILLed after 200 acks and a replacement scaled up: nothing
+   lost, 0 parity mismatches, every "ok" within 1e-6 of a CPU session's
+   ``predict()``, each drained replica's B1 launches exactly 6 x (its
+   warm-up slots + the slots of its dispatches that reached ``predict()``
+   + its verify re-predicts' slots), the parent launching nothing;
+   ``recovery_s``, ``scale_up_s``, ``ready_wall_s``, availability and
+   goodput retention printed; 17b the serve CLI's ``--fleet 2 --verify``
+   in this process (exit 0, every response bitwise, launches exact), a
+   ``die@dispatch=1:mode=sigkill`` plan exits 3 (quorum down), a worker
+   that sees no GPU stops the fleet with ``FleetError``; 17c capacity
+   against replicas on one card: one fleet without alert rules (router
+   and replicas) drained from 3 to 1 replicas, then a fresh 3 with the
+   default rules (whose burn-rate rule costs the router and each replica
+   a scan of its window a request), 8000 requests at 4000 rps a
+   step, achieved rps, p50 and p99, the host CPU share of the router and
+   of each replica process, and the slots a worker dispatch packs, every
+   response bitwise the card's ``predict()``; 17d ``bench_replay``'s static, autoscaled and chaos legs
+   over an 8 s day sized by 16c's knee (base 0.35 x, peak 1.4 x, one x2
+   spike, 1-3 replicas, static 2, a 1 s deadline): every request
+   terminal, every "ok" bitwise, launches exact, the scoreboard's verdicts
+   printed. No speed and no verdict is gated.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -272,8 +299,10 @@ drives and phase 11's interleaved ones (11a, 11e), and their times summed
 over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
 to the B1/B3 kernels' and the run mode's ``launches``, phase 13's to
 every kernel's (its CLI subprocess counts in its own process, not here),
-phase 14's (14a, 14c) to the flag entries', and phase 16's drives (16a, the
-16c sweeps, their oracle's predicts excluded) to the forward's;
+phase 14's (14a, 14c) to the flag entries', phase 16's drives (16a, the
+16c sweeps, their oracle's predicts excluded) to the forward's, and phase
+17's drained replicas' own counts (read in each worker process) to the
+forward's;
 ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or 9a),
 then ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 either; so does a machine without CUDA, or a directory without the
@@ -3458,7 +3487,7 @@ def phase_serving_faults(torch, cuda_ops, TrainingSession, data_dir, card):
         fail(f"16c flagship sweep: {got} launches, want {want}")
     launches = a_launches + got
     knee = rec["knee_rps"]
-    rows["16c flagship"] = rec
+    rows["16c flagship"] = flagship_sweep = rec
     note(
         f"16c flagship sweep ({card}), 200 requests a rate, SLO {SERVE_SLO_MS:.0f} ms, floor "
         f"{rec['latency_bound_s'] * 1e3:.6f} ms ({rec['latency_bound_source']}): {_sweep_line(rec)}; "
@@ -3517,6 +3546,407 @@ def phase_serving_faults(torch, cuda_ops, TrainingSession, data_dir, card):
         f"terminal, the serve CLI's mesh legs bitwise and its exit 3, the sweeps bitwise, "
         f"the soak's invariants held; {time.perf_counter() - t_phase:.2f} s"
     )
+    return {"linear_act_fwd": launches, "sweep": flagship_sweep}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the serving fleet — replica worker processes sharing the card
+# ---------------------------------------------------------------------------
+
+FLEET_SOAK = dict(n_replicas=3, n_requests=600, rate=1500.0, kill_after=200)
+FLEET_CAPACITY_NS = (1, 2, 3)
+FLEET_CAPACITY_RPS = 4000.0
+FLEET_CAPACITY_S = 2.0
+# the capacity scoreboard's day: AUTOSCALE_r01.json's ratios of the knee;
+# a request that waited 1 s (20 x the SLO) is shed rather than served late,
+# which bounds each leg's drain past the day
+REPLAY_ARGS = ("--day-s", "8", "--base-frac", "0.35", "--peak-frac", "1.4",
+               "--spike-mult", "2", "--n-spikes", "1", "--min-replicas", "1",
+               "--max-replicas", "3", "--static-replicas", "2", "--deadline-ms", "1000")
+
+
+class FleetProbe:
+    """Watches every ``ServingFleet`` built while it is entered (the serve
+    CLI, the chaos soak and the replay legs build their own): it keeps each
+    fleet's submitted requests, and at ``stop()`` drains and retires every
+    live replica first, so each one reports its process's launch counts in
+    its ``drained`` message (``retired_stats``). A SIGKILLed replica
+    reports none."""
+
+    def __init__(self):
+        self.fleets = []  # (fleet, [FleetRequest]) in build order
+
+    def __enter__(self):
+        from shallowspeed_tpu_torch.serving import bench_replay, fleet as fleet_mod
+
+        probe = self
+        base = fleet_mod.ServingFleet
+
+        class Probed(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.submitted = []
+                probe.fleets.append((self, self.submitted))
+
+            def submit(self, x, deadline_ms=None, arrival_t=None):
+                req = super().submit(x, deadline_ms=deadline_ms, arrival_t=arrival_t)
+                self.submitted.append(req)
+                return req
+
+            def stop(self):
+                live = [rid for rid, i in self.replicas.items() if i.state in ("starting", "ready")]
+                for rid in live:
+                    self.scale_down(rid)
+                t_end = time.perf_counter() + 60
+                while any(self.replicas[r].state == "draining" for r in live):
+                    if time.perf_counter() > t_end:
+                        fail(f"fleet replicas {live} did not drain within 60 s")
+                    self.step()
+                    time.sleep(0.002)
+                super().stop()
+
+        self._saved = (fleet_mod.ServingFleet, bench_replay.ServingFleet)
+        self._mods = (fleet_mod, bench_replay)
+        fleet_mod.ServingFleet = bench_replay.ServingFleet = Probed
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0].ServingFleet, self._mods[1].ServingFleet = self._saved
+        return False
+
+
+def _fleet_launches(label, fleet, submitted, verify):
+    """Hold each drained replica's forward launches to the flagship's relu
+    layers x (its warm-up slots + the slots of its dispatches that reached
+    predict() + its verify re-predicts' slots); no other kernel. Returns
+    (their sum, {replica: launches})."""
+    from shallowspeed_tpu_torch.serving.slots import DEFAULT_SLOT_LADDER, slots_needed
+
+    relu = len(FLAGSHIP) - 2  # every Linear but the last
+    per = {}
+    for rid, st in fleet.retired_stats().items():
+        launches = st["launches"]
+        verify_slots = sum(
+            slots_needed(r.rows, SLOT_ROWS) for r in submitted
+            if verify and r.verdict == "ok" and r.replica_id == rid
+        )
+        slots = sum(DEFAULT_SLOT_LADDER) + st["slots_dispatched"] + verify_slots
+        others = {k: v for k, v in launches.items() if v and k != "linear_act_fwd"}
+        if others or launches["linear_act_fwd"] != relu * slots:
+            fail(f"{label}: replica {rid} launched {launches}, want {relu} x {slots} slots "
+                 f"(warm-up {sum(DEFAULT_SLOT_LADDER)} + dispatched {st['slots_dispatched']} "
+                 f"+ verify {verify_slots}) of linear_act_fwd and nothing else")
+        per[rid] = launches["linear_act_fwd"]
+    return sum(per.values()), per
+
+
+def _proc_cpu_s(pid):
+    """User + system CPU seconds process ``pid`` has used (Linux /proc)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _fleet_answers(np, label, submitted, oracle, atol=None):
+    """Every request terminal; every "ok" response bitwise ``oracle``'s
+    predict of its rows (``atol`` None), or within ``atol``. One predict
+    call answers every ok request: each request's rows are padded with
+    zero rows to whole slots, as a replica's engine and its direct
+    predict() lay them out (the softmax's stability max spans a slot, so
+    a row's last bits depend on its slot-mates). Returns (verdict counts,
+    the largest difference)."""
+    from shallowspeed_tpu_torch.serving.engine import TERMINAL_VERDICTS
+    from shallowspeed_tpu_torch.serving.slots import slots_needed
+
+    verdicts = {}
+    for r in submitted:
+        if r.verdict not in TERMINAL_VERDICTS:
+            fail(f"{label}: request {r.id} ended {r.verdict!r}")
+        verdicts[r.verdict] = verdicts.get(r.verdict, 0) + 1
+    oks = [r for r in submitted if r.verdict == "ok"]
+    if not oks:
+        fail(f"{label}: no ok response ({verdicts})")
+    padded = [np.pad(r.x, ((0, slots_needed(r.rows, SLOT_ROWS) * SLOT_ROWS - r.rows), (0, 0)))
+              for r in oks]
+    want = oracle.predict(np.concatenate(padded))
+    starts = np.cumsum([0] + [p.shape[0] for p in padded])
+    got = np.concatenate([r.result for r in oks])
+    want = np.concatenate([want[a:a + r.rows] for a, r in zip(starts, oks)])
+    worst = float(np.abs(got - want).max())
+    if (atol is None and not np.array_equal(got, want)) or (atol is not None and worst > atol):
+        fail(f"{label}: ok responses differ from the oracle's predict() by {worst:.3e}")
+    return verdicts, worst
+
+
+def phase_fleet(torch, cuda_ops, TrainingSession, data_dir, card, sweep=None):
+    """17: the serving fleet on the card. ``sweep``: phase 16c's flagship
+    sweep record (its knee sizes 17d); measured here when None. Returns
+    the forward launches of every drained replica."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.observability.stats import percentile
+    from shallowspeed_tpu_torch.serving import __main__ as serve_cli
+    from shallowspeed_tpu_torch.serving import bench_replay, bench_serving, loadgen, router
+    from shallowspeed_tpu_torch.serving import fleet as fleet_mod
+
+    t_phase = time.perf_counter()
+    tmp = Path(data_dir) / "fleet"
+    ck = tmp / "ck"
+    rows = {}
+    launches = 0
+
+    def note(line):
+        say(f"  {line}")
+
+    def ms(v):
+        return "n/a" if v is None else f"{v * 1e3:.3f}"
+
+    # the weights every replica serves: a card session's step checkpoint
+    trainer = TrainingSession(device="cuda", data_dir=data_dir, checkpoint_dir=ck)
+    trainer.train_steps(SERVE_CKPT_STEPS)
+    ck_path = str(trainer.save_step_checkpoint())
+    trainer.close()
+    del trainer
+    card_oracle = TrainingSession(device="cuda", resume=ck_path)
+    cpu_oracle = TrainingSession(device="cpu", resume=ck_path)
+    config = {"session": {"resume": ck_path, "device": "cuda"}, "engine": {"reload_dir": str(ck)}}
+
+    # 17a: the chaos soak, 3 replicas, the busiest SIGKILLed, a replacement
+    t_leg = time.perf_counter()
+    with FleetProbe() as probe:
+        (soak, out, err), counts = _card_counts(torch, cuda_ops, lambda: _capture(
+            lambda: bench_serving.fleet_chaos_soak(
+                config, in_dim=784, seed=0, slo_ms=SERVE_SLO_MS,
+                rows_choices=tuple(range(1, 9)), **FLEET_SOAK)))
+    (fleet, submitted), = probe.fleets
+    if any(counts.values()):
+        fail(f"17a: the fleet's parent launched {counts}")
+    if soak["silently_lost"] or soak["parity_mismatches"] or soak["killed_replica"] is None:
+        fail(f"17a: lost {soak['silently_lost']}, parity {soak['parity_mismatches']}, "
+             f"killed {soak['killed_replica']}")
+    if soak["scale_ups"] != 1 or soak["degraded_at_exit"] or soak["submitted"] != FLEET_SOAK["n_requests"]:
+        fail(f"17a: scale-ups {soak['scale_ups']}, degraded {soak['degraded_at_exit']}, "
+             f"submitted {soak['submitted']}")
+    if any(r.verdict == "ok" and r.parity_ok is not True for r in submitted):
+        fail("17a: an ok response without the worker's bitwise parity")
+    verdicts, worst = _fleet_answers(np, "17a", submitted, cpu_oracle, atol=1e-6)
+    got, per = _fleet_launches("17a", fleet, submitted, verify=True)
+    if soak["killed_replica"] in per or len(per) != FLEET_SOAK["n_replicas"]:
+        fail(f"17a: drained replicas {sorted(per)}, killed {soak['killed_replica']}")
+    launches += got
+    walls = {rid: i.snapshot()["ready_wall_s"] for rid, i in fleet.replicas.items()}
+    retention = (soak["goodput_after_rps"] / soak["goodput_before_rps"]
+                 if soak["goodput_before_rps"] else None)
+    rows["17a"] = dict(soak, card_vs_cpu=worst, launches=per, ready_wall_s=walls,
+                       goodput_retention=retention)
+    note(
+        f"17a fleet chaos soak ({card}): {FLEET_SOAK['n_replicas']} CUDA replicas, "
+        f"{soak['submitted']} requests at {FLEET_SOAK['rate']:.0f} rps, verdicts {verdicts}, 0 lost, "
+        f"0 parity mismatches, card vs CPU {worst:.3e}; replica {soak['killed_replica']} SIGKILLed "
+        f"at {soak['kill_t_s']:.3f} s holding {soak['killed_inflight']} in flight, "
+        f"{soak['failovers']} failover(s) ({soak['failover_requeued']} requeued); recovery_s "
+        f"{ms(soak['recovery_s'])} ms, kill stall {ms(soak['kill_stall_s'])} ms, "
+        f"scale_up_s {soak['scale_up_s']} s, ready_wall_s {walls}; availability "
+        f"{soak['availability']}, goodput {soak['goodput_before_rps']} -> "
+        f"{soak['goodput_after_rps']} rps (retention {retention}); p50 "
+        f"{ms(soak['p50_latency_s'])} / p99 {ms(soak['p99_latency_s'])} ms; routing "
+        f"{soak['routing']}; B1 launches a "
+        f"drained replica {per} (exact); {time.perf_counter() - t_leg:.2f} s"
+    )
+
+    # 17b: the serve CLI's fleet in this process (its replicas drain at the
+    # end, so their launches are read), its quorum-down exit, and a worker
+    # that finds no GPU
+    t_leg = time.perf_counter()
+    argv = ["--device", "cuda", "--fleet", "2", "--verify", "--checkpoint", ck_path,
+            "--requests", "200", "--rate", "1000", "--slo-ms", str(SERVE_SLO_MS)]
+    with FleetProbe() as probe:
+        (rc, out, err), counts = _card_counts(torch, cuda_ops, lambda: _capture(serve_cli.main, argv))
+    (fleet, submitted), = probe.fleets
+    if rc != 0 or "verify: 200/200 responses bitwise-equal to the serving replica's direct predict()" not in out:
+        fail(f"17b serve --fleet 2 --verify: exit {rc}, {out[-400:]} {err[-400:]}")
+    if any(counts.values()):
+        fail(f"17b: the CLI's parent launched {counts}")
+    _fleet_answers(np, "17b", submitted, card_oracle)
+    got, per = _fleet_launches("17b", fleet, submitted, verify=True)
+    launches += got
+    lat = next(l for l in out.splitlines() if l.startswith("completed"))
+    with FleetProbe():
+        rc3, out3, err3 = _capture(serve_cli.main, [
+            "--device", "cuda", "--fleet", "2", "--faults", "die@dispatch=1:mode=sigkill",
+            "--checkpoint", ck_path, "--requests", "40", "--rate", "1000"])
+    if rc3 != 3 or "DEGRADED at exit (quorum of replicas down)" not in err3:
+        fail(f"17b quorum-down leg: exit {rc3} (want 3), {err3[-400:]}")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        blind = fleet_mod.ServingFleet(config, n_replicas=1)
+        try:
+            blind.start()
+            fail("17b: a worker without a GPU reached ready")
+        except fleet_mod.FleetError as e:
+            refusal = str(e)
+        finally:
+            blind.stop()
+    finally:
+        if visible is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    if "no CUDA device" not in refusal:
+        fail(f"17b: a worker without a GPU failed with {refusal!r}")
+    rows["17b"] = dict(cli=lat, launches=per, blind=refusal)
+    note(
+        f"17b serve CLI --fleet 2 --verify ({card}): exit 0, 200/200 bitwise in the workers and "
+        f"against the card's predict(); {lat}; B1 launches a replica {per} (exact); "
+        f"`--faults die@dispatch=1:mode=sigkill` exits 3 (quorum down); a worker that sees no GPU: "
+        f"FleetError ({refusal[:90]}); {time.perf_counter() - t_leg:.2f} s"
+    )
+
+    # 17c: capacity against the number of replicas sharing the card. The
+    # N series runs one fleet without alert rules, in the router or in the
+    # replicas' engines, 3 replicas drained down a replica at a time (a
+    # drain is quick, a start is not): the default burn-rate rule scans its
+    # 300 s window of samples on every completion, so a router or a replica
+    # that has seen many requests slows with its history; the last step
+    # sends the N = 3 stream into a fresh fleet with the default rules, the
+    # fleet as the serve CLI runs it
+    t_leg = time.perf_counter()
+    n_req = int(FLEET_CAPACITY_RPS * FLEET_CAPACITY_S)
+    cfg = {"session": {"resume": ck_path, "device": "cuda"}}
+    cap = {}
+
+    def overload(fleet, n, label):
+        payloads = loadgen.request_payloads(n_req, 784, seed=n, rows_choices=tuple(range(1, 9)))
+        arrivals = loadgen.poisson_arrivals(FLEET_CAPACITY_RPS, n_req, seed=n)
+        start = len(fleet.submitted)
+        pids = {rid: fleet.pid(rid) for rid, i in fleet.replicas.items() if i.state == "ready"}
+        cpu0 = {rid: _proc_cpu_s(pid) for rid, pid in pids.items()}
+        wall0, parent0 = time.perf_counter(), time.process_time()
+        loadgen.run_open_loop(fleet, payloads, arrivals)
+        wall = time.perf_counter() - wall0
+        reqs = fleet.submitted[start:]
+        if any(r.verdict != "ok" for r in reqs):
+            fail(f"17c {label}: verdicts {sorted({r.verdict for r in reqs})}")
+        lats = [r.latency_s for r in reqs]
+        window = max(r.complete_t for r in reqs) - min(r.enqueue_t for r in reqs)
+        routing = {}
+        for r in reqs:
+            routing[r.replica_id] = routing.get(r.replica_id, 0) + 1
+        cap[label] = dict(
+            achieved_rps=n_req / window, window_s=window, p50_latency_s=percentile(lats, 50),
+            p99_latency_s=percentile(lats, 99), routing=routing,
+            routing_skew=router.routing_skew(routing.values()),
+            parent_cpu_share=(time.process_time() - parent0) / wall,
+            worker_cpu_share={rid: round((_proc_cpu_s(pid) - cpu0[rid]) / wall, 3)
+                              for rid, pid in pids.items()})
+
+    walls, per, packing = {}, {}, []
+
+    def measured(n_start, alert_rules, steps):
+        """A fleet of ``n_start`` replicas; each step drains it down to ``n``
+        and sends it the overload stream; then its replicas drain and its
+        answers and launches are held."""
+        nonlocal launches
+        with FleetProbe():
+            fleet = fleet_mod.ServingFleet(dict(cfg, engine={"alert_rules": alert_rules}),
+                                           n_replicas=n_start, slo_ms=SERVE_SLO_MS, seed=0,
+                                           alert_rules=alert_rules)
+            try:
+                fleet.start()
+                for n, label in steps:
+                    while fleet.n_ready > n:
+                        fleet.scale_down()
+                    overload(fleet, n, label)
+                walls[label] = {rid: i.snapshot()["ready_wall_s"] for rid, i in fleet.replicas.items()}
+            finally:
+                fleet.stop()
+        _fleet_answers(np, f"17c {label}", fleet.submitted, card_oracle)
+        got, per[label] = _fleet_launches(f"17c {label}", fleet, fleet.submitted, verify=False)
+        launches += got
+        retired = fleet.retired_stats().values()
+        packing.append(sum(st["slots_dispatched"] for st in retired)
+                       / sum(st["dispatches"] for st in retired))
+
+    top = FLEET_CAPACITY_NS[-1]
+    measured(top, [], [(n, f"N={n}") for n in reversed(FLEET_CAPACITY_NS)])
+    measured(top, None, [(top, f"N={top}, default rules")])
+    base = cap[f"N={FLEET_CAPACITY_NS[0]}"]["achieved_rps"]
+    rows["17c"] = dict(steps=cap, ready_wall_s=walls, launches=per, slots_a_dispatch=packing)
+    note(
+        f"17c capacity against replicas on one card ({card}), {n_req} requests a step at "
+        f"{FLEET_CAPACITY_RPS:.0f} rps offered, rows 1-8; a fleet without alert rules drained "
+        f"3 -> 1, then 3 replicas with the default rules: " + "; ".join(
+            f"{label}: achieved {c['achieved_rps']:.1f} rps ({c['achieved_rps'] / base:.3f}x), "
+            f"p50 {ms(c['p50_latency_s'])} / p99 {ms(c['p99_latency_s'])} ms, skew "
+            f"{c['routing_skew']:.3f}, host CPU share of the router "
+            f"{c['parent_cpu_share']:.3f} and of each replica {c['worker_cpu_share']}"
+            for label, c in cap.items())
+        + f"; slots a worker dispatch {[round(x, 3) for x in packing]}; ready_wall_s {walls}; "
+        f"every response bitwise, B1 launches a drained replica {per} (exact); "
+        f"{time.perf_counter() - t_leg:.2f} s"
+    )
+
+    # 17d: the capacity scoreboard over a compressed day, sized by 16c's knee
+    t_leg = time.perf_counter()
+    if sweep is None:
+        sweep = bench_serving.sweep(TrainingSession(device="cuda"), rates=SWEEP_RATES,
+                                    n_requests=200, slo_ms=SERVE_SLO_MS)
+    knee_note = ""
+    if sweep["knee_rps"] is None:
+        sweep = dict(sweep, knee_rps=SWEEP_RATES[-1])
+        knee_note = f" (no knee below {SWEEP_RATES[-1]:.0f} rps: sized at it)"
+    sweep_path, board_path = tmp / "sweep.json", tmp / "scoreboard.json"
+    sweep_path.write_text(json.dumps(sweep))
+    with FleetProbe() as probe:
+        (rc, out, err), counts = _card_counts(torch, cuda_ops, lambda: _capture(bench_replay.main, [
+            "--device", "cuda", "--checkpoint", ck_path, "--knee-from", str(sweep_path),
+            *REPLAY_ARGS, "--out", str(board_path)]))
+    board = json.loads(board_path.read_text()) if board_path.exists() else None
+    if board is None or rc != (0 if all(board["verdicts"].values()) else 1):
+        fail(f"17d bench_replay: exit {rc}, {err[-400:]}")
+    if any(counts.values()):
+        fail(f"17d: the fleets' parent launched {counts}")
+    legs = {}
+    for (fleet, submitted), leg in zip(probe.fleets, board["legs"]):
+        verdicts, _ = _fleet_answers(np, f"17d {leg}", submitted, card_oracle)
+        got, per = _fleet_launches(f"17d {leg}", fleet, submitted, verify=False)
+        launches += got
+        L = board["legs"][leg]
+        legs[leg] = dict(verdicts=verdicts, launches=per,
+                         violation_s=L["violation_s"], wasted_replica_s=L["wasted_replica_s"],
+                         replica_s=L["replica_s"], flaps=L["flaps"],
+                         decisions=[d["decision"] for d in L["decisions"]],
+                         p50_latency_s=L["stats_summary"]["p50_latency_s"],
+                         p99_latency_s=L["stats_summary"]["p99_latency_s"],
+                         gate_dropped=L["gate_dropped"])
+    if len(legs) != 3:
+        fail(f"17d: legs {sorted(legs)} from {len(probe.fleets)} fleets")
+    rows["17d"] = dict(knee_rps=board["config"]["knee_rps"], verdicts=board["verdicts"],
+                       oracle_violation_s=board["oracle"]["violation_s"],
+                       oracle_replica_s=board["oracle"]["replica_s"],
+                       arrivals=board["config"]["trace"]["n_arrivals"], legs=legs)
+    note(
+        f"17d capacity scoreboard ({card}): knee {board['config']['knee_rps']:.0f} rps from 16c"
+        f"{knee_note}, {board['config']['trace']['n_arrivals']} arrivals over a "
+        f"{board['config']['trace']['day_s']:g} s day a leg; "
+        + "; ".join(
+            f"{leg}: {l['verdicts']}, violation {l['violation_s']:.3f} s, replica-s "
+            f"{l['replica_s']:.3f} (wasted {l['wasted_replica_s']:.3f}), {l['flaps']} flap(s), "
+            f"decisions {l['decisions']}, p50 {ms(l['p50_latency_s'])} / p99 "
+            f"{ms(l['p99_latency_s'])} ms"
+            for leg, l in legs.items())
+        + f"; oracle violation {board['oracle']['violation_s']:.3f} s, replica-s "
+        f"{board['oracle']['replica_s']:.3f}; verdicts {board['verdicts']}; every request "
+        f"terminal, every ok bitwise, launches exact; {time.perf_counter() - t_leg:.2f} s"
+    )
+    say(f"  17 rows: {json.dumps(rows)}")
+    say(
+        f"phase 17 fleet: ok: CUDA replicas sharing the card serve bitwise through a SIGKILL "
+        f"and a scale-up with exact launches in every drained replica, the serve CLI's fleet "
+        f"exits 0 and 3, capacity measured at N = 1-3, the scoreboard's three legs replayed; "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
     return {"linear_act_fwd": launches}
 
 
@@ -3569,13 +3999,14 @@ def main():
         say(f"phase 14 shapes: ok: every one of the {len(seen)} (rows, K, N, flag) 14 launched was checked in 9a")
         phase_tp(torch, cuda_ops, TrainingSession, tmp, card)
         served = phase_serving_faults(torch, cuda_ops, TrainingSession, tmp, card)
+        fleet = phase_fleet(torch, cuda_ops, TrainingSession, tmp, card, served["sweep"])
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
     entries = [
         ("linear_act_fwd", "linear_act_fwd",
          serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"]
-         + served["linear_act_fwd"],
+         + served["linear_act_fwd"] + fleet["linear_act_fwd"],
          fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd",
          training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"],

@@ -16,23 +16,43 @@
                      faults at ``@dispatch=N`` anchors);
 - ``loadgen``        seeded Poisson arrivals, open-loop (coordinated-
                      omission-corrected) and closed-loop drive loops, each with
-                     the graceful-drain ``should_stop`` hook;
+                     the graceful-drain ``should_stop`` hook — the drive loops
+                     duck-type over an engine OR a fleet;
+- ``router``         fleet routing as pure logic: replica health state
+                     (heartbeat-fed), the bounded fleet queue,
+                     least-queue-depth / power-of-two-choices placement, the
+                     quorum rule;
+- ``fleet``          ``ServingFleet``: N engine replicas as spawned worker
+                     processes (on a card they share it, each with its own
+                     CUDA context) behind the router — heartbeats, failover
+                     requeue-at-head, ``scale_up``/``scale_down``/
+                     ``watch_reload``, ``fleet``/``fleet_health`` records and
+                     per-replica ``.r{id}`` JSONL shards;
+- ``replay``         the seeded diurnal trace (Lewis-Shedler thinning);
+- ``autoscaler``     ``AutoscalePolicy``: the closed-loop scaling policy over
+                     the fleet's alert edges and ``status()`` snapshots;
 - ``bench_serving``  the offered-load sweep (p50/p99, goodput, queue depth,
-                     padding waste, the saturation knee) and the seeded
-                     chaos soak, one versioned JSON record each;
+                     padding waste, the saturation knee), the seeded chaos
+                     soak and the fleet chaos soak, one versioned JSON record
+                     each;
+- ``bench_replay``   the capacity scoreboard: one diurnal trace replayed on
+                     a static, an autoscaled and a chaos fleet, scored
+                     against the offline oracle;
 - ``__main__``       the serve entry point
                      (``python -m shallowspeed_tpu_torch.serving``) on every
-                     layout: checkpoint -> engine -> seeded load, with
-                     ``--verify`` bitwise parity, ``--faults`` chaos and
-                     SIGTERM/SIGINT graceful drain.
-
-The fleet slice (ROADMAP.md §A item 5) adds what the JAX package serves
-across processes: ``router``, ``fleet`` (``ServingFleet``, replica worker
-processes), ``replay``, ``autoscaler``, ``bench_replay``, the serve CLI's
-``--fleet*`` flags and ``bench_serving``'s fleet chaos soak.
+                     layout, in one process or as a fleet (``--fleet N``):
+                     checkpoint -> engine(s) -> seeded load, with ``--verify``
+                     bitwise parity, ``--faults`` chaos and SIGTERM/SIGINT
+                     graceful drain.
 """
 
 from shallowspeed_tpu_torch.serving.engine import Request, ServingEngine
+from shallowspeed_tpu_torch.serving.fleet import (
+    FleetError,
+    ServingFleet,
+    fleet_workers_supported,
+)
+from shallowspeed_tpu_torch.serving.router import FleetRequest, Router
 from shallowspeed_tpu_torch.serving.slots import (
     DEFAULT_SLOT_LADDER,
     DEFAULT_SLOT_ROWS,
@@ -45,8 +65,13 @@ from shallowspeed_tpu_torch.serving.slots import (
 __all__ = [
     "DEFAULT_SLOT_LADDER",
     "DEFAULT_SLOT_ROWS",
+    "FleetError",
+    "FleetRequest",
     "Request",
+    "Router",
     "ServingEngine",
+    "ServingFleet",
+    "fleet_workers_supported",
     "pack_slots",
     "rung_for",
     "slots_needed",

@@ -5,6 +5,8 @@
         [--checkpoint ck.npz] [--requests 200] [--rate 100] [--seed 0]
         [--slo-ms 50] [--verify] [--metrics-out serve.jsonl]
         [--faults SPEC] [--retry-budget 2] [--breaker 3] [--knee-rps R]
+        [--fleet N] [--fleet-policy least_queue|p2c] [--fleet-retry 2]
+        [--fleet-max-queue Q]
 
 The JAX serve CLI's (``python -m shallowspeed_tpu.serving``) flags and
 output, on the port: builds a ``TrainingSession`` on the requested layout
@@ -33,9 +35,20 @@ Degradation and Tracing sections) or tail it with ``...observability.watch
 <metrics-out> --follow``. ``--knee-rps`` arms the knee-proximity alert rule
 with a measured saturation knee from a ``bench_serving`` sweep record.
 
-Refused with exit 2 and a pointer: ``--audit`` (ROADMAP.md §A item 13),
-``--aot-cache`` (item 14) and ``--fleet``, ``--fleet-policy``,
-``--fleet-retry``, ``--fleet-max-queue`` (item 5's fleet slice).
+``--fleet N`` serves through a ``ServingFleet`` instead: N replica worker
+processes (each its own session on the requested layout and ``--device``,
+its ladder warmed before it takes traffic; on a card the replicas share
+it, each with its own CUDA context) behind the router. Every per-engine
+flag applies PER REPLICA (``--faults`` / ``SHALLOWSPEED_FAULTS`` inject
+into every worker — a ``die@dispatch=N:mode=sigkill`` plan kills replicas
+and exercises failover); ``--verify`` moves the bitwise-parity check into
+each worker, per response; ``--fleet-policy``, ``--fleet-retry`` and
+``--fleet-max-queue`` set the placement policy, the per-request placement
+budget and the bounded fleet queue. Workers write per-replica
+``<metrics-out>.r{replica_id}`` JSONL shards beside the parent's file.
+
+Refused with exit 2 and a pointer: ``--audit`` (ROADMAP.md §A item 13)
+and ``--aot-cache`` (item 14).
 
 Graceful drain: SIGTERM/SIGINT stop ADMISSION, drain everything already
 queued to a terminal verdict, flush the metrics sink, and exit under the
@@ -47,7 +60,8 @@ Exit codes (the JAX CLI's contract):
   1  failed responses: dropped / expired / error / unhealthy verdicts, or a
      bitwise mismatch under --verify;
   2  usage errors (argparse) and the refused flags above;
-  3  DEGRADED at exit — the health breaker is still open.
+  3  DEGRADED at exit — the health breaker is still open; in fleet mode,
+     the fleet is still degraded (a QUORUM of replicas down) at exit.
 """
 
 import argparse
@@ -90,14 +104,6 @@ REFUSED = (
      "ported: the port compiles no XLA program (ROADMAP.md §A item 13)"),
     ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
      "(ROADMAP.md §A item 14)"),
-    ("fleet", "--fleet (replica worker processes behind a router) comes "
-     "with the fleet slice (ROADMAP.md §A item 5)"),
-    ("fleet_policy", "--fleet-policy comes with the fleet slice (ROADMAP.md "
-     "§A item 5)"),
-    ("fleet_retry", "--fleet-retry comes with the fleet slice (ROADMAP.md "
-     "§A item 5)"),
-    ("fleet_max_queue", "--fleet-max-queue comes with the fleet slice "
-     "(ROADMAP.md §A item 5)"),
 )
 
 
@@ -202,20 +208,36 @@ def build_parser():
         "(degraded: admission refused; exit 3 if still open at exit)",
     )
     ap.add_argument(
-        "--fleet", type=int, default=0, metavar="N",
-        help="refused: the fleet slice (ROADMAP.md §A item 5)",
+        "--fleet",
+        type=int,
+        default=0,
+        metavar="N",
+        help="serve through a ServingFleet of N replica worker processes "
+        "(each its own session on this layout and --device; on a card "
+        "they share it) instead of one in-process engine; exit 3 if a "
+        "quorum of replicas is down at exit",
     )
     ap.add_argument(
-        "--fleet-policy", choices=["least_queue", "p2c"], default=None,
-        help="refused: the fleet slice",
+        "--fleet-policy",
+        choices=["least_queue", "p2c"],
+        default="least_queue",
+        help="fleet placement policy: least outstanding load, or "
+        "power-of-two-choices",
     )
     ap.add_argument(
-        "--fleet-retry", type=int, default=None,
-        help="refused: the fleet slice",
+        "--fleet-retry",
+        type=int,
+        default=2,
+        help="fleet-level placement budget per request (the shared "
+        "retry.RetryPolicy, one attempt per routing) — failover and "
+        "verdict reroutes consume it",
     )
     ap.add_argument(
-        "--fleet-max-queue", type=int, default=None,
-        help="refused: the fleet slice",
+        "--fleet-max-queue",
+        type=int,
+        default=None,
+        help="bounded fleet queue: admissions beyond it are DROPPED "
+        "(reason fleet_queue_full); default unbounded",
     )
     ap.add_argument(
         "--aot-cache", default=None, metavar="DIR",
@@ -242,6 +264,8 @@ def main(argv=None):
         if getattr(args, dest):
             print(f"{ap.prog}: error: {why}", file=sys.stderr)
             return 2
+    if args.fleet:
+        return _fleet_main(args)
 
     from shallowspeed_tpu_torch.api import TrainingSession
     from shallowspeed_tpu_torch.observability import JsonlMetrics
@@ -395,6 +419,173 @@ def main(argv=None):
         )
     if engine.degraded:
         print("serving: engine DEGRADED at exit (breaker open)", file=sys.stderr)
+        return 3
+    if failures:
+        print(
+            f"serving: {failures} dropped/expired/errored/unhealthy/"
+            "incorrect response(s)",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def _fleet_main(args):
+    """The ``--fleet N`` serve path: N replica workers behind the router,
+    the same seeded load, the same exit-code contract (module
+    docstring)."""
+    from shallowspeed_tpu_torch.observability import JsonlMetrics
+    from shallowspeed_tpu_torch.serving.fleet import ServingFleet
+    from shallowspeed_tpu_torch.serving.loadgen import (
+        payload_in_dim,
+        poisson_arrivals,
+        request_payloads,
+        run_closed_loop,
+        run_open_loop,
+    )
+
+    metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
+    worker_config = {
+        "session": dict(
+            dp=args.dp,
+            pp=args.pp,
+            tp=args.tp,
+            schedule=args.schedule,
+            virtual_stages=args.virtual_stages,
+            global_batch_size=args.global_batch_size,
+            mubatches=args.mubatches,
+            data_dir=args.data_dir,
+            resume=args.checkpoint,
+            predict_slot_rows=args.slot_rows,
+            predict_slot_ladder=(
+                tuple(int(r) for r in args.slot_ladder.split(","))
+                if args.slot_ladder
+                else None
+            ),
+            device=args.device,
+        ),
+        "engine": dict(
+            max_slots=args.max_slots,
+            slo_ms=args.slo_ms,
+            retry=args.retry_budget,
+            breaker_threshold=args.breaker,
+            faults=args.faults,
+            knee_rps=args.knee_rps,
+        ),
+        "verify": args.verify,
+    }
+    fleet = ServingFleet(
+        worker_config,
+        n_replicas=args.fleet,
+        policy=args.fleet_policy,
+        max_queue=args.fleet_max_queue,
+        slo_ms=args.slo_ms,
+        retry=args.fleet_retry,
+        metrics=metrics,
+        seed=args.seed,
+        knee_rps=args.knee_rps,
+    )
+    print(
+        f"fleet: {args.fleet} replicas x (DP={args.dp} x PP={args.pp} x "
+        f"TP={args.tp}, {args.schedule}), policy {args.fleet_policy}, "
+        f"{args.requests} requests"
+        + (
+            f" closed-loop C={args.closed_loop}"
+            if args.closed_loop
+            else f" @ {args.rate} rps Poisson (seed {args.seed})"
+        )
+        + (f", weights from {args.checkpoint}" if args.checkpoint else "")
+    )
+    stopper = GracefulStop().install()
+    try:
+        fleet.start()  # every replica's ladder warmed before traffic
+        payloads = request_payloads(
+            args.requests,
+            payload_in_dim(args.data_dir),
+            seed=args.seed,
+            rows_choices=tuple(
+                int(r) for r in args.rows.split(",") if r.strip()
+            ),
+        )
+        if args.closed_loop:
+            done = run_closed_loop(
+                fleet, payloads, concurrency=args.closed_loop,
+                deadline_ms=args.deadline_ms, should_stop=stopper.stop,
+            )
+        else:
+            arrivals = poisson_arrivals(args.rate, args.requests, seed=args.seed)
+            done = run_open_loop(
+                fleet, payloads, arrivals, deadline_ms=args.deadline_ms,
+                should_stop=stopper.stop,
+            )
+        rec = fleet.record_summary(
+            offered_rps=None if args.closed_loop else args.rate
+        )
+    finally:
+        stopper.restore()
+        fleet.stop()
+    if stopper.stop():
+        sig = signal.Signals(stopper.signum).name
+        print(
+            f"{sig} received: admission stopped, fleet drained "
+            f"({rec['completed']} served)"
+        )
+
+    def ms(v):
+        return f"{v * 1e3:.2f} ms" if v is not None else "n/a"
+
+    print(
+        f"completed {rec['completed']}/{args.requests}, dropped "
+        f"{rec['dropped']}, expired {rec['expired']}, errors "
+        f"{rec['errors']}, unhealthy {rec['unhealthy']}; latency p50 "
+        f"{ms(rec['p50_latency_s'])}, p99 {ms(rec['p99_latency_s'])}"
+    )
+    routing = ", ".join(
+        f"r{rid}: {n}" for rid, n in sorted(rec["routing"].items())
+    )
+    print(
+        f"routing: {routing}"
+        + (
+            f" — skew {rec['routing_skew']:.2f}x"
+            if rec["routing_skew"] is not None
+            else ""
+        )
+    )
+    if rec["failovers"] or rec["replicas_dead"]:
+        print(
+            f"failover: {rec['replicas_dead']} replica death(s), "
+            f"{rec['failovers']} failover(s), {rec['failover_requeued']} "
+            f"in-flight re-queued, {rec['reroutes']} reroute(s)"
+            + (
+                f", recovered in {rec['recovery_s'] * 1e3:.1f} ms"
+                if rec["recovery_s"] is not None
+                else ""
+            )
+        )
+    if args.verify:
+        served = rec["completed"]
+        mism = rec["parity_mismatches"]
+        print(
+            f"verify: {served - mism}/{served} responses bitwise-equal to "
+            "the serving replica's direct predict()"
+            + ("" if mism == 0 else f" — {mism} MISMATCHED")
+        )
+    if metrics is not None:
+        metrics.close()
+        print(
+            f"telemetry written: {metrics.path} (+ .r* replica shards; "
+            "pass the glob to the report CLI for the merged Fleet and "
+            "Tracing sections)"
+        )
+    failures = (
+        rec["dropped"] + rec["expired"] + rec["errors"] + rec["unhealthy"]
+        + rec["parity_mismatches"]
+    )
+    if rec["degraded"]:
+        print(
+            "serving: fleet DEGRADED at exit (quorum of replicas down)",
+            file=sys.stderr,
+        )
         return 3
     if failures:
         print(

@@ -1,6 +1,6 @@
 """Latency-denominated load bench: p50/p99, goodput and the saturation knee,
-plus the seeded CHAOS SOAK — the port of ``shallowspeed_tpu/serving/
-bench_serving.py`` without its fleet half.
+plus the seeded CHAOS SOAK and the FLEET chaos soak — the port of
+``shallowspeed_tpu/serving/bench_serving.py``.
 
     python -m shallowspeed_tpu_torch.serving.bench_serving [--device cuda|cpu]
         [--dp N] [--pp M] [--tp T] [--schedule gpipe]
@@ -13,6 +13,16 @@ bench_serving.py`` without its fleet half.
         --chaos "error@dispatch=3,slow@dispatch=5:ms=30,die@dispatch=7,nan@dispatch=9" \
         --reload-dir ck/ --reload-at 5 --requests 80 --rates 300 \
         --slo-ms 2000 --chaos-out CHAOS.json --metrics-out chaos.jsonl
+
+    # fleet chaos soak: 3 replica worker processes behind the router, the
+    # busiest one SIGKILLed after 20 served responses, a replacement
+    # scaled up from the newest good snapshot — zero silently-lost
+    # requests, worker-side bitwise parity, measured goodput dip +
+    # recovery
+    python -m shallowspeed_tpu_torch.serving.bench_serving --fleet 3 \
+        --checkpoint ck/step-00000008.npz --reload-dir ck/ \
+        --kill-after 20 --requests 120 --rates 300 --slo-ms 2000 \
+        --fleet-out FLEET_CHAOS.json --metrics-out fleet.jsonl
 
 For each offered rate the sweep drives ``--requests`` seeded Poisson
 arrivals through a ``ServingEngine`` in open-loop mode (arrivals
@@ -40,10 +50,15 @@ the weights active at its dispatch (verified per dispatch). ``die`` faults
 raise ``InjectedFault`` out of ``step()``; the soak's operator loop
 catches and re-enters — the queue is intact by the engine's contract.
 
-Refused with exit 2 and a pointer: ``--fleet``, ``--kill-after``,
-``--no-scale-up``, ``--fleet-policy``, ``--fleet-retry`` and
-``--fleet-out`` (the fleet chaos soak comes with the fleet slice,
-ROADMAP.md §A item 5), and ``--aot-cache`` (item 14).
+The fleet chaos soak (``fleet_chaos_soak``, ``--fleet N``) drives the
+seeded stream through a ``ServingFleet`` of N replica worker processes on
+``--device`` (on a card they share it, each with its own CUDA context),
+SIGKILLs the busiest replica after ``--kill-after`` served responses and
+scales up a replacement: zero silently-lost requests and zero worker-side
+parity mismatches are gated (exit 1 otherwise).
+
+Refused with exit 2 and a pointer: ``--aot-cache`` (ROADMAP.md §A item
+14).
 """
 
 import argparse
@@ -66,6 +81,7 @@ from shallowspeed_tpu_torch.serving.loadgen import (
 
 BENCH_VERSION = 1
 CHAOS_VERSION = 1
+FLEET_CHAOS_VERSION = 1
 SWEEP_ROW_FIELDS = (
     "offered_rps",
     "completed",
@@ -340,19 +356,245 @@ def chaos_soak(
     }
 
 
-FLEET_REFUSAL = (
-    "comes with the fleet slice: the fleet chaos soak spawns replica worker "
-    "processes (ROADMAP.md §A item 5)"
-)
+def fleet_chaos_soak(
+    worker_config,
+    in_dim,
+    n_replicas=3,
+    kill_after=20,
+    scale_up=True,
+    n_requests=120,
+    rate=300.0,
+    seed=0,
+    slo_ms=None,
+    deadline_ms=None,
+    rows_choices=(1, 2, 3, 4, 8),
+    metrics=None,
+    retry=2,
+    policy="least_queue",
+):
+    """The FLEET chaos soak: drive the seeded
+    stream through a ``ServingFleet`` and SIGKILL one replica mid-soak —
+    the honest preemption, nothing flushes — then (``scale_up=True``)
+    spawn a replacement from the newest good snapshot once the death is
+    detected. Returns the versioned JSON-able record.
+
+    The kill is anchored at the ``kill_after``-th served response (a
+    completion count, so it replays deterministically against the seeded
+    stream) and lands on the ready replica with the MOST un-acked
+    in-flight requests — the worst case failover has to re-route.
+
+    Hard invariants the record carries (``main`` gates on them):
+    ``silently_lost`` must be ``[]`` (every admitted request
+    reaches exactly one terminal verdict, SIGKILL or not),
+    ``parity_mismatches`` must be 0 (every "ok" response bitwise-equal
+    to its replica's direct ``predict()``, checked in the worker before
+    the pipe hop). The degradation story is measured, not guessed:
+    goodput before the kill vs after, the service stall (kill -> next
+    served response), failover + requeue counts, the replacement's
+    spawn-to-ready wall, and the fleet's own ``recovery_s``."""
+    from shallowspeed_tpu_torch.serving.fleet import FleetError, ServingFleet
+
+    config = dict(worker_config)
+    config["verify"] = True  # the parity invariant is the point
+    fleet = ServingFleet(
+        config,
+        n_replicas=n_replicas,
+        policy=policy,
+        slo_ms=slo_ms,
+        retry=retry,
+        metrics=metrics,
+        seed=seed,
+    )
+    payloads = request_payloads(
+        n_requests, in_dim, seed=seed, rows_choices=rows_choices
+    )
+    arrivals = poisson_arrivals(rate, n_requests, seed=seed)
+    submitted, done, ok_times = [], [], []
+    victim = None
+    kill_t = None
+    killed_inflight = None
+    scaled = False
+    scale_t = None
+    initial_ready = []
+    try:
+        fleet.start()  # every ladder warmed before traffic
+        # the initial replicas' spawn->ready walls: the cold-start
+        # baseline the replacement's scale_up_s is compared against
+        initial_ready = [
+            w
+            for w in (
+                info.snapshot()["ready_wall_s"]
+                for info in fleet.replicas.values()
+            )
+            if w is not None
+        ]
+        t0 = fleet.clock()
+        i = 0
+        while i < n_requests or fleet.queue_depth:
+            now = fleet.clock() - t0
+            while i < n_requests and arrivals[i] <= now:
+                submitted.append(
+                    fleet.submit(
+                        payloads[i], deadline_ms=deadline_ms,
+                        arrival_t=t0 + arrivals[i],
+                    )
+                )
+                i += 1
+            batch = fleet.step()
+            done.extend(batch)
+            for r in batch:
+                if r.verdict == "ok":
+                    ok_times.append(r.complete_t - t0)
+            if victim is None and len(ok_times) >= kill_after:
+                ready = [
+                    info for info in fleet.replicas.values()
+                    if info.state == "ready"
+                ]
+                if ready:
+                    # the worst case: the replica holding the most
+                    # un-acked work (ties to the lowest id — replayable).
+                    # Wait for a moment when the victim actually HOLDS
+                    # work — a kill with nothing in flight exercises
+                    # death detection but not failover; the bounded
+                    # fallback (twice the anchor) keeps the kill certain
+                    # even if the stream never catches a replica busy
+                    chosen = max(
+                        ready, key=lambda r: (r.inflight, -r.replica_id)
+                    )
+                    if (
+                        chosen.inflight >= 1
+                        or len(ok_times) >= 2 * kill_after
+                        or i >= n_requests
+                    ):
+                        victim = chosen.replica_id
+                        killed_inflight = chosen.inflight
+                        kill_t = fleet.clock() - t0
+                        fleet.sigkill_replica(victim)
+            if (
+                victim is not None
+                and scale_up
+                and not scaled
+                and any(
+                    info.state == "dead" for info in fleet.replicas.values()
+                )
+            ):
+                # elasticity as the recovery path: replacement from the
+                # newest find_latest_good snapshot, warming off-path
+                fleet.scale_up(wait_ready=False)
+                scaled = True
+                scale_t = fleet.clock() - t0
+            if not fleet.queue_depth and i < n_requests:
+                time.sleep(max(0.0, arrivals[i] - (fleet.clock() - t0)))
+        if scaled:
+            # let the replacement finish warming so its spawn-to-ready
+            # wall is measured, not cut off by the soak ending first
+            try:
+                fleet.wait_ready()
+            except FleetError:
+                pass  # a failed replacement is part of the record
+        end_t = fleet.clock() - t0
+        stats = fleet.record_summary(offered_rps=rate)
+    finally:
+        fleet.stop()
+    # the distributed-tracing gate: with a JSONL sink attached, re-read
+    # the parent + .r* shards and assert every terminal request left a
+    # complete, clock-aligned span chain — a SIGKILL that orphans a chain
+    # is a tracing bug even when no request was lost
+    trace_chains = trace_problems = None
+    metrics_path = getattr(metrics, "path", None)
+    if metrics_path:
+        from shallowspeed_tpu_torch.observability import tracing
+        from shallowspeed_tpu_torch.observability.metrics import read_jsonl
+
+        metrics.flush()
+        try:
+            recs = read_jsonl(f"{metrics_path}*")
+        except (OSError, ValueError) as e:
+            trace_problems = [f"trace shards unreadable: {e}"[:200]]
+        else:
+            chains = tracing.assemble_chains(recs)
+            trace_chains = len(chains)
+            trace_problems = tracing.verify_terminal_chains(recs, chains)
+    lost = [r.id for r in submitted if r.verdict == "queued"]
+    verdicts = {}
+    for r in submitted:
+        verdicts[r.verdict] = verdicts.get(r.verdict, 0) + 1
+    # the goodput dip, measured: served rate before the kill, the service
+    # stall the kill caused, and the served rate over the recovery tail
+    before = [t for t in ok_times if kill_t is None or t < kill_t]
+    after = [t for t in ok_times if kill_t is not None and t >= kill_t]
+    goodput_before = (
+        len(before) / kill_t if kill_t else None
+    )
+    goodput_after = (
+        len(after) / (end_t - kill_t)
+        if kill_t is not None and end_t > kill_t
+        else None
+    )
+    stall_s = (min(after) - kill_t) if after else None
+    return {
+        "bench": "serving_fleet_chaos",
+        "bench_version": FLEET_CHAOS_VERSION,
+        "config": {
+            "n_replicas": n_replicas,
+            "policy": policy,
+            "requests": n_requests,
+            "rate": rate,
+            "seed": seed,
+            "slo_ms": slo_ms,
+            "deadline_ms": deadline_ms,
+            "kill_after": kill_after,
+            "scale_up": scale_up,
+            "fleet_retry": retry,
+            "session": {
+                k: str(v) if k in ("data_dir", "resume") and v else v
+                for k, v in (worker_config.get("session") or {}).items()
+            },
+        },
+        "submitted": len(submitted),
+        "verdicts": verdicts,
+        "silently_lost": lost,  # MUST be [] — the no-silent-loss invariant
+        "parity_mismatches": stats.get("parity_mismatches"),
+        # span-chain completeness over the merged shards (None without a
+        # JSONL sink); trace_problems MUST be [] — zero orphan/unclosed
+        # chains across the kill
+        "trace_chains": trace_chains,
+        "trace_problems": trace_problems,
+        "killed_replica": victim,
+        "kill_t_s": kill_t,
+        # how much un-acked work the SIGKILL destroyed — 0 means the
+        # bounded fallback fired on an idle replica, so a failover count
+        # of 0 is the honest outcome, not a miss (the smoke gates on
+        # this pair together)
+        "killed_inflight": killed_inflight,
+        "replicas_dead": stats.get("replicas_dead"),
+        "failovers": stats.get("failovers"),
+        "failover_requeued": stats.get("failover_requeued"),
+        "reroutes": stats.get("reroutes"),
+        "scale_ups": stats.get("scale_ups"),
+        "scale_up_s": stats.get("scale_up_s"),
+        # spawn->ready walls of the INITIAL replicas (cold start): the
+        # baseline a replacement's scale_up_s reads against
+        "initial_ready_s": initial_ready,
+        "initial_ready_s_mean": (
+            sum(initial_ready) / len(initial_ready) if initial_ready else None
+        ),
+        "recovery_s": stats.get("recovery_s"),
+        "goodput_before_rps": goodput_before,
+        "goodput_after_rps": goodput_after,
+        "kill_stall_s": stall_s,
+        "availability": stats.get("availability"),
+        "p50_latency_s": stats.get("p50_latency_s"),
+        "p99_latency_s": stats.get("p99_latency_s"),
+        "routing": stats.get("routing"),
+        "routing_skew": stats.get("routing_skew"),
+        "degraded_at_exit": stats.get("degraded"),
+    }
+
+
 # refused flags: (dest, the flag's refusal) — parsed so a JAX bench command
 # line reads, then refused with exit 2 before anything is built
 REFUSED = (
-    ("fleet", f"--fleet {FLEET_REFUSAL}"),
-    ("kill_after", f"--kill-after {FLEET_REFUSAL}"),
-    ("no_scale_up", f"--no-scale-up {FLEET_REFUSAL}"),
-    ("fleet_policy", f"--fleet-policy {FLEET_REFUSAL}"),
-    ("fleet_retry", f"--fleet-retry {FLEET_REFUSAL}"),
-    ("fleet_out", f"--fleet-out {FLEET_REFUSAL}"),
     ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
      "(ROADMAP.md §A item 14)"),
 )
@@ -434,17 +676,42 @@ def build_parser():
     ap.add_argument(
         "--chaos-out", default=None, help="write the chaos JSON record here"
     )
-    ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help="refused: the fleet slice (ROADMAP.md §A item 5)")
-    ap.add_argument("--kill-after", type=int, default=None,
-                    help="refused: the fleet slice")
-    ap.add_argument("--no-scale-up", action="store_true",
-                    help="refused: the fleet slice")
-    ap.add_argument("--fleet-policy", choices=["least_queue", "p2c"],
-                    default=None, help="refused: the fleet slice")
-    ap.add_argument("--fleet-retry", type=int, default=None,
-                    help="refused: the fleet slice")
-    ap.add_argument("--fleet-out", default=None, help="refused: the fleet slice")
+    ap.add_argument(
+        "--fleet",
+        type=int,
+        default=0,
+        metavar="N",
+        help="run the FLEET chaos soak instead: N replica worker "
+        "processes behind the router, one SIGKILLed mid-soak",
+    )
+    ap.add_argument(
+        "--kill-after",
+        type=int,
+        default=20,
+        help="fleet soak: SIGKILL the busiest replica once this many "
+        "responses have served (a completion anchor — deterministic "
+        "against the seeded stream)",
+    )
+    ap.add_argument(
+        "--no-scale-up",
+        action="store_true",
+        help="fleet soak: do NOT spawn a replacement replica after the "
+        "kill (measures failover without elasticity)",
+    )
+    ap.add_argument(
+        "--fleet-policy",
+        choices=["least_queue", "p2c"],
+        default="least_queue",
+    )
+    ap.add_argument(
+        "--fleet-retry",
+        type=int,
+        default=2,
+        help="fleet-level placement budget per request",
+    )
+    ap.add_argument(
+        "--fleet-out", default=None, help="write the fleet chaos JSON here"
+    )
     ap.add_argument("--aot-cache", default=None, metavar="DIR",
                     help="refused: ROADMAP.md §A item 14")
     ap.add_argument(
@@ -470,6 +737,8 @@ def main(argv=None):
     from shallowspeed_tpu_torch.observability import JsonlMetrics
 
     metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
+    if args.fleet:
+        return _fleet_main(args, metrics)
     session = TrainingSession(
         dp=args.dp,
         pp=args.pp,
@@ -575,6 +844,102 @@ def main(argv=None):
     if metrics is not None:
         session.close()
         metrics.close()
+    return 0
+
+
+def _fleet_main(args, metrics):
+    """The ``--fleet N`` bench path: the fleet chaos soak (one replica
+    SIGKILLed mid-soak, replacement scaled up), its JSON record, and the
+    gate on its hard invariants."""
+    from shallowspeed_tpu_torch.serving.loadgen import payload_in_dim
+
+    in_dim = payload_in_dim(args.data_dir)
+    worker_config = {
+        "session": dict(
+            dp=args.dp,
+            pp=args.pp,
+            tp=args.tp,
+            schedule=args.schedule,
+            global_batch_size=args.global_batch_size,
+            mubatches=args.mubatches,
+            data_dir=args.data_dir,
+            resume=args.checkpoint,
+            device=args.device,
+        ),
+        "engine": dict(
+            max_slots=args.max_slots,
+            slo_ms=args.slo_ms,
+            retry=args.retry_budget,
+            breaker_threshold=args.breaker,
+            reload_dir=args.reload_dir,
+        ),
+    }
+    record = fleet_chaos_soak(
+        worker_config,
+        in_dim=in_dim,
+        n_replicas=args.fleet,
+        kill_after=args.kill_after,
+        scale_up=not args.no_scale_up,
+        n_requests=args.requests,
+        rate=float(args.rates.split(",")[0]),
+        seed=args.seed,
+        slo_ms=args.slo_ms,
+        deadline_ms=args.deadline_ms,
+        rows_choices=tuple(int(r) for r in args.rows.split(",") if r.strip()),
+        metrics=metrics,
+        retry=args.fleet_retry,
+        policy=args.fleet_policy,
+    )
+    text = json.dumps(json_safe(record), indent=2, allow_nan=False)
+    if args.fleet_out:
+        with open(args.fleet_out, "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+        print(f"fleet chaos record written: {args.fleet_out}")
+    else:
+        print(text)
+    kill_t = record["kill_t_s"]
+    print(
+        f"fleet chaos: {record['submitted']} submitted, verdicts "
+        f"{record['verdicts']}, replica {record['killed_replica']} "
+        f"SIGKILLed at t={'n/a' if kill_t is None else f'{kill_t:.2f}s'}, "
+        f"{record['failovers']} failover(s) ({record['failover_requeued']} "
+        f"requeued), {record['scale_ups']} scale-up(s)"
+        + (
+            f" (ready in {record['scale_up_s']:.2f}s)"
+            if record["scale_up_s"] is not None
+            else ""
+        )
+        + ", availability "
+        + (
+            f"{record['availability'] * 100:.1f}%"
+            if record["availability"] is not None
+            else "n/a"
+        )
+    )
+    if metrics is not None:
+        metrics.close()
+        print(f"telemetry written: {metrics.path} (+ .r* replica shards)")
+    failures = []
+    if record["silently_lost"]:
+        failures.append(f"{len(record['silently_lost'])} request(s) LOST")
+    if record["parity_mismatches"]:
+        failures.append(f"{record['parity_mismatches']} parity MISMATCH(ES)")
+    if record["trace_problems"]:
+        failures.append(
+            f"{len(record['trace_problems'])} incomplete span chain(s): "
+            + "; ".join(record["trace_problems"][:3])
+        )
+    if record["killed_replica"] is None:
+        failures.append(
+            "the SIGKILL never fired (stream ended before --kill-after)"
+        )
+    if record["degraded_at_exit"]:
+        failures.append("fleet DEGRADED at exit (quorum down)")
+    if not args.no_scale_up and not record["scale_ups"]:
+        failures.append("scale-up never triggered")
+    if failures:
+        print("fleet chaos: " + "; ".join(failures), file=sys.stderr)
+        return 1
     return 0
 
 

@@ -2,12 +2,15 @@
 saturation knee on the same rows, a two-rate sweep record and a chaos-soak
 record with the JAX records' keys, the soak's invariants (zero lost, bitwise
 parity under the weights active at each dispatch, recovery), and the CLI
-(sweep, soak, and the fleet flags refused with exit 2).
+(sweep, soak, and ``--aot-cache`` refused with exit 2), and the fleet
+chaos soak on CPU replica workers with the JAX record's keys.
 """
 
+import ast
 import contextlib
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -180,14 +183,45 @@ def test_cli_sweep_and_chaos(tmp_path):
     assert "### Degradation" in text and "## Tracing" in text
 
 
-@pytest.mark.parametrize(
-    "flag",
-    [["--fleet", "3"], ["--kill-after", "20"], ["--no-scale-up"],
-     ["--fleet-policy", "p2c"], ["--fleet-retry", "3"], ["--fleet-out", "f.json"],
-     ["--aot-cache", "cache"]],
-    ids=lambda f: f[0],
-)
+@pytest.mark.parametrize("flag", [["--aot-cache", "cache"]], ids=lambda f: f[0])
 def test_fleet_flags_refused_with_exit_2(flag):
+    """The fleet flags run (below); only ``--aot-cache`` is still refused."""
     rc, out, err = _main(["--device", "cpu"] + flag)
     assert rc == 2 and out == ""
-    assert err.count("\n") == 1 and "ROADMAP.md §A item" in err and flag[0] in err
+    assert err.count("\n") == 1 and "ROADMAP.md §A item 14" in err and flag[0] in err
+
+
+def _jax_fleet_record_keys():
+    """The keys of the record the JAX ``fleet_chaos_soak`` returns (its
+    one dict literal with a ``"bench"`` key)."""
+    src = Path(jbench.__file__).read_text()
+    fn = next(n for n in ast.walk(ast.parse(src))
+              if isinstance(n, ast.FunctionDef) and n.name == "fleet_chaos_soak")
+    (rec,) = [n for n in ast.walk(fn) if isinstance(n, ast.Dict)
+              and any(isinstance(k, ast.Constant) and k.value == "bench" for k in n.keys)]
+    return {k.value for k in rec.keys}
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("scale_up", [True, False], ids=["scale-up", "no-scale-up"])
+def test_fleet_chaos_soak_cli_on_cpu_workers(scale_up, tmp_path):
+    """``bench_serving --fleet 2 --kill-after N``: the busiest replica is
+    SIGKILLed after N served responses, nothing admitted is lost, every
+    ok response passed the worker's bitwise parity, every span chain is
+    complete, and the record has the JAX record's keys. Without a
+    replacement the 2-replica fleet ends below its quorum (exit 1)."""
+    out, stream = tmp_path / "fleet.json", tmp_path / "fleet.jsonl"
+    argv = ["--device", "cpu", "--fleet", "2", "--kill-after", "6", "--requests", "40",
+            "--rates", "300", "--slo-ms", "2000", "--fleet-retry", "3",
+            "--fleet-out", str(out), "--metrics-out", str(stream)]
+    rc, text, err = _main(argv + ([] if scale_up else ["--no-scale-up"]))
+    rec = json.loads(out.read_text())
+    assert set(rec) == _jax_fleet_record_keys()
+    assert rec["bench"] == "serving_fleet_chaos" and rec["submitted"] == 40
+    assert rec["silently_lost"] == [] and rec["parity_mismatches"] == 0
+    assert rec["killed_replica"] is not None and rec["replicas_dead"] == 1
+    assert rec["trace_chains"] and rec["trace_problems"] == []
+    assert rec["scale_ups"] == (1 if scale_up else 0)
+    assert rec["degraded_at_exit"] is not scale_up
+    assert rc == (0 if scale_up else 1), err
+    assert "fleet chaos: 40 submitted" in text

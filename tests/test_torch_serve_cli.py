@@ -1,7 +1,8 @@
 """The port's serve CLI against the JAX package's: the mesh, tp and
 schedule layouts with ``--verify`` (the same exit codes and layout lines),
-the flags the port refuses with exit 2 and a ROADMAP pointer, and a JAX
-serve command line parsing to the same values.
+the fleet mode on CPU replica workers, the flags the port refuses with
+exit 2 and a ROADMAP pointer, and a JAX serve command line parsing to the
+same values.
 """
 
 import argparse
@@ -55,10 +56,31 @@ def test_mesh_layouts_verify_like_jax(layout, data_dir):
     assert "verify: 12/12 responses bitwise-equal to direct predict()" in tout
 
 
+@pytest.mark.fleet
+@pytest.mark.parametrize("policy", ["least_queue", "p2c"])
+def test_fleet_verify_on_cpu_workers(policy, data_dir, tmp_path):
+    """``serve --fleet 2 --device cpu --verify``: two replica worker
+    processes, every response bitwise its serving replica's direct
+    predict(), the routing line, the shards beside the parent's stream,
+    exit 0."""
+    stream = tmp_path / "fleet.jsonl"
+    rc, out, err = _run(tcli.main, [
+        "--device", "cpu", "--fleet", "2", "--fleet-policy", policy, "--verify",
+        "--requests", "16", "--rate", "400", "--slo-ms", "2000", "--slot-ladder", "1,2",
+        "--data-dir", str(data_dir), "--metrics-out", str(stream)])
+    assert rc == 0, err
+    assert out[0] == (
+        f"fleet: 2 replicas x (DP=1 x PP=1 x TP=1, gpipe), policy {policy}, 16 requests "
+        "@ 400.0 rps Poisson (seed 0)")
+    assert out[1].startswith("completed 16/16, dropped 0, expired 0, errors 0, unhealthy 0")
+    assert out[2].startswith("routing: r0: ") and "r1: " in out[2]
+    assert "verify: 16/16 responses bitwise-equal to the serving replica's direct predict()" in out
+    assert stream.exists() and (tmp_path / "fleet.jsonl.r0").exists()
+
+
 @pytest.mark.parametrize(
     "flag",
-    [["--audit"], ["--aot-cache", "cache"], ["--fleet", "2"],
-     ["--fleet-policy", "p2c"], ["--fleet-retry", "3"], ["--fleet-max-queue", "4"]],
+    [["--audit"], ["--aot-cache", "cache"]],
     ids=lambda f: f[0],
 )
 def test_refused_flags_exit_2_with_a_roadmap_pointer(flag):
@@ -78,7 +100,8 @@ def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
         "--knee-rps", "900", "--deadline-ms", "40", "--closed-loop", "2",
         "--max-slots", "4", "--slot-rows", "8", "--slot-ladder", "1,2,4",
         "--faults", "error@dispatch=4", "--retry-budget", "3", "--breaker", "2",
-        "--verify", "--metrics-out", str(tmp_path / "m.jsonl"),
+        "--fleet", "2", "--fleet-policy", "p2c", "--fleet-retry", "3",
+        "--fleet-max-queue", "4", "--verify", "--metrics-out", str(tmp_path / "m.jsonl"),
     ]
     seen = []
 
@@ -96,7 +119,7 @@ def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", real)
     jax_ns = seen[0]
     port_ns = vars(tcli.build_parser().parse_args(argv))
-    refused = {"fleet", "fleet_policy", "fleet_retry", "fleet_max_queue", "aot_cache", "audit"}
+    refused = {"aot_cache", "audit"}
     assert set(port_ns) - {"device"} == set(jax_ns)
     for dest, value in jax_ns.items():
         if dest not in refused:
