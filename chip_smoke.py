@@ -282,6 +282,30 @@ in phases:
    spike, 1-3 replicas, static 2, a 1 s deadline): every request
    terminal, every "ok" bitwise, launches exact, the scoreboard's verdicts
    printed. No speed and no verdict is gated.
+18. the MPMD runtime (``runtime="mpmd"``: one CUDA stream per pipeline
+   stage, the executor's plain backend, as the JAX session runs it) on
+   phase 6's split, after the card's sequential twins (the B1/B3 kernels),
+   with ``cuda_ops.LAUNCHES`` unchanged from there to the phase's end:
+   18a the flagship at PP=4 GPipe, PP=4 PipeDream, DP=2 x PP=4 GPipe, PP=4
+   PipeDream with the split backward, PP=4 GPipe with recompute, PP=2 x
+   V=2 interleaved and DP=2 x PP=2 x TP=2 with momentum, 2 epochs each, and
+   mlp-deep at PP=4 GPipe for one: each bitwise its lockstep twin on the
+   card (params, optimizer state, losses), its dispatch and relay counts
+   the CPU run's, within ``rtol=3e-4, atol=3e-6`` of the card's sequential
+   run and within the cross-engine class of the CPU's MPMD run; 18b at
+   PP=4 GPipe ``measure_dispatch_overhead`` of the lockstep and the mpmd
+   session in turns (device busy and GPU operations a step, host wall, the
+   median host issue of a batch), then one traced batch with each stage
+   program in a profiler range: each stage's kernels on one stream, the
+   four streams distinct (gated); the overlap (per-stream busy over the
+   busy union), dispatches and relays a batch; 18c the training CLI's
+   ``--runtime mpmd`` hash line the lockstep twin's, ``--runtime mpmd
+   --fused-run`` exit 2, a run SIGKILLed at step 11 under mpmd resumed
+   under lockstep to the twin's hash; 18d ``predict()`` of 1000 rows under
+   mpmd bitwise the lockstep's, and 64 one-slot ``predict_async`` requests
+   from one instant against the same through the lockstep rung path in
+   16-slot ``predict()`` calls: every response bitwise, p50/p99 from the
+   arrival printed. No speed is gated.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -310,6 +334,7 @@ package.
 """
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -3950,6 +3975,346 @@ def phase_fleet(torch, cuda_ops, TrainingSession, data_dir, card, sweep=None):
     return {"linear_act_fwd": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the MPMD runtime — one CUDA stream per pipeline stage
+# ---------------------------------------------------------------------------
+
+# 18a: (label, session options, epochs), each trained under runtime="mpmd"
+# and under lockstep on the card and under mpmd on the CPU
+MPMD_LAYOUTS = (
+    ("PP=4 GPipe", dict(pp=4, schedule="gpipe"), 2),
+    ("PP=4 PipeDream", dict(pp=4, schedule="pipedream"), 2),
+    ("DP=2 x PP=4 GPipe", dict(dp=2, pp=4, schedule="gpipe"), 2),
+    ("PP=4 PipeDream split backward", dict(pp=4, schedule="pipedream", backward_split=True), 2),
+    ("PP=4 GPipe recompute", dict(pp=4, schedule="gpipe", recompute=True), 2),
+    ("PP=2 x V=2 interleaved", dict(pp=2, schedule="interleaved", virtual_stages=2), 2),
+    ("DP=2 x PP=2 x TP=2 momentum", dict(dp=2, pp=2, tp=2, schedule="gpipe",
+                                         optimizer="momentum"), 2),
+    ("mlp-deep PP=4 GPipe", dict(model="mlp-deep", pp=4, schedule="gpipe"), 1),
+)
+MPMD_PP4 = dict(pp=4, schedule="gpipe")  # 18b's layout (18d serves 18a's first)
+MPMD_REQUESTS = 64  # 18d's one-slot requests from one arrival instant
+
+
+def _trees_equal(a, b):
+    """Two nested trees of host arrays (dicts, lists, floats) bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _trees_equal(a[k], b[k]) for k in a
+        )
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_trees_equal(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _mpmd_epochs(TrainingSession, device, epochs, **kw):
+    """A session from init trained ``epochs`` epochs: (session, losses)."""
+    s = TrainingSession(device=device, **kw)
+    return s, [s.train_epoch() for _ in range(epochs)]
+
+
+def _annotate_stages(torch, runner):
+    """Wrap every stage program of ``runner`` in a profiler range named
+    ``mpmd.stage{s}`` (the same calls; only the trace sees it); returns the
+    undo."""
+    progs = runner.programs
+    plain = progs.get
+
+    def get(s, role, variant=()):
+        fn = plain(s, role, variant)
+
+        def annotated(*a, **k):
+            with torch.profiler.record_function(f"mpmd.stage{s}"):
+                return fn(*a, **k)
+
+        return annotated
+
+    def clear():
+        for row in runner.cells:
+            for c in row:
+                c.pop("_fn", None)
+
+    progs.get = get
+    clear()
+
+    def undo():
+        del progs.get
+        clear()
+
+    return undo
+
+
+def _stage_streams(trace_stats, path):
+    """From one trace of annotated stage programs: each stage's set of CUDA
+    stream ids (its kernels' and copies', through the launch's correlation
+    id), and each stream's busy union beside the union of all device
+    events (us)."""
+    tr = trace_stats.load(path)
+    events = [e for e in tr.get("traceEvents", []) if e.get("ph") == "X"]
+    dev = trace_stats.device_events(tr)
+    by_corr = {e["args"]["correlation"]: e for e in dev if "correlation" in e.get("args", {})}
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith("mpmd.stage")]
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in by_corr]
+    streams = {}
+    for r in ranges:
+        s = int(r["name"][len("mpmd.stage"):])
+        for e in launches:
+            if e.get("tid") == r.get("tid") and r["ts"] <= e["ts"] <= r["ts"] + r.get("dur", 0):
+                streams.setdefault(s, set()).add(by_corr[e["args"]["correlation"]]["args"]["stream"])
+    per_stream = {}
+    for e in dev:
+        per_stream.setdefault(e["args"].get("stream"), []).append(e)
+    busy = {k: trace_stats._union_us(v) for k, v in per_stream.items()}
+    return streams, busy, trace_stats._union_us(dev), len(dev)
+
+
+def phase_mpmd(torch, cuda_ops, TrainingSession, data_dir, card):
+    """18: the MPMD runtime on the card (the executor's plain backend, as the
+    JAX session refuses pallas under mpmd). Returns the rows."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.observability import capture, trace_stats
+    from shallowspeed_tpu_torch.observability.stats import percentile
+
+    t_phase = time.perf_counter()
+    rows = {}
+
+    def note(line):
+        say(f"  {line}")
+
+    # the card's sequential twins (the B1/B3 kernels); from here to the
+    # phase's end no kernel of the port may launch
+    seq = {}
+    t18 = time.perf_counter()
+    for _, kw, epochs in MPMD_LAYOUTS:
+        key = (kw.get("model"), kw.get("optimizer", "sgd"), epochs)
+        if key not in seq:
+            seq[key] = _mpmd_epochs(
+                TrainingSession, "cuda", epochs, data_dir=data_dir,
+                **{k: v for k, v in kw.items() if k in ("model", "optimizer")},
+            )[0].params()
+    torch.cuda.synchronize()
+    launches_before = dict(cuda_ops.LAUNCHES)
+    note(f"18 sequential twins on the card: {len(seq)} ({time.perf_counter() - t18:.1f} s)")
+
+    def no_launch(label):
+        torch.cuda.synchronize()
+        if cuda_ops.LAUNCHES != launches_before:
+            fail(f"18 {label}: a port kernel launched: {cuda_ops.LAUNCHES} after {launches_before}")
+
+    # 18a: bitwise the lockstep twin on the card, counts the CPU run's
+    pp4 = None
+    for label, kw, epochs in MPMD_LAYOUTS:
+        kw = dict(kw, data_dir=data_dir)
+        t0 = time.perf_counter()
+        m, m_losses = _mpmd_epochs(TrainingSession, "cuda", epochs, runtime="mpmd", **kw)
+        m_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lk, l_losses = _mpmd_epochs(TrainingSession, "cuda", epochs, **kw)
+        l_wall = time.perf_counter() - t0
+        no_launch(f"18a {label}")
+        t0 = time.perf_counter()
+        c, c_losses = _mpmd_epochs(TrainingSession, "cpu", epochs, runtime="mpmd", **kw)
+        c_wall = time.perf_counter() - t0
+        if m_losses != l_losses or not _layers_equal(m.params(), lk.params()):
+            fail(f"18a {label}: mpmd is not bitwise the lockstep run on the card "
+                 f"(losses {m_losses} vs {l_losses})")
+        if not _trees_equal(m.opt_state_logical(), lk.opt_state_logical()):
+            fail(f"18a {label}: mpmd's optimizer state is not bitwise the lockstep's")
+        counts = (m._mpmd.dispatch_count, m._mpmd.relay_count)
+        if counts != (c._mpmd.dispatch_count, c._mpmd.relay_count):
+            fail(f"18a {label}: dispatches/relays {counts} on the card, "
+                 f"{(c._mpmd.dispatch_count, c._mpmd.relay_count)} on the CPU")
+        twin = seq[(kw.get("model"), kw.get("optimizer", "sgd"), epochs)]
+        worst_seq = _params_close_to(m.params(), twin, SEQ_RTOL, SEQ_ATOL,
+                                     f"18a {label} vs the card's sequential run")
+        worst_cpu = _params_close(m, c, f"18a {label}")
+        steps = epochs * m.batches_per_epoch
+        note(
+            f"18a {label} ({card}): {epochs} epoch(s), bitwise the lockstep run (params, "
+            f"optimizer state, losses), {counts[0] // steps} dispatches and "
+            f"{counts[1] // steps} relays a step (CPU: the same), no kernel launch; "
+            f"vs sequential {worst_seq:.3e}, card vs CPU {worst_cpu:.3e}; wall "
+            f"{m_wall:.2f} s mpmd, {l_wall:.2f} s lockstep, {c_wall:.2f} s CPU mpmd"
+        )
+        rows[f"18a {label}"] = dict(dispatches_per_step=counts[0] / steps,
+                                    relays_per_step=counts[1] / steps,
+                                    vs_sequential=worst_seq, vs_cpu=worst_cpu)
+        if label == MPMD_LAYOUTS[0][0]:
+            pp4 = (m, lk)  # 18d serves these two
+        del c
+
+    # 18b: the two runtimes' device busy and GPU operations a step, in
+    # turns, then the stage streams in one traced batch
+    t18 = time.perf_counter()
+    sm = TrainingSession(device="cuda", runtime="mpmd", data_dir=data_dir, **MPMD_PP4)
+    sl = TrainingSession(device="cuda", data_dir=data_dir, **MPMD_PP4)
+    runner = sm._mpmd
+    issue = []
+    plain_batch = runner.run_batch
+
+    def timed_batch(*a, **k):
+        t0 = time.perf_counter()
+        out = plain_batch(*a, **k)
+        issue.append(time.perf_counter() - t0)
+        return out
+
+    runner.run_batch = timed_batch
+    turns = []
+    for s in (sl, sm, sl, sm):
+        issue.clear()
+        probe = s.measure_dispatch_overhead(repeats=1)
+        if not probe["window_valid"] or probe["op_source"] != "device":
+            fail(f"18b dispatch probe {probe}")
+        nb = s.batches_per_epoch
+        turns.append(dict(
+            runtime=probe["runtime"],
+            device_busy_ms_per_step=probe["device_busy_s"] * 1e3 / nb,
+            gpu_ops_per_step=probe["events_per_batch"],
+            host_wall_ms_per_step=probe["host_wall_s"] * 1e3 / nb,
+            dispatch_overhead=probe["dispatch_overhead"],
+            issue_ms_per_batch=1e3 * float(np.median(issue)) if issue else None,
+        ))
+    if [t["runtime"] for t in turns] != ["lockstep", "mpmd", "lockstep", "mpmd"]:
+        fail(f"18b: the probes name runtimes {[t['runtime'] for t in turns]}")
+    undo = _annotate_stages(torch, runner)
+    d0, r0 = runner.dispatch_count, runner.relay_count
+    with tempfile.TemporaryDirectory() as tdir:
+        with capture(tdir, cuda=True) as cap:
+            sm.train_steps(1)
+        streams, busy, union_us, n_dev = _stage_streams(trace_stats, cap.path)
+    undo()
+    runner.run_batch = plain_batch
+    dispatches, relays = runner.dispatch_count - d0, runner.relay_count - r0
+    P = runner.P
+    if sorted(streams) != list(range(P)) or any(len(v) != 1 for v in streams.values()):
+        fail(f"18b: each stage's kernels must fall on one stream: {streams}")
+    ids = [next(iter(streams[s])) for s in range(P)]
+    if len(set(ids)) != P:
+        fail(f"18b: the {P} stages share streams: {ids}")
+    overlap = sum(busy.values()) / union_us if union_us else 0.0
+    rows["18b"] = dict(stage_streams=ids, overlap=overlap, device_busy_ms_traced=union_us / 1e3,
+                       device_events=n_dev, dispatches_per_batch=dispatches,
+                       relays_per_batch=relays, turns=turns)
+    note(
+        f"18b PP=4 GPipe ({card}): one traced batch, stage s's kernels on stream "
+        f"{ids} (one each, distinct), overlap {overlap:.4f} (per-stream busy / busy union), "
+        f"{union_us / 1e3:.4f} ms device busy over {n_dev} device events, "
+        f"{dispatches} dispatches and {relays} relays a batch "
+        f"({time.perf_counter() - t18:.1f} s)"
+    )
+    for t in turns:
+        note(
+            f"18b {t['runtime']} ({card}): {t['device_busy_ms_per_step']:.4f} ms device busy "
+            f"a step, {t['gpu_ops_per_step']:.2f} GPU ops a step, host wall "
+            f"{t['host_wall_ms_per_step']:.3f} ms a step, dispatch_overhead "
+            f"{t['dispatch_overhead']:.4f}"
+            + (f", host issue {t['issue_ms_per_batch']:.3f} ms a batch"
+               if t["issue_ms_per_batch"] is not None else "")
+        )
+    no_launch("18b")
+
+    # 18c: the CLI under mpmd in this process (its hash line against the
+    # lockstep twin of 18a, which is the lockstep CLI's: same recipe), its
+    # refusal, a kill under mpmd (a subprocess) resumed under lockstep
+    t18 = time.perf_counter()
+    from shallowspeed_tpu_torch import train as tcli
+
+    def cli_main(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tcli.main(["--data-dir", str(data_dir), "--epochs", "2", "--no-eval", *argv])
+        return rc, buf.getvalue()
+
+    h_lock = pp4[1].model_hash()
+    flags = ("--pp", "4", "--schedule", "gpipe")
+    rc, out = cli_main(*flags, "--runtime", "mpmd")
+    h_mpmd = _hash_line(rc, out, "", "18c mpmd")
+    if h_mpmd != h_lock:
+        fail(f"18c: the mpmd CLI's hash {h_mpmd} is not the lockstep twin's {h_lock}")
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            cli_main(*flags, "--runtime", "mpmd", "--fused-run")
+        fail("18c: --runtime mpmd --fused-run was not refused")
+    except SystemExit as e:
+        if e.code != 2 or "the fused ONE-dispatch run" not in err.getvalue():
+            fail(f"18c: --runtime mpmd --fused-run exited {e.code}: {err.getvalue()[-300:]}")
+    with tempfile.TemporaryDirectory() as cdir:
+        ck = Path(cdir) / "ck"
+        rc, out, err = _cli(data_dir, ck, *flags, "--runtime", "mpmd",
+                            faults="die@step=11:mode=sigkill")
+        if rc != -9:
+            fail(f"18c: the run killed at step 11 exited {rc}: {err[-300:]}")
+        rc, out = cli_main(*flags, "--checkpoint-dir", str(ck), "--checkpoint-every-steps",
+                           str(RECOVERY_EVERY), "--resume", "auto")
+        if "resumed at epoch 0, step 8" not in out:
+            fail(f"18c: the lockstep resume printed {out.splitlines()[:2]}")
+        h_res = _hash_line(rc, out, "", "18c resumed under lockstep")
+        if h_res != h_lock:
+            fail(f"18c: killed under mpmd, resumed under lockstep: {h_res}, twin {h_lock}")
+    note(f"18c CLI ({card}): --runtime mpmd hash = the lockstep twin's {h_lock}; --fused-run "
+         "exit 2; killed under mpmd at step 11 (-9), resumed under lockstep at step 8 to the "
+         f"twin's hash ({time.perf_counter() - t18:.1f} s)")
+
+    # 18d: serving through the per-stage chain
+    t18 = time.perf_counter()
+    m, lk = pp4
+    x = np.load(Path(data_dir) / "x_val.npy")[:1000]
+    got, want = m.predict(x), lk.predict(x)
+    if not np.array_equal(got, want):
+        fail(f"18d: mpmd predict() of {len(x)} rows differs from lockstep by "
+             f"{float(np.abs(got - want).max())}")
+    S = m.slot_rows
+    reqs = [x[i * S:(i + 1) * S] for i in range(MPMD_REQUESTS)]
+    cap_rows = lk.slot_ladder[-1] * S
+    m.predict_async(reqs[0])()
+    lk.predict(x[:cap_rows])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resolvers = [m.predict_async(r) for r in reqs]
+    submitted = time.perf_counter() - t0
+    async_out, async_lat = [], []
+    for r in resolvers:
+        async_out.append(r())
+        async_lat.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rung_out, rung_lat = [], []
+    per = lk.slot_ladder[-1]
+    for k in range(0, MPMD_REQUESTS, per):
+        p = lk.predict(np.concatenate(reqs[k:k + per]))
+        t = time.perf_counter() - t0
+        for j in range(len(reqs[k:k + per])):
+            rung_out.append(p[j * S:(j + 1) * S])
+            rung_lat.append(t)
+    for i, (a, b) in enumerate(zip(async_out, rung_out)):
+        if not np.array_equal(a, b):
+            fail(f"18d: predict_async response {i} is not bitwise the lockstep predict()")
+    lat = {
+        "predict_async": (percentile(async_lat, 50) * 1e3, percentile(async_lat, 99) * 1e3),
+        "rung predict()": (percentile(rung_lat, 50) * 1e3, percentile(rung_lat, 99) * 1e3),
+    }
+    rows["18d"] = dict(submit_ms=submitted * 1e3, **{k: v for k, v in lat.items()})
+    note(
+        f"18d serving ({card}): predict() of {len(x)} rows bitwise lockstep; "
+        f"{MPMD_REQUESTS} one-slot requests from one instant, every response bitwise: "
+        f"predict_async p50 {lat['predict_async'][0]:.3f} ms p99 {lat['predict_async'][1]:.3f} ms "
+        f"(all submitted in {submitted * 1e3:.3f} ms), the lockstep rung path in "
+        f"{per}-slot predict() calls p50 {lat['rung predict()'][0]:.3f} ms p99 "
+        f"{lat['rung predict()'][1]:.3f} ms ({time.perf_counter() - t18:.1f} s)"
+    )
+    no_launch("18d")
+    say(f"phase 18 mpmd: ok: {len(MPMD_LAYOUTS)} layouts bitwise lockstep, stages on "
+        f"{P} streams, no port kernel launched ({time.perf_counter() - t_phase:.1f} s)")
+    return rows
+
+
 def main():
     import torch
 
@@ -4000,6 +4365,7 @@ def main():
         phase_tp(torch, cuda_ops, TrainingSession, tmp, card)
         served = phase_serving_faults(torch, cuda_ops, TrainingSession, tmp, card)
         fleet = phase_fleet(torch, cuda_ops, TrainingSession, tmp, card, served["sweep"])
+        phase_mpmd(torch, cuda_ops, TrainingSession, tmp, card)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries

@@ -1,8 +1,9 @@
 """Static program analysis over lowered tick programs: the port's copies of
 the JAX package's ``analysis/progcheck.py`` (send/recv match, deadlock
-freedom) and ``analysis/stash.py`` (stash lifetimes). The multi-card
-runtime admits a program through ``analyze_program`` before it dispatches
-it; the house-rule linter (``rules``/``lint``) is not ported.
+freedom) and ``analysis/stash.py`` (stash lifetimes). The MPMD runtime
+(``parallel/mpmd.py``, per-stage streams in one process) admits a program
+through ``analyze_program`` before it builds a stage program; the
+house-rule linter (``rules``/``lint``) is not ported.
 """
 
 from shallowspeed_tpu_torch.analysis.progcheck import (

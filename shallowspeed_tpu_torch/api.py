@@ -80,8 +80,16 @@ work it issues uninstrumented. ``measure_dispatch_overhead`` splits an
 epoch's host wall into device-busy and host time under ``torch.profiler``;
 ``inference_latency_bound`` is the slot's FLOPs over the card's peak.
 
-Not in this slice, and refused with a pointer to its ROADMAP.md item: the
-multi-card runtime (``runtime="mpmd"``, §A item 7).
+Two runtimes on a mesh layout. ``runtime="lockstep"`` (the default) runs
+the executor's tick loop on one stream. ``runtime="mpmd"`` runs the JAX
+session's MPMD runtime in one process (``parallel/mpmd.py``): one CUDA
+stream per pipeline stage, each stage's programs issued from the tick
+tables, relays ordered by events, bitwise the lockstep weights; it has the
+JAX session's feature envelope (no ZeRO, buckets, clip, pallas backend,
+step records or digests; ``train_run`` refused), and ``predict``/
+``predict_async`` stream request slots through the per-stage chain. The
+multi-process runtime (``parallel/multihost.py``, ROADMAP.md §A item 7) is
+not ported.
 """
 
 import sys
@@ -114,9 +122,10 @@ from shallowspeed_tpu_torch.observability.flight import FlightRecorder
 from shallowspeed_tpu_torch.observability.health import HealthError, make_monitor
 from shallowspeed_tpu_torch.observability.slo import LiveTelemetry, default_training_rules
 from shallowspeed_tpu_torch.observability.spans import capture
+from shallowspeed_tpu_torch.observability.tracing import Tracer
 from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
-from shallowspeed_tpu_torch.parallel import gradsync
+from shallowspeed_tpu_torch.parallel import gradsync, mpmd
 from shallowspeed_tpu_torch.parallel.lowering import (
     lower_schedule,
     program_flops,
@@ -136,16 +145,6 @@ PRECISION_DEFAULT_REFUSAL = (
     "counterpart in the port yet; it computes in IEEE fp32 "
     "(precision='highest') — see ROADMAP.md, Parity rules"
 )
-
-
-def _refuse_unported(runtime):
-    if runtime != "lockstep":
-        raise NotImplementedError(
-            f"runtime={runtime!r}: the multi-card runtime (one process per rank "
-            "over torch.distributed) is not ported yet; the port runs the "
-            "lockstep executor over a virtual mesh on one device (ROADMAP.md "
-            "§A item 7)"
-        )
 
 
 class TrainingSession:
@@ -196,8 +195,9 @@ class TrainingSession:
     ``zero`` (0-3; ``zero1=True`` is stage 1): the dp-axis ZeRO stage (mesh
     layouts; stage 3 on ``"xla"`` only). ``grad_bucket_bytes``: the
     bucketed gradient sync (mesh layouts, stages 0-2; 0 = the anchor sum).
-    ``runtime`` is the JAX session's name for a runtime the port does not
-    run yet; anything but its default raises.
+    ``runtime``: ``"lockstep"`` (the executor's tick loop) or ``"mpmd"``
+    (per-stage streams, ``parallel/mpmd.py``; mesh layouts, in the JAX
+    session's feature envelope).
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -263,7 +263,12 @@ class TrainingSession:
             raise ValueError(
                 f"schedule must be one of {sorted(S.SCHEDULES)}, got {schedule!r}"
             )
-        _refuse_unported(runtime)
+        if runtime not in ("lockstep", "mpmd"):
+            raise ValueError(f"runtime must be 'lockstep' or 'mpmd', got {runtime!r}")
+        self.runtime = runtime
+        self._mpmd = None  # the train runner, built with the tick program
+        self._mpmd_infer = None  # the streaming inference runner (lazy)
+        self._mpmd_infer_view_cache = None
         if checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
         if checkpoint_queue < 1:
@@ -444,6 +449,56 @@ class TrainingSession:
                     "recompute re-runs the XLA per-slot forward inside "
                     "the backward tick; the fused pallas flag kernel has "
                     "no recompute branch"
+                )
+        if runtime == "mpmd":
+            # the JAX session's feature envelope, in its words: the knobs
+            # whose lockstep implementations span every stage stay
+            # lockstep-only
+            if self._sequential:
+                raise ValueError(
+                    "runtime='mpmd' dispatches one program per pipeline "
+                    "stage; the sequential path has no stages — use a mesh "
+                    "layout (dp/pp/tp > 1)"
+                )
+            if self._zero:
+                raise ValueError(
+                    f"runtime='mpmd' does not support zero (stage "
+                    f"{self._zero}) yet: the ZeRO reduce-scatter/all-gather "
+                    "update spans the whole sharded param layout, not one "
+                    "stage — use runtime='lockstep'"
+                )
+            if grad_bucket_bytes:
+                raise ValueError(
+                    "runtime='mpmd' does not support grad_bucket_bytes: "
+                    "bucketed sync overlaps collectives inside the lockstep "
+                    "program's tail; the MPMD per-stage update is one psum "
+                    "per stage already — use runtime='lockstep'"
+                )
+            if clip_norm is not None:
+                raise ValueError(
+                    "runtime='mpmd' does not support clip_norm yet: the "
+                    "global norm spans every stage's gradient, which the "
+                    "per-stage update programs cannot see — use "
+                    "runtime='lockstep'"
+                )
+            if kernel_backend != "xla":
+                raise ValueError(
+                    "runtime='mpmd' uses the XLA per-slot stage functions; "
+                    "kernel_backend='pallas' is lockstep-only"
+                )
+            if record_steps:
+                raise ValueError(
+                    "runtime='mpmd' does not thread the per-step flight aux "
+                    "(loss/grad-norm/param-norm vectors ride the lockstep "
+                    "epoch scan); pass record_steps=False or use "
+                    "runtime='lockstep'"
+                )
+            record_steps = False
+            if digests:
+                raise ValueError(
+                    "runtime='mpmd' does not thread the per-step digest aux "
+                    "(the per-layer checksum grids ride the lockstep epoch "
+                    "scan); pass digests=False or use runtime='lockstep'"
                 )
         self._kernel_backend = kernel_backend
         self.B, self.M = int(global_batch_size), int(mubatches)
@@ -641,10 +696,26 @@ class TrainingSession:
                 clip_norm=clip_norm, kernel_backend=kernel_backend, zero=self._zero,
                 grad_bucket_bytes=grad_bucket_bytes,
             )
-            self._epoch_fn = E.make_pipeline_epoch(
-                self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
-                **self._run_kwargs, **aux,
-            )
+            if runtime == "mpmd":
+                # the runner's constructor is the admission gate: the tick
+                # tables are proven before any stage program exists
+                self._mpmd = mpmd.MpmdTrainRunner(
+                    self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
+                    tracer=Tracer(self._metrics, process="m"),
+                )
+
+                def _mpmd_epoch(stacked, flags, opt_state, X, Y):
+                    return self._mpmd.run(
+                        stacked, flags, opt_state, X, Y,
+                        trace_id=f"mpmd-{self.global_step}",
+                    )
+
+                self._epoch_fn = _mpmd_epoch
+            else:
+                self._epoch_fn = E.make_pipeline_epoch(
+                    self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
+                    **self._run_kwargs, **aux,
+                )
             self._predict_cache = {}  # inference programs, keyed by ladder rung
 
         if predict_slot_rows is None:
@@ -745,6 +816,12 @@ class TrainingSession:
             # the executor splits each (B, dim) batch over dp itself
             Xb = Xb.reshape(nb, self.B, -1)
             Yb = Yb.reshape(nb, self.B, -1)
+        if self.runtime == "mpmd":
+            # the MPMD runner copies each batch onto the streams of the
+            # stages that read it; the epoch arrays stay on the host
+            self._X, self._Y = Xb, Yb
+            self.batches_per_epoch = nb
+            return
         with self._metrics.span("device_put"):
             self._X = torch.from_numpy(Xb).to(self.device)
             self._Y = torch.from_numpy(Yb).to(self.device)
@@ -1137,6 +1214,13 @@ class TrainingSession:
         self._refuse_pending_faults("train_run")
         if epochs <= 0:
             raise ValueError("epochs must be positive")
+        if self.runtime == "mpmd":
+            raise ValueError(
+                "train_run() is the fused ONE-on-device-program contract, "
+                "which the MPMD runtime (host-scheduled per-stage programs) "
+                "deliberately does not have — drive MPMD sessions with "
+                "train_epoch()/train_steps()"
+            )
         if self.step_in_epoch != 0:
             raise ValueError(
                 f"epoch {self.epoch} is mid-flight at step {self.step_in_epoch} "
@@ -1287,7 +1371,9 @@ class TrainingSession:
         layout each occupied slot runs one forward of the fixed slot shape;
         on the mesh the chunk's slots round up the ladder and run as one
         inference program of that rung (``_lower_inference_prog``;
-        ``pack_slots`` gives each dp replica its rows of every slot)."""
+        ``pack_slots`` gives each dp replica its rows of every slot); under
+        ``runtime="mpmd"`` every occupied slot is submitted through the
+        per-stage chain, then all are resolved (no rung round-up)."""
         x = np.asarray(x, np.float32)
         if x.ndim != 2 or x.shape[1] != self.spec.in_dim:
             raise ValueError(
@@ -1313,6 +1399,18 @@ class TrainingSession:
                     ],
                     dim=0,
                 ).cpu().numpy()
+            elif self.runtime == "mpmd":
+                # each occupied slot is its own per-stage chain: submit them
+                # all before resolving any, so the chains pipeline
+                runner = self._mpmd_infer_runner()
+                params, fls = self._mpmd_infer_views()
+                runner.enter()
+                xb = np.pad(chunk, ((0, m * S_rows - chunk.shape[0]), (0, 0)))
+                handles = [
+                    runner.submit(params, fls, xb[k * S_rows : (k + 1) * S_rows])
+                    for k in range(m)
+                ]
+                preds = np.concatenate([h.result() for h in handles], axis=0)
             else:
                 rung = serving_slots.rung_for(m, self._slot_ladder)
                 xb = np.pad(chunk, ((0, rung * S_rows - chunk.shape[0]), (0, 0)))
@@ -1324,6 +1422,66 @@ class TrainingSession:
             outs.append(preds[: chunk.shape[0], :out_dim])
         return np.concatenate(outs, axis=0)
 
+    def _mpmd_infer_runner(self):
+        """The streaming MPMD inference runner (mesh mpmd sessions): one
+        slot-shaped per-stage forward chain, admission-gated at build, on
+        the training runner's stage streams (a stage's reads and updates of
+        its rows stay in one stream's order)."""
+        if self._mpmd_infer is None:
+            self._mpmd_infer = mpmd.MpmdInferenceRunner(
+                self.mesh, self.spec, self._lower_inference_prog(1),
+                self._slot_rows // self.dp, streams=self._mpmd.streams,
+            )
+        return self._mpmd_infer
+
+    def _mpmd_infer_views(self):
+        """The inference runner's per-stage views, cached per live stacked
+        tensors: a hot reload or a resume replaces ``self._stacked``, which
+        invalidates the cache by identity."""
+        cached = self._mpmd_infer_view_cache
+        if cached is not None and cached[0] is self._stacked and cached[1] is self._flags:
+            return cached[2], cached[3]
+        params, fls = self._mpmd_infer_runner().views(self._stacked, self._flags)
+        self._mpmd_infer_view_cache = (self._stacked, self._flags, params, fls)
+        return params, fls
+
+    def predict_async(self, x):
+        """MPMD streaming submit (mesh mpmd sessions): issue ONE request of
+        up to ``slot_rows`` rows through the per-stage chain and return a
+        zero-argument resolver that gives its probabilities (host numpy).
+        Nothing blocks at submit, so consecutive requests pipeline across
+        the stage streams; each response is bitwise ``predict()``'s."""
+        if self._sequential or self.runtime != "mpmd":
+            raise ValueError(
+                "predict_async streams through the MPMD per-stage chain — "
+                "construct the session with runtime='mpmd' (mesh layout)"
+            )
+        x = np.asarray(x, np.float32)
+        n, out_dim = x.shape[0], self.spec.out_dim
+        if n < 1 or n > self._slot_rows:
+            raise ValueError(
+                f"predict_async takes one slot (1..{self._slot_rows} rows); "
+                f"got {n} — larger requests go through predict()"
+            )
+        runner = self._mpmd_infer_runner()
+        params, fls = self._mpmd_infer_views()
+        runner.enter()
+        xb = np.pad(x, ((0, self._slot_rows - n), (0, 0)))
+        handle = runner.submit(params, fls, xb)
+
+        def resolve():
+            return handle.result()[:n, :out_dim]
+
+        return resolve
+
+    def _join_stages(self):
+        """Before a read of the stacked tensors or the optimizer state (or
+        before they are replaced): the current stream waits on the MPMD
+        stage streams, so it sees every issued update and no stage still
+        reads a tensor the session drops. A no-op under lockstep."""
+        if self._mpmd is not None:
+            self._mpmd.join()
+
     def _eval_stacked(self):
         """The stacked ``{W, b}`` the inference programs read: the session's
         own on every layout but ZeRO-3, whose params at rest are the
@@ -1332,6 +1490,7 @@ class TrainingSession:
         Every write to them goes through a method that drops the view:
         ``_set_state`` (a weight update), ``load_weights``,
         ``poison_weights`` and ``flip_weights``."""
+        self._join_stages()
         if self._zero != 3:
             return self._stacked
         if self._eval_stacked_cache is None:
@@ -1449,7 +1608,7 @@ class TrainingSession:
             )
         record = {
             "program": label,
-            "runtime": "lockstep",
+            "runtime": self.runtime,
             "repeats": int(repeats),
             "host_wall_s": host_wall_s,
             "host_wall_instrumented_s": wall_instrumented_s,
@@ -1485,6 +1644,7 @@ class TrainingSession:
     def params(self):
         """Logical per-stage params (host numpy copies, which later steps
         never touch), the JAX pytree layout."""
+        self._join_stages()
         if self._sequential:
             return convert.params_to_numpy(self._params)
         if self._zero == 3:
@@ -1497,6 +1657,7 @@ class TrainingSession:
         """Stateful-optimizer state in the JAX package's logical form:
         ``{"parts": {key: per-stage list mirroring params()}, "scalars":
         {key: float}}``; None for a stateless optimizer."""
+        self._join_stages()
         if self._sequential:
             return convert.opt_state_to_numpy(self._opt, self._opt_state)
         if self._zero:
@@ -1542,6 +1703,7 @@ class TrainingSession:
                 f"match this session's {self.spec.act!r} — a hot reload must "
                 "preserve every compiled program's structure"
             )
+        self._join_stages()  # no stage still reads the tensors dropped here
         if self._sequential:
             self._params = convert.params_from_numpy(host_params, self.device)
         elif self._zero == 3:
@@ -1569,6 +1731,7 @@ class TrainingSession:
         keeps no replicated params to check (each rank owns a disjoint
         shard at rest), so it skips, as in the JAX session."""
         if not self._sequential and self._zero != 3:
+            self._join_stages()
             utils.assert_dp_replicas_in_sync(self._stacked, self.spec)
 
     def poison_weights(self):
@@ -1585,6 +1748,7 @@ class TrainingSession:
 
     def _live_params(self):
         """The params tree the next step reads (the tensors themselves)."""
+        self._join_stages()  # a write lands after every issued read
         return Mo.param_tree(self._params) if self._sequential else self._stacked
 
     # -- checkpoints --------------------------------------------------------

@@ -8,6 +8,9 @@
                 move between neighbouring ranks' mailboxes, and the dp
                 gradient sum runs in a fixed order before the optimizer;
                 ZeRO stages 1-3 shard the state, gradients and params;
+- ``mpmd``      the MPMD runtime: the same stage functions issued per stage
+                from the tick tables, one CUDA stream a stage, relays
+                ordered by events (bitwise the lockstep weights);
 - ``gradsync``  the bucketed gradient sync: the JAX package's bucket plans
                 and comms contract (one device runs the anchor sum).
 """

@@ -29,9 +29,11 @@ everything but the physical placement:
   and the same optimizer tail (global-norm clip on the post-sync tree, then
   ``opt.apply`` on the stacked tree, in place).
 
-``relay`` and ``dp_sum`` are the two data movers between ranks; the
-multi-card runtime (one process per rank) replaces them with NCCL
-send/recv and all-reduce and keeps the rest.
+``relay`` and ``dp_sum`` are the two data movers between ranks. The MPMD
+runtime (``parallel/mpmd.py``) reuses the stage functions and ``dp_sum``
+per stage, each stage on its own CUDA stream of the one device; a
+multi-process runtime (the JAX package's ``multihost``, not ported) would
+replace the movers with NCCL send/recv and all-reduce and keep the rest.
 
 The host knows every slot's ``active`` and ``relu`` flag (``flags`` are
 host numpy), so each tick's work is decided on the host: a noop cell costs

@@ -9,8 +9,10 @@ the innermost axis the Megatron tensor-parallel ranks of one stage, exactly
 as the JAX mesh names them, and the executor's relay, dp sum and tp sums
 move data between ranks' buffers on that device. At ``tp == 1`` the mesh is
 the two-axis grid (``shape`` names no ``tp`` axis), as in the JAX package.
-The multi-card runtime (one process per rank over ``torch.distributed``)
-replaces the data movers and keeps this shape.
+The MPMD runtime (``parallel/mpmd.py``) keeps this shape and the one
+device, issuing each pipeline stage on its own CUDA stream; the
+multi-process runtime (``parallel/multihost.py`` in the JAX package, not
+ported) would replace the data movers and keep it too.
 """
 
 import dataclasses

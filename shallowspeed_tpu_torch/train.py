@@ -32,9 +32,11 @@ the optimizer state (1), the gradients (2) and the params at rest (3, on
 the gradient sync (stages 0-2), with the root CLI's refusals. ``--tp N``
 Megatron-shards every Linear over N tensor-parallel ranks of the virtual
 mesh and composes with all of the above on ``--kernel-backend xla``.
-``--precision highest``, ``--scan-unroll 1`` and ``--tick-unroll 1`` are
-accepted so that a root CLI command line runs as it is; other values are
-refused.
+``--runtime mpmd`` trains a mesh layout through the MPMD runtime (one CUDA
+stream per pipeline stage, bitwise the lockstep weights, so the hash lines
+compare), with the root CLI's refusals. ``--precision highest``,
+``--scan-unroll 1`` and ``--tick-unroll 1`` are accepted so that a root CLI
+command line runs as it is; other values are refused.
 
 Preemption-safe runs, as the root ``train.py``'s::
 
@@ -124,6 +126,17 @@ def build_parser():
         "backward tick (OP_RECOMPUTE), shrinking the activation-stash "
         "lifetime from fwd->bwd to recompute->bwd. Bitwise-identical "
         "weights vs stashed training; mesh layouts only, not interleaved",
+    )
+    ap.add_argument(
+        "--runtime", choices=["lockstep", "mpmd"], default="lockstep",
+        help="pipeline runtime (mesh layouts): 'lockstep' runs the whole "
+        "lattice as one tick loop (every rank's cell of a tick, then the "
+        "relays — the correctness oracle); 'mpmd' issues one program per "
+        "stage role from the host, each stage on its own CUDA stream, with "
+        "event-ordered relays between the stages (arXiv 2412.14374) — "
+        "bitwise-identical weights, no noop-tick dispatches. mpmd drives "
+        "the epoch loop (no --fused-run) and excludes --zero1/--zero/"
+        "--grad-bucket-bytes/--clip-norm/--kernel-backend pallas for now",
     )
     ap.add_argument(
         "--kernel-backend", choices=["xla", "pallas"], default="xla",
@@ -347,6 +360,17 @@ def parse_args(argv=None, ap=None):
         )
     if args.keep < 1:
         ap.error("--keep must be >= 1")
+    if args.runtime == "mpmd" and args.fused_run:
+        ap.error(
+            "--runtime mpmd schedules per-stage programs from the host; "
+            "the fused ONE-dispatch run is a lockstep contract — drop "
+            "--fused-run (the epoch loop dispatches MPMD)"
+        )
+    if args.runtime == "mpmd" and (args.dp, args.pp, args.tp) == (1, 1, 1):
+        ap.error(
+            "--runtime mpmd needs a mesh layout (dp/pp/tp > 1): the "
+            "sequential path has no pipeline stages to decompose"
+        )
     if args.precision == "default":
         from shallowspeed_tpu_torch.api import PRECISION_DEFAULT_REFUSAL
 
@@ -406,6 +430,12 @@ def parse_args(argv=None, ap=None):
             "persistent shard carry) — there is no tail collective for "
             "--grad-bucket-bytes to bucket; drop one of the two flags"
         )
+    if zero_stage and args.runtime == "mpmd":
+        ap.error(
+            f"--runtime mpmd does not support --zero {zero_stage} yet: the "
+            "ZeRO reduce-scatter/all-gather tail assumes the lockstep SPMD "
+            "program's dp axis — drop one of the two flags"
+        )
     if zero_stage >= 2 and args.digests:
         ap.error(
             f"--digests is incompatible with --zero {zero_stage}: the "
@@ -455,6 +485,7 @@ def main(argv=None):
             backward_split=args.backward_split,
             recompute=args.recompute,
             kernel_backend=args.kernel_backend,
+            runtime=args.runtime,
             zero=args.zero,
             grad_bucket_bytes=args.grad_bucket_bytes,
             model=args.model,
@@ -513,6 +544,8 @@ def main(argv=None):
         layout = "tensor-parallel"
     if args.tp > 1 and layout != "tensor-parallel":
         layout += " + tensor-parallel"
+    if args.runtime == "mpmd":
+        layout += ", mpmd runtime"
     print(
         f"devices=[{run.device}] layout: DP={args.dp} x PP={args.pp} x "
         f"TP={args.tp} ({layout}) batches/epoch={run.batches_per_epoch}" + note

@@ -204,7 +204,10 @@ def test_refusals(split):
     with pytest.raises(ValueError, match="tensor parallelism"):
         TorchSession(device="cpu", data_dir=split, **dict(MESH, tp=2))
     assert TorchSession(device="cpu", data_dir=split, **dict(MESH, tp=2, kernel_backend="xla")).tp == 2
-    with pytest.raises(NotImplementedError, match="§A item 7\\)"):
+    # the MPMD runtime builds on the plain backend; its envelope refuses
+    # the flag kernels (the rest: tests/test_torch_mpmd_session.py)
+    assert TorchSession(device="cpu", runtime="mpmd", **dict(MESH, kernel_backend="xla")).runtime == "mpmd"
+    with pytest.raises(ValueError, match="kernel_backend='pallas' is lockstep-only"):
         TorchSession(device="cpu", runtime="mpmd", **MESH)
     with pytest.raises(ValueError, match="schedule must be one of"):
         TorchSession(device="cpu", **dict(MESH, schedule="zigzag"))
@@ -314,9 +317,10 @@ def test_cli_trains_a_tp_layout_on_cpu(split, capsys):
     assert "(tensor-parallel)" in capsys.readouterr().out
 
 
-# The root CLI tests' command lines (tests/test_cli.py; without --audit,
-# --runtime mpmd and --aot-cache, which the port refuses or lacks), each
-# with None (parses) or the refusal the root CLI prints (exit 2)
+# The root CLI tests' command lines (tests/test_cli.py; without --audit
+# and --aot-cache, which the port refuses or lacks) and the root CLI's
+# --runtime mpmd refusals (train.py:425-441), each with None (parses) or
+# the refusal the root CLI prints (exit 2)
 ROOT_CLI_LINES = [
     (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2"], None),
     (["--epochs", "1", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
@@ -342,6 +346,11 @@ ROOT_CLI_LINES = [
      "incompatible with --kernel-backend pallas"),
     (["--zero", "3", "--dp", "2", "--grad-bucket-bytes", "1024"], "syncs gradients per tick"),
     (["--zero", "2", "--dp", "2", "--digests"], "--digests is incompatible"),
+    (["--zero", "2", "--dp", "2", "--pp", "2", "--runtime", "mpmd"], "does not support --zero"),
+    (["--dp", "2", "--pp", "2", "--schedule", "gpipe", "--epochs", "1",
+      "--global-batch-size", "32", "--mubatches", "2", "--no-eval", "--runtime", "mpmd"], None),
+    (["--runtime", "mpmd", "--pp", "2", "--fused-run"], "the fused ONE-dispatch run"),
+    (["--runtime", "mpmd"], "needs a mesh layout"),
     (["--dp", "2", "--pp", "2", "--schedule", "gpipe", "--epochs", "1",
       "--global-batch-size", "32", "--mubatches", "2", "--no-eval", "--kernel-backend",
       "pallas"], None),

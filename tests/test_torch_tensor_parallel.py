@@ -573,9 +573,15 @@ def test_session_validations_in_the_jax_words():
                               jlower(JS.GPipeSchedule, M, 1), 8, jmake_optimizer("sgd", 0.01),
                               kernel_backend="pallas")
     assert str(got.value) == str(want.value)
-    # the multi-card runtime keeps its refusal and pointer
-    with pytest.raises(NotImplementedError, match=r"§A item 7"):
-        TorchSession(device="cpu", dp=2, tp=2, runtime="mpmd")
+    # the MPMD runtime builds at tp > 1; its envelope refuses ZeRO in the
+    # JAX session's words
+    assert TorchSession(device="cpu", dp=2, tp=2, runtime="mpmd").runtime == "mpmd"
+    kw = dict(dp=2, tp=2, zero=1, runtime="mpmd")
+    with pytest.raises(ValueError, match="runtime='mpmd' does not support zero") as got:
+        TorchSession(device="cpu", **kw)
+    with pytest.raises(ValueError, match="runtime='mpmd' does not support zero") as want:
+        JaxSession(**kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("zero", [0, 3])

@@ -570,8 +570,13 @@ def test_session_refusals_in_jax_words(split):
     with pytest.raises(ValueError, match="tensor parallelism") as want:
         JaxSession(**{k: v for k, v in kw.items() if k != "device"})
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match=r"§A item 7"):
-        TorchSession(**dict(mesh, zero=2, runtime="mpmd"))
+    # the MPMD runtime's envelope refuses every stage, in the JAX words
+    kw = dict(mesh, zero=2, runtime="mpmd")
+    with pytest.raises(ValueError, match="does not support zero") as got:
+        TorchSession(**kw)
+    with pytest.raises(ValueError, match="does not support zero") as want:
+        JaxSession(**{k: v for k, v in kw.items() if k != "device"})
+    assert str(got.value) == str(want.value)
 
 
 def test_grad_sync_plan_record(split, tmp_path):
