@@ -274,11 +274,11 @@ in phases:
    against replicas on one card: one fleet without alert rules (router
    and replicas) drained from 3 to 1 replicas, then a fresh 3 with the
    default rules (whose burn-rate rule costs the router and each replica
-   a scan of its window a request), 8000 requests at 4000 rps a
+   a scan of its window a request), 4000 requests at 4000 rps a
    step, achieved rps, p50 and p99, the host CPU share of the router and
    of each replica process, and the slots a worker dispatch packs, every
    response bitwise the card's ``predict()``; 17d ``bench_replay``'s static, autoscaled and chaos legs
-   over an 8 s day sized by 16c's knee (base 0.35 x, peak 1.4 x, one x2
+   over a 4 s day sized by 16c's knee (base 0.35 x, peak 1.4 x, one x2
    spike, 1-3 replicas, static 2, a 1 s deadline): every request
    terminal, every "ok" bitwise, launches exact, the scoreboard's verdicts
    printed. No speed and no verdict is gated.
@@ -306,6 +306,26 @@ in phases:
    from one instant against the same through the lockstep rung path in
    16-slot ``predict()`` calls: every response bitwise, p50/p99 from the
    arrival printed. No speed is gated.
+19. the program audit (``observability/program_audit.py``) on phase 6's
+   split: 19a eight legs, each one drive with ``audit=True`` and a JSONL
+   recorder beside its plain twin — the sequential path (B1/B3, one
+   epoch), the fused ``run_program`` (B9-B11, one eval-free epoch),
+   DP=2 x PP=4 GPipe through the flag kernels (B5/B7), mlp-deep DP=2 x
+   PP=4 at zero 1, anchor zero 2 (flag kernels) and zero 3 (plain),
+   DP=2 x PP=2 x TP=2 and MPMD PP=4 (its ``warm``): every ``xla_audit``
+   record census-clean with the allocator's peak and the card's capacity,
+   the audited run bitwise its twin (params and optimizer state), its
+   launches exactly the twin's plus one batch's (the probe; the run
+   kernel one launch), MPMD's stage records one a planned program with no
+   relay inside; 19b each ZeRO leg's measured peak above the resident
+   state beside ``zero_peak_forecast`` (reported), the peaks in phase
+   14c's order (gated: zero 3 < anchor zero 2 < zero 1); 19c ``dp_sum`` a
+   no-op, the backward relay dropped and the zero-1 gather turned into an
+   all-reduce each raise ``AuditMismatchError`` before the first step,
+   the state bitwise the init's; 19d the serve CLI with ``--audit`` at
+   DP=2 x PP=2 x TP=2 (exit 0, 40/40 bitwise, every rung record clean and
+   dispatch-safe) and a rung that writes its params refused before it
+   serves; 19e ``python -m shallowspeed_tpu_torch.analysis.lint`` exits 0.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -324,9 +344,9 @@ over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
 to the B1/B3 kernels' and the run mode's ``launches``, phase 13's to
 every kernel's (its CLI subprocess counts in its own process, not here),
 phase 14's (14a, 14c) to the flag entries', phase 16's drives (16a, the
-16c sweeps, their oracle's predicts excluded) to the forward's, and phase
+16c sweeps, their oracle's predicts excluded) to the forward's, phase
 17's drained replicas' own counts (read in each worker process) to the
-forward's;
+forward's, and phase 19a's twins and audited drives to each kernel's;
 ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or 9a),
 then ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 either; so does a machine without CUDA, or a directory without the
@@ -3581,11 +3601,11 @@ def phase_serving_faults(torch, cuda_ops, TrainingSession, data_dir, card):
 FLEET_SOAK = dict(n_replicas=3, n_requests=600, rate=1500.0, kill_after=200)
 FLEET_CAPACITY_NS = (1, 2, 3)
 FLEET_CAPACITY_RPS = 4000.0
-FLEET_CAPACITY_S = 2.0
+FLEET_CAPACITY_S = 1.0
 # the capacity scoreboard's day: AUTOSCALE_r01.json's ratios of the knee;
 # a request that waited 1 s (20 x the SLO) is shed rather than served late,
 # which bounds each leg's drain past the day
-REPLAY_ARGS = ("--day-s", "8", "--base-frac", "0.35", "--peak-frac", "1.4",
+REPLAY_ARGS = ("--day-s", "4", "--base-frac", "0.35", "--peak-frac", "1.4",
                "--spike-mult", "2", "--n-spikes", "1", "--min-replicas", "1",
                "--max-replicas", "3", "--static-replicas", "2", "--deadline-ms", "1000")
 
@@ -4315,6 +4335,263 @@ def phase_mpmd(torch, cuda_ops, TrainingSession, data_dir, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the program audit — the movers' census, the allocator's peak
+# ---------------------------------------------------------------------------
+
+# 19a's legs: (label, session kwargs, drive) on phase 6's split; "epoch"
+# trains one epoch, "run" one eval-free train_run epoch
+AUDIT_DEEP = dict(model="mlp-deep", dp=2, pp=4, schedule="gpipe", optimizer="momentum", lr=0.001)
+AUDIT_LEGS = (
+    ("sequential pallas (B1/B3)", dict(), "epoch"),
+    ("fused run_program (B9-B11)", dict(fuse_mubatches=True, run_kernel=True), "run"),
+    ("DP=2xPP=4 GPipe flag kernels (B5/B7)", dict(dp=2, pp=4, schedule="gpipe", kernel_backend="pallas"), "epoch"),
+    ("mlp-deep DP=2xPP=4 zero 1", dict(AUDIT_DEEP, kernel_backend="pallas", zero=1), "epoch"),
+    ("mlp-deep DP=2xPP=4 zero 2 anchor", dict(AUDIT_DEEP, kernel_backend="pallas", zero=2), "epoch"),
+    ("mlp-deep DP=2xPP=4 zero 3", dict(AUDIT_DEEP, kernel_backend="xla", zero=3), "epoch"),
+    ("DP=2xPP=2xTP=2", dict(dp=2, pp=2, tp=2, optimizer="momentum"), "epoch"),
+    ("MPMD PP=4 GPipe", dict(pp=4, schedule="gpipe", runtime="mpmd"), "epoch"),
+)
+
+
+def _audit_leg(TrainingSession, how, **kw):
+    """A card session from init driven once (``how``: "epoch" one epoch,
+    "run" one eval-free ``train_run`` epoch); returns (session, wall)."""
+    s = TrainingSession(device="cuda", **kw)
+    t0 = time.perf_counter()
+    if how == "run":
+        s.train_run(1, with_eval=False)
+    else:
+        s.train_epoch()
+    return s, time.perf_counter() - t0
+
+
+def _audit_records(path):
+    """The stream's ``xla_audit`` records, each census-clean (the phase
+    fails on one that is not)."""
+    recs = _records(path, "xla_audit")
+    if not recs:
+        fail(f"19: no xla_audit record in {path}")
+    for r in recs:
+        if r["census_ok"] is not True:
+            fail(f"19: {r['name']} {r.get('program_label', '')} census: {r['mismatches']}")
+        mem = r["memory"]
+        peak = mem["peak_hbm_bytes"]
+        if peak is None or peak < 0 or mem.get("source") != "cuda-caching-allocator":
+            fail(f"19: {r['name']} memory record {mem}")
+        if not r["hbm_source"].startswith("cuda-device-properties:"):
+            fail(f"19: {r['name']} capacity source {r['hbm_source']}")
+    return recs
+
+
+def _negative_control(torch, TrainingSession, E, data_dir, label, kw, attr, patch, match):
+    """19c: ``E.<attr>`` patched, an audited session must raise
+    AuditMismatchError naming ``match`` before its first step, with its
+    params and optimizer state bitwise the init's."""
+    from shallowspeed_tpu_torch.observability.program_audit import AuditMismatchError
+
+    s = TrainingSession(device="cuda", data_dir=data_dir, audit=True, **kw)
+    before = (s.params(), s.opt_state_logical())
+    orig = getattr(E, attr)
+    setattr(E, attr, patch(orig))
+    try:
+        raised = None
+        try:
+            s.train_epoch()
+        except AuditMismatchError as e:
+            raised = str(e)
+    finally:
+        setattr(E, attr, orig)
+    if raised is None or match not in raised:
+        fail(f"19c {label}: no AuditMismatchError naming {match!r} ({raised})")
+    if s.global_step != 0 or not _trees_equal(before, (s.params(), s.opt_state_logical())):
+        fail(f"19c {label}: the session's state changed before the raise")
+    return raised
+
+
+def phase_audit(torch, cuda_ops, TrainingSession, data_dir, card):
+    """19: the program audit on the card. Returns the port kernels'
+    launches over 19a's drives (twins and audited runs)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.observability import JsonlMetrics
+    from shallowspeed_tpu_torch.observability import program_audit as A
+    from shallowspeed_tpu_torch.parallel import executor as E
+    from shallowspeed_tpu_torch.serving import __main__ as serve_cli
+
+    t_phase = time.perf_counter()
+    tmp = Path(data_dir) / "audit"
+    tmp.mkdir(exist_ok=True)
+    drive = {}
+
+    def note(line):
+        say(f"  {line}")
+
+    # 19a: each leg audited (audit=True, a recorder) beside its plain twin
+    zero_peaks = {}
+    for label, kw, how in AUDIT_LEGS:
+        kw = dict(kw, data_dir=data_dir)
+        (twin, twin_wall), twin_counts = _card_counts(
+            torch, cuda_ops, lambda: _audit_leg(TrainingSession, how, **kw)
+        )
+        path = tmp / f"{label.split(' (')[0].replace(' ', '_').replace('=', '')}.jsonl"
+        rec = JsonlMetrics(str(path))
+        (s, wall), counts = _card_counts(
+            torch, cuda_ops, lambda: _audit_leg(TrainingSession, how, metrics=rec, audit=True, **kw)
+        )
+        rec.close()
+        twin_counts = {k: v for k, v in twin_counts.items() if v}
+        counts = {k: v for k, v in counts.items() if v}
+        # the probe runs the program once over one batch: every kernel's
+        # launches a batch more (the run kernel: one launch more)
+        per_batch = 1 if how == "run" else None
+        want = {
+            k: v + (per_batch if per_batch else v // TRAIN_BATCHES) for k, v in twin_counts.items()
+        }
+        if any(how == "epoch" and v % TRAIN_BATCHES for v in twin_counts.values()):
+            fail(f"19a {label}: twin launches {twin_counts} not a multiple of {TRAIN_BATCHES} batches")
+        if counts != want:
+            fail(f"19a {label}: audited launches {counts}, want {want} (twin {twin_counts} + the probe)")
+        for counted in (twin_counts, counts):
+            for k, v in counted.items():
+                key = "fused_train:run" if k == "fused_train" else k
+                drive[key] = drive.get(key, 0) + v
+        if not _trees_equal((twin.params(), twin.opt_state_logical()), (s.params(), s.opt_state_logical())):
+            fail(f"19a {label}: the audited run is not bitwise its twin")
+        recs = _audit_records(path)
+        main = [r for r in recs if r["name"] in ("epoch_program", "run_program")]
+        if len(main) != 1:
+            fail(f"19a {label}: programs {[r['name'] for r in recs]}")
+        (m,) = main
+        stage = [r for r in recs if r["name"] == "mpmd_stage_program"]
+        if kw.get("runtime") == "mpmd":
+            planned = len(s._mpmd.planned_programs())
+            if len(stage) != planned or any("collective_permute" in r["census"] for r in stage):
+                fail(f"19a {label}: {len(stage)} stage records for {planned} planned programs, "
+                     "or a relay inside one")
+        mem = m["memory"]
+        kinds = ", ".join(f"{k} x{v['count']}" for k, v in sorted(m["census"].items())) or "none"
+        note(
+            f"19a {label}: {m['name']} census [{kinds}] clean, {len(recs)} record(s) "
+            f"({len(stage)} stage programs); launches {counts or 'none'} = twin "
+            f"{twin_counts or 'none'} + the probe's; params bitwise the twin's; peak "
+            f"{mem['peak_hbm_bytes'] / 2**20:.2f} MiB above resident, args "
+            f"{mem['argument_size_in_bytes'] / 2**20:.2f} MiB, headroom "
+            f"{m['hbm_headroom_fraction']:.4f} of {m['hbm_per_chip'] / 2**30:.2f} GiB; "
+            f"the probe {m['recorded_run_s']:.4f} s of the audited drive's {wall:.3f} s (the "
+            f"twin's {twin_wall:.3f} s) ({card})"
+        )
+        if "zero" in label:
+            zero_peaks[label.split("zero ")[1]] = (m, s.dp * s.pp * s.tp)
+        del twin, s
+        torch.cuda.empty_cache()
+
+    # 19b: the measured peaks beside the ZeRO forecast, in phase 14c's order
+    for stage, (m, ranks) in zero_peaks.items():
+        exp = m["expected"]
+        fc = exp["zero_forecast"]["stages"][str(exp["zero"])]
+        mem = m["memory"]
+        measured = mem["peak_hbm_bytes"] + mem["argument_size_in_bytes"]
+        whole = fc["total_bytes"] * ranks
+        note(
+            f"19b zero {stage}: measured peak {mem['peak_hbm_bytes'] / 2**20:.2f} MiB above the "
+            f"resident {mem['argument_size_in_bytes'] / 2**20:.2f} MiB of params + state + batch "
+            f"(total {measured / 2**20:.2f} MiB) vs zero_peak_forecast {fc['total_bytes'] / 2**20:.2f} "
+            f"MiB/device x {ranks} ranks = {whole / 2**20:.2f} MiB of model state; measured / "
+            f"forecast {measured / whole:.4f} ({card})"
+        )
+    p1, p2, p3 = (zero_peaks[k][0]["memory"]["peak_hbm_bytes"] for k in ("1", "2 anchor", "3"))
+    if not p3 < p2 < p1:
+        fail(f"19b: measured peaks zero 3 {p3} < anchor zero 2 {p2} < zero 1 {p1} does not hold")
+
+    # 19c: the negative controls, on the card
+    def dropped_bwd(orig):
+        def relay(mailbox, slot, payload, direction="fwd"):
+            if direction == "bwd":
+                mailbox[slot] = torch.zeros_like(payload)
+                return
+            orig(mailbox, slot, payload, direction)
+
+        return relay
+
+    def gather_as_all_reduce(orig):
+        def gather(vec, tree, tp=1):
+            census, A.active = A.active, None
+            try:
+                orig(vec, tree, tp)
+            finally:
+                A.active = census
+            if census is not None:
+                census.note("all_reduce", "zero1_gather", A.nbytes(vec) // vec.shape[0])
+
+        return gather
+
+    for label, kw, attr, patch, match in (
+        ("dp_sum a no-op", dict(dp=2, pp=4, kernel_backend="pallas"), "dp_sum",
+         lambda orig: (lambda trees, ranks=1: trees[0]), "required collective 'all_reduce'"),
+        ("the backward relay dropped", dict(pp=4, kernel_backend="pallas"), "relay",
+         dropped_bwd, "BOTH directions"),
+        ("the zero-1 gather an all-reduce", dict(dp=2, pp=4, kernel_backend="pallas", zero=1,
+                                                 optimizer="adam", lr=2e-4),
+         "_unflat_rows_into", gather_as_all_reduce, "required collective 'all_gather'"),
+    ):
+        _negative_control(torch, TrainingSession, E, data_dir, label, kw, attr, patch, match)
+        note(f"19c {label}: AuditMismatchError ({match}) before the first step, state bitwise the init's")
+
+    # 19d: the serve CLI with --audit; a rung that writes its params
+    path = tmp / "serve.jsonl"
+    (rc, out, err), counts = _card_counts(torch, cuda_ops, lambda: _capture(
+        serve_cli.main, ["--dp", "2", "--pp", "2", "--tp", "2", "--requests", "40", "--rate", "400",
+                         "--slo-ms", "2000", "--verify", "--audit", "--metrics-out", str(path)]))
+    if rc != 0 or "verify: 40/40 responses bitwise-equal" not in out:
+        fail(f"19d serve --audit: exit {rc}, {out[-300:]} {err[-300:]}")
+    rungs = [r for r in _audit_records(path) if r["name"] == "inference_program"]
+    if not rungs or any(r["dispatch_safety"]["mismatches"] or not r["expected"]["inference"] for r in rungs):
+        fail(f"19d serve --audit: rung records {rungs}")
+    s = TrainingSession(device="cuda", dp=2, pp=2, audit=True)
+    before = s.params()
+    orig = E._stage_fwd
+
+    def writes(Ws, bs, *args):
+        bs[0].add_(1.0)
+        return orig(Ws, bs, *args)
+
+    E._stage_fwd = writes
+    try:
+        raised = None
+        try:
+            s.predict(np.zeros((3, FLAGSHIP[0]), np.float32))
+        except A.AuditMismatchError as e:
+            raised = str(e)
+    finally:
+        E._stage_fwd = orig
+    if raised is None or "writes its input buffers in place" not in raised:
+        fail(f"19d dispatch safety: {raised}")
+    if not _layers_equal(before, s.params()):
+        fail("19d dispatch safety: the session's params changed")
+    note(
+        f"19d serve CLI --audit DP=2xPP=2xTP=2: exit 0, 40/40 bitwise, {len(rungs)} rung record(s) "
+        f"census-clean and dispatch-safe, launches {({k: v for k, v in counts.items() if v}) or 'none'}; "
+        "a rung writing its params raised AuditMismatchError before it served"
+    )
+
+    # 19e: the house-rule linter over the port
+    proc = subprocess.run(
+        [sys.executable, "-m", "shallowspeed_tpu_torch.analysis.lint"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=120,
+    )
+    if proc.returncode != 0:
+        fail(f"19e lint: exit {proc.returncode}: {proc.stdout[-600:]}")
+    note(f"19e lint: {proc.stdout.strip().splitlines()[-1]}")
+    say(
+        "phase 19 audit: ok: every audited program census-clean with the allocator's peak, "
+        "bitwise its twin with the probe's launches exact, the ZeRO peaks in 14c's order, "
+        f"the negative controls raised, the serve CLI audited, lint clean; "
+        f"{time.perf_counter() - t_phase:.2f} s"
+    )
+    return drive
+
+
 def main():
     import torch
 
@@ -4366,19 +4643,25 @@ def main():
         served = phase_serving_faults(torch, cuda_ops, TrainingSession, tmp, card)
         fleet = phase_fleet(torch, cuda_ops, TrainingSession, tmp, card, served["sweep"])
         phase_mpmd(torch, cuda_ops, TrainingSession, tmp, card)
+        seen = set()
+        with flag_shapes_seen(cuda_ops, seen):
+            audited = phase_audit(torch, cuda_ops, TrainingSession, tmp, card)
+        if not seen or seen - checked:
+            fail(f"phase 19 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
     entries = [
         ("linear_act_fwd", "linear_act_fwd",
          serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"]
-         + served["linear_act_fwd"] + fleet["linear_act_fwd"],
+         + served["linear_act_fwd"] + fleet["linear_act_fwd"] + audited.get("linear_act_fwd", 0),
          fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd",
-         training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"],
+         training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"]
+         + audited.get("linear_act_bwd", 0),
          bwd_err, mub),
     ]
-    fused_launches["run"] += learning["fused_train"]
+    fused_launches["run"] += learning["fused_train"] + audited.get("fused_train:run", 0)
     for mode in FUSED_MODES:
         fused_launches[mode] += observed_fused[mode]
     for mode in FUSED_MODES:
@@ -4387,7 +4670,8 @@ def main():
         entries.append((f"fused_train:{mode}", "fused_train", fused_launches[mode], t["max_abs_err"], t))
     for entry in ("linear_flag_fwd", "linear_flag_bwd"):
         entries.append(
-            (entry, entry, flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry],
+            (entry, entry,
+             flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry] + audited.get(entry, 0),
              flag_errs[entry], flag_sums[entry])
         )
     kernels = []

@@ -90,6 +90,19 @@ step records or digests; ``train_run`` refused), and ``predict``/
 ``predict_async`` stream request slots through the per-stage chain. The
 multi-process runtime (``parallel/multihost.py``, ROADMAP.md §A item 7) is
 not ported.
+
+The program audit, as the JAX session's (``observability/program_audit.py``):
+with a recorder, every distinct program the session dispatches (the
+``epoch_program``, each shorter ``chunk_program``, each ``run_program``
+variant, each mesh ``inference_program`` rung, under mpmd each
+``mpmd_stage_program`` through the runners' ``warm``) writes one
+``xla_audit`` record: the census of the data movers that ran, held to the
+layout's comms contract (``expected_comms``), and the allocator's peak. The
+census rides the program's first real dispatch. ``audit=True`` enforces
+the contract: each program first runs once as a probe on clones of the
+state it writes (and one batch), and a census that breaks the contract, or
+a serving rung that writes its params, raises ``AuditMismatchError``
+before the real dispatch, with the session's state as it was.
 """
 
 import sys
@@ -118,6 +131,7 @@ from shallowspeed_tpu_torch.checkpoint import (
 )
 from shallowspeed_tpu_torch.data import Dataset
 from shallowspeed_tpu_torch.observability import NullMetrics, costmodel
+from shallowspeed_tpu_torch.observability import program_audit as A
 from shallowspeed_tpu_torch.observability.flight import FlightRecorder
 from shallowspeed_tpu_torch.observability.health import HealthError, make_monitor
 from shallowspeed_tpu_torch.observability.slo import LiveTelemetry, default_training_rules
@@ -197,7 +211,9 @@ class TrainingSession:
     bucketed gradient sync (mesh layouts, stages 0-2; 0 = the anchor sum).
     ``runtime``: ``"lockstep"`` (the executor's tick loop) or ``"mpmd"``
     (per-stage streams, ``parallel/mpmd.py``; mesh layouts, in the JAX
-    session's feature envelope).
+    session's feature envelope). ``audit``: enforce the layout's comms
+    contract on every program before its first dispatch (a probe on clones;
+    ``AuditMismatchError``).
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -235,6 +251,7 @@ class TrainingSession:
         health=None,
         record_steps=None,
         digests=False,
+        audit=False,
         faults=None,
         checkpoint_dir=None,
         checkpoint_keep=3,
@@ -253,6 +270,16 @@ class TrainingSession:
             "train", metrics=self._metrics, rules=default_training_rules()
         )
         self._health = make_monitor(health)
+        # the program audit (observability/program_audit.py): with a
+        # recorder every distinct program's census and memory peak is
+        # recorded (``xla_audit``); ``audit=True`` also ENFORCES the
+        # layout's comms contract before a program first dispatches
+        self._audit_strict = bool(audit)
+        self._audit_done = set()  # dedup keys of the programs audited
+        # one census records at a time: a second thread's first dispatch of
+        # a program waits for the first's audit
+        self._audit_lock = threading.Lock()
+        self._mpmd_warmed = False
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
         if precision == "default":
@@ -762,6 +789,22 @@ class TrainingSession:
                     "grad_sync_plan", dp=dp, pp=pp, tp=tp, zero=self._zero,
                     **self._sync_plan.describe(),
                 )
+        # the layout's analytical comms contract (the JAX session's), which
+        # every program's census is held to; only params-mirroring
+        # optimizer parts occupy per-layer bytes in the ZeRO forecast
+        self._audit_platform = "gpu" if self.device.type == "cuda" else "cpu"
+        self._expected_comms = A.expected_comms(
+            self.spec, dp, pp,
+            prog=None if self._sequential else self._prog,
+            zero=self._zero,
+            mubatch_size=None if self._sequential else self._mubatch_local,
+            platform=self._audit_platform,
+            precision=precision,
+            grad_bucket_plan=self._sync_plan,
+            tp=tp,
+            opt_state_parts=sum(1 for v in self._opt.state_layout().values() if v == "params"),
+            device_name=self._device_name,
+        )
         if self._recovery is not None and self._metrics.enabled:
             # one recovery record per resume decision
             self._metrics.recovery(
@@ -1101,10 +1144,114 @@ class TrainingSession:
     def _dispatch(self, k0, k1):
         """The epoch function over batches ``[k0, k1)``; returns the mean
         loss (a 0-d tensor) and the telemetry aux dict (None when the
-        function was built without one)."""
-        out = self._epoch_fn(*self._state_args(), self._X[k0:k1], self._Y[k0:k1])
+        function was built without one). Audited as the ``epoch_program``,
+        or per distinct shorter length as a ``chunk_program`` (under mpmd
+        the same stage programs run any length: ``epoch_program``, after
+        the runner's ``warm`` audits each stage program)."""
+        full = self._mpmd is not None or k1 - k0 == self.batches_per_epoch
+        if self._mpmd is not None and not self._mpmd_warmed and self._audit_on():
+            self._mpmd.warm(self._stacked, self._flags, self._opt_state, self._mpmd_resolve)
+            self._mpmd_warmed = True
+        out = self._audited(
+            "epoch_program" if full else "chunk_program",
+            "epoch_program" if full else ("chunk", k1 - k0),
+            self._epoch_fn,
+            self._state_args() + (self._X[k0:k1], self._Y[k0:k1]),
+            lambda: A.clone_tree(self._state_args()) + (self._X[k0 : k0 + 1], self._Y[k0 : k0 + 1]),
+        )
         self._set_state(out[0], out[1])
         return out[2], (out[3] if len(out) > 3 else None)
+
+    # -- the program audit ----------------------------------------------------
+
+    def _audit_on(self):
+        return self._metrics.enabled or self._audit_strict
+
+    def _audited(self, program, dedup, fn, args, probe_args, contract=None, safety=False):
+        """``fn(*args)``, a real dispatch of ``program``, with its audit
+        once per ``dedup`` variant when a recorder or ``audit=True`` asks
+        for it. Under ``audit=True`` the program first runs as a probe on
+        ``probe_args()`` (clones of the state it writes and one batch),
+        recorded, and a census that breaks the contract raises before the
+        real dispatch, so the session's state stays as it was (a failure is
+        never latched: a retry probes again); with a recorder alone the
+        census rides the first real dispatch and adds no launch.
+        ``contract``: a callable giving the program's contract (default
+        the session's training one); ``safety``: a serving program, whose
+        first argument (its params) must come back unwritten."""
+        if dedup in self._audit_done or not self._audit_on():
+            return fn(*args)
+        with self._audit_lock:
+            if dedup in self._audit_done:
+                return fn(*args)
+            expected = contract() if contract is not None else None
+            if self._audit_strict:
+                self._record_audit(program, fn, probe_args(), expected, safety)
+                self._audit_done.add(dedup)
+                return fn(*args)
+            out = self._record_audit(program, fn, args, expected, safety)
+            self._audit_done.add(dedup)
+            return out
+
+    def _record_audit(self, program, fn, args, expected=None, safety=False, **fields):
+        """Run ``fn(*args)`` under a census and the allocator's peak
+        (``program_audit.recording``), emit the ``xla_audit`` record (with
+        ``fields``), and raise ``AuditMismatchError``, after the record is
+        flushed: under ``audit=True`` on a census that breaks the contract
+        (``expected``, default the session's), always on a serving program
+        that wrote its params. Returns ``fn``'s outputs."""
+        before = A.tensor_versions(args[0]) if safety else None
+        with A.recording(self.device, A.tree_nbytes(args)) as (census, memory):
+            out = fn(*args)
+        rec = A.audit_program(
+            census, memory,
+            expected=self._expected_comms if expected is None else expected,
+            platform=self._audit_platform,
+            n_devices=self._cost_model.n_devices,
+            device=self.device,
+        )
+        unsafe = []
+        if safety:
+            unsafe = A.check_dispatch_safety(before, A.tensor_versions(args[0]), context=program)
+            rec["dispatch_safety"] = {"params_checked": len(before), "mismatches": unsafe}
+        if self._metrics.enabled:
+            self._metrics.audit(program, **fields, **rec)
+            self._metrics.flush()  # the mismatch evidence hits the disk first
+        if self._audit_strict and not rec["census_ok"]:
+            raise A.AuditMismatchError(
+                f"{program}: compiled collective census disagrees with the "
+                f"layout contract (dp={self.dp}, pp={self.pp}, "
+                f"zero={self._zero}): " + "; ".join(rec["mismatches"])
+            )
+        if unsafe:
+            raise A.AuditMismatchError("; ".join(unsafe))
+        return out
+
+    def _mpmd_resolve(self, label, role, fn, args, expected, safety=False):
+        """The MPMD runners' ``warm`` hook: one stage program, run once on
+        its example args, recorded as an ``mpmd_stage_program`` (with its
+        ``program_label``) against its per-stage contract; an inference
+        program must also leave its params unwritten."""
+        dedup = ("mpmd", label)
+        if dedup in self._audit_done:
+            return
+        self._record_audit(
+            "mpmd_stage_program", fn, args, expected, safety, program_label=label, role=role,
+        )
+        self._audit_done.add(dedup)
+
+    def _rung_contract(self, n_slots):
+        """The forward-only contract of the mesh's inference rung of
+        ``n_slots`` slots."""
+        return A.expected_comms(
+            self.spec, self.dp, self.pp,
+            prog=self._lower_inference_prog(n_slots),
+            mubatch_size=self._slot_rows // self.dp,
+            platform=self._audit_platform,
+            precision=self._cost_model.precision,
+            tp=self.tp,
+            device_name=self._device_name,
+        )
 
     # -- telemetry ----------------------------------------------------------
 
@@ -1258,9 +1405,9 @@ class TrainingSession:
                     self.mesh, self.spec, self._prog, self._mubatch_local,
                     self._opt, **kwargs,
                 )
-        args = self._state_args() + (self._X, self._Y)
+        evals = ()
         if with_eval:
-            args += (
+            evals = (
                 (self._vx, self._vy) if self._sequential
                 else (self._vx_padded, self._vy_labels)
             )
@@ -1268,7 +1415,12 @@ class TrainingSession:
         first_dispatch = self._metrics.enabled and not self._epoch_dispatched
         t0 = time.perf_counter()
         with self._metrics.span("train_run"):
-            out = self._run_fns[with_eval](*args, epochs)
+            out = self._audited(
+                "run_program", ("run", (with_eval, epochs)), self._run_fns[with_eval],
+                self._state_args() + (self._X, self._Y) + evals + (epochs,),
+                lambda: A.clone_tree(self._state_args()) + (self._X[:1], self._Y[:1])
+                + evals + (1,),
+            )
             self._set_state(out[0], out[1])
             losses = [float(v) for v in out[2].cpu()]  # waits for the device
             accs = [float(v) for v in out[3].cpu()] if with_eval else None
@@ -1415,8 +1567,13 @@ class TrainingSession:
                 rung = serving_slots.rung_for(m, self._slot_ladder)
                 xb = np.pad(chunk, ((0, rung * S_rows - chunk.shape[0]), (0, 0)))
                 packed = serving_slots.pack_slots(xb.reshape(rung, S_rows, -1), self.dp)
-                out = self._inference_step(rung)(
-                    self._eval_stacked(), self._flags, torch.from_numpy(packed).to(self.device)
+                xd = torch.from_numpy(packed).to(self.device)
+                out = self._audited(
+                    "inference_program", ("inference", rung), self._inference_step(rung),
+                    (self._eval_stacked(), self._flags, xd),
+                    lambda: (A.clone_tree(self._eval_stacked()), self._flags, torch.zeros_like(xd)),
+                    contract=lambda: self._rung_contract(rung),
+                    safety=True,
                 )
                 preds = serving_slots.unpack_slots(out.cpu().numpy(), rung, self.dp)
             outs.append(preds[: chunk.shape[0], :out_dim])
@@ -1428,10 +1585,15 @@ class TrainingSession:
         the training runner's stage streams (a stage's reads and updates of
         its rows stay in one stream's order)."""
         if self._mpmd_infer is None:
-            self._mpmd_infer = mpmd.MpmdInferenceRunner(
+            runner = mpmd.MpmdInferenceRunner(
                 self.mesh, self.spec, self._lower_inference_prog(1),
                 self._slot_rows // self.dp, streams=self._mpmd.streams,
             )
+            if self._audit_on():
+                # each stage program of the chain audited before it serves
+                self._join_stages()
+                runner.warm(self._stacked, self._flags, self._mpmd_resolve)
+            self._mpmd_infer = runner
         return self._mpmd_infer
 
     def _mpmd_infer_views(self):

@@ -22,10 +22,14 @@ package's report, watch and divergence CLIs read the port's files).
                    shallowspeed_tpu_torch.observability.<name>``);
 - ``tracing``      (copied) the request span chains the serving engine
                    emits, their assembly, clock alignment and per-phase
-                   latency attribution behind the report's Tracing section.
+                   latency attribution behind the report's Tracing section;
+- ``program_audit`` the program audit: the census of the executor's data
+                   movers held to the layout's comms contract, the
+                   allocator's memory peak beside the ZeRO forecast, and
+                   the serving rungs' dispatch safety (``xla_audit``
+                   records; ``audit=True`` / ``--audit`` enforce it).
 
-Not ported yet: ``program_audit`` (the XLA program audit) and the
-``aot_cache``, each a ROADMAP item of its own.
+Not ported yet: the ``aot_cache`` (ROADMAP.md §A item 14).
 """
 
 from shallowspeed_tpu_torch.observability.flight import FlightRecorder

@@ -2,9 +2,12 @@
 
 Copied from ``shallowspeed_tpu/observability/report.py``: the same text
 for the same file, so a port run and a JAX run render alike, the Tracing
-section included (through the port's ``observability.tracing``). Only
-the divergence hint names the port's module, and ``format_bytes`` is a
-local copy (``program_audit`` is not ported).
+and the audit's Memory and Comms sections included (through the port's
+``observability.tracing`` and ``observability.program_audit``). Two
+differences: the divergence hint names the port's module, and an empty
+census taken from the data movers (``census_source: "movers"``, the
+port's ``xla_audit`` records) reads "none", where the JAX report reads
+an empty census without HLO text as unavailable.
 
     python -m shallowspeed_tpu_torch.observability.report run.jsonl \
         [--baseline other.jsonl|BENCH.json] [--format md|text|json] \
@@ -104,18 +107,8 @@ import sys
 from pathlib import Path
 
 from shallowspeed_tpu_torch.observability.metrics import json_safe, read_jsonl
+from shallowspeed_tpu_torch.observability.program_audit import format_bytes
 from shallowspeed_tpu_torch.observability.stats import percentile
-
-
-
-def format_bytes(n):
-    """Human-readable byte count (``program_audit.format_bytes``)."""
-    if n is None or not isinstance(n, (int, float)) or not math.isfinite(n):
-        return "n/a"
-    for unit, div in (("GiB", 2**30), ("MiB", 2**20), ("KiB", 2**10)):
-        if abs(n) >= div:
-            return f"{n / div:,.2f} {unit}"
-    return f"{n:,.0f} B"
 
 
 BLOCKS = "▁▂▃▄▅▆▇█"  # ▁▂▃▄▅▆▇█
@@ -1302,7 +1295,7 @@ def _comms_lines(audit, md):
             f"{k} x{v['count']} ({format_bytes(v['bytes'])})"
             for k, v in sorted(census.items())
         )
-    elif audit.get("hlo_available") is False:
+    elif audit.get("hlo_available") is False and audit.get("census_source") != "movers":
         kinds = "unavailable (backend exposed no HLO text)"
     elif exp.get("sequential"):
         kinds = "none (sequential program)"

@@ -101,6 +101,12 @@ rank views per slot), and each of the JAX executor's ``psum`` over ``tp``
 is a sum over the ranks in rank order (``_rank_sum``); the sums that
 reassemble a sharded value add exact zeros. At tp = 1 none of them runs.
 
+The data movers between virtual ranks (``relay``, ``dp_sum``, the ZeRO
+sums, scatters and gathers, ``_rank_sum`` and the inference head's
+predictions) note what they move on the program audit's census when one
+is recording (``observability/program_audit.py``: one ``is None`` check
+otherwise); the tick loop names each tick's branch for it.
+
 Masks stay ``torch.bool`` in the stash for the relu family. Stash, grad
 stash and input-stash slots are dropped when the lowering frees them, so a
 tensor lives as long as the TPU program's buffer slot holds it. The JAX
@@ -118,6 +124,7 @@ import torch.nn.functional as F
 
 from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
+from shallowspeed_tpu_torch.observability import program_audit as A
 from shallowspeed_tpu_torch.optimizer import (
     clip_tree,
     global_norm,
@@ -136,6 +143,10 @@ from shallowspeed_tpu_torch.parallel.lowering import (
 from shallowspeed_tpu_torch.parallel.mesh import mesh_tp
 
 KERNEL_BACKENDS = ("xla", "pallas")
+
+# a tick op's branch name on the census (an XLA tick branch holds its own
+# copy of the ops inside it)
+_BRANCH = {OP_FWD: "fwd", OP_BWD: "bwd", OP_RECOMPUTE: "recompute", OP_BWD_W: "bwd_w"}
 
 
 # ---------------------------------------------------------------------------
@@ -771,7 +782,10 @@ def _unflat_rows(vec, like, tp=1):
 
 def _unflat_rows_into(vec, tree, tp=1):
     """The all-gather of ZeRO-1: flat rows copied back into ``tree``'s
-    stacked tensors, in place."""
+    stacked tensors, in place (a device row's gathered flat vector on the
+    census)."""
+    if A.active is not None:
+        A.active.note("all_gather", "zero1_gather", A.nbytes(vec) // vec.shape[0])
     P, off = vec.shape[0] // tp, 0
     for k, l, a in _tree_leaves(tree):
         n = a.numel() // (P * tp)
@@ -821,7 +835,10 @@ def _undeal(rows, slots, P, dp, tp=1):
 
 def _undeal_into(rows, slots, tree, P, dp, tp=1):
     """The all-gather of ZeRO-2: block-cyclic rows copied back into
-    ``tree``'s stacked tensors, in place."""
+    ``tree``'s stacked tensors, in place (a device row's gathered rows on
+    the census)."""
+    if A.active is not None:
+        A.active.note("all_gather", "zero2_gather", A.nbytes(rows) // (P * tp))
     for s, (k, l, a) in zip(slots, _tree_leaves(tree)):
         view = _rank_view(a, k, l, P, tp)
         view.copy_(_undeal_slot(rows, s, P * tp, dp).reshape(view.shape))
@@ -831,7 +848,13 @@ def _gather_chunk(pv, slots, s, ck, L, tp=1):
     """ZeRO-3's per-tick gather: pp rank ``s``'s chunk ``ck`` slot rows
     rebuilt from every dp rank's shard (``pv``: the ``(pp*tp, dp, csz3)``
     view), once for all replicas, at tp > 1 every tp rank's shard placed
-    in the chunk's global rows; returns ``(Ws, bs)``."""
+    in the chunk's global rows; returns ``(Ws, bs)`` (one site per tick
+    branch on the census, a rank's gathered chunk its bytes)."""
+    if A.active is not None:
+        A.active.note(
+            "all_gather", A.active.here("zero3_gather"),
+            4 * sum(sl.sz for sl in slots),
+        )
     out = []
     for sl in slots:
         a = sl.off + ck * sl.k
@@ -853,9 +876,14 @@ def _scatter_tick(gzv, slots, L, s, ck, dp, pending, tp=1):
     replica order (``pending``: slot -> (dW, db), at tp > 1 each stacked
     over the tp ranks), every device row's shard padded to dp*k and added
     into its dp ranks' segments of the shard carry (``gzv``: the
-    ``(pp*tp, dp, csz3)`` view)."""
+    ``(pp*tp, dp, csz3)`` view). One site per slot and tick branch on the
+    census, a rank's shard segment its bytes."""
+    c = A.active
     for l, grads in pending.items():
-        for sl, g in zip((slots[l], slots[L + l]), grads):
+        for si, g in zip((l, L + l), grads):
+            sl = slots[si]
+            if c is not None:
+                c.note("reduce_scatter", c.here(f"zero_scatter.{si}"), 4 * sl.k)
             a = sl.off + ck * sl.k
             seg = gzv[s * tp : (s + 1) * tp, :, a : a + sl.k]
             seg.add_(_fit(g.reshape(tp, -1), dp * sl.k).view(tp, dp, sl.k))
@@ -1043,9 +1071,13 @@ def _tp_scatter(a_sh, full_w):
     return z.view(tp, rows, full_w)
 
 
-def _rank_sum(parts):
+def _rank_sum(parts, site):
     """The psum over 'tp' on the virtual mesh: the ranks' ``(tp, ...)``
-    values added in rank order, ((p_0 + p_1) + p_2) + ..."""
+    values added in rank order, ((p_0 + p_1) + p_2) + ... ``site``: its
+    place in the stage pass, for the census (one rank's value its bytes)."""
+    c = A.active
+    if c is not None:
+        c.note("all_reduce", c.here(site), A.nbytes(parts) // parts.shape[0])
     return functools.reduce(torch.add, parts.unbind(0))
 
 
@@ -1075,10 +1107,10 @@ def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
             xs[l] = x_l
         else:  # row-parallel: the rank stack in, one rank sum, full out
             if not active[l]:
-                x = _rank_sum(_fit(_tp_scatter(x, i), o))
+                x = _rank_sum(_fit(_tp_scatter(x, i), o), f"tp.fwd.{l}")
                 continue
             part = torch.matmul(x, _tp_w(Ws[l], l, tp).transpose(1, 2))
-            z = _rank_sum(part + _tp_scatter(_tp_b(bs[l], tp).unsqueeze(1), o))
+            z = _rank_sum(part + _tp_scatter(_tp_b(bs[l], tp).unsqueeze(1), o), f"tp.fwd.{l}")
             xs[l] = x
         if act == "gelu":
             masks[l] = ops.gelu_grad_mult(z) if relu[l] else None
@@ -1091,7 +1123,7 @@ def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
         x = y
     if L % 2 == 1:
         # the trailing column slot left the output as rank bands
-        x = _rank_sum(_tp_scatter(x, dims[-1][0]))
+        x = _rank_sum(_tp_scatter(x, dims[-1][0]), f"tp.fwd.{L}")
     return x, xs, masks
 
 
@@ -1116,7 +1148,7 @@ def _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tp):
                 part = torch.matmul(g_effs[l], _tp_w(Ws[l], l, tp))
             else:
                 part = _fit(_tp_scatter(g, o), i)
-            g = _rank_sum(part)
+            g = _rank_sum(part, f"tp.bwd.{l}")
             if l + 1 < L and residual[l + 1]:
                 g = g + _fit(g_prev, i)
         else:  # row-parallel: full g, each rank's dx band
@@ -1161,18 +1193,35 @@ def _stage_bwd_tp(Ws, active, relu, residual, dims, xs, masks, g, tp, sink):
 # ---------------------------------------------------------------------------
 
 
-def relay(mailbox, slot, payload):
+def relay(mailbox, slot, payload, direction):
     """Deliver ``payload`` into slot ``slot`` of the receiving rank's
-    mailbox at the end of a tick (the JAX executor's ``ppermute``)."""
+    mailbox at the end of a tick (the JAX executor's ``ppermute``);
+    ``direction`` (``"fwd"``/``"bwd"``) is its census site."""
+    if A.active is not None:
+        A.active.note("collective_permute", f"relay.{direction}", A.nbytes(payload))
     mailbox[slot] = payload
 
 
-def dp_sum(trees):
+def dp_sum(trees, ranks=1):
     """The dp gradient SUM (the JAX executor's ``psum`` over ``dp``): the
-    replicas' accumulator trees added leaf by leaf in replica order."""
+    replicas' accumulator trees added leaf by leaf in replica order.
+    ``ranks``: the (pp, tp) device ranks a tree spans, so the census notes
+    one rank's gradient bytes."""
+    if A.active is not None:
+        A.active.note("all_reduce", "dp_sum", A.tree_nbytes(trees[0]) // ranks)
     return functools.reduce(
         lambda a, b: {k: tuple(x + y for x, y in zip(a[k], b[k])) for k in a}, trees
     )
+
+
+def _shard_sum(parts, dp):
+    """The reduce-scatter of ZeRO-1 and bucketed ZeRO-2: the replicas'
+    ``(pp*tp, dp*chunk)`` rows added in replica order; rank ``(row, d)``
+    keeps chunk ``d`` (its shard's bytes on the census)."""
+    if A.active is not None:
+        p0 = parts[0]
+        A.active.note("reduce_scatter", "zero_sum", A.nbytes(p0) // (p0.shape[0] * dp))
+    return functools.reduce(torch.add, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -1488,6 +1537,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             for s in range(P):
                 if op[s] == OP_NOOP:
                     continue
+                if A.active is not None:
+                    A.active.branch = _BRANCH.get(op[s])
                 mb_i = mbt[s]
                 mb_r = min(mb_i, M - 1)
                 ck = tab["ck"][t][s]
@@ -1535,7 +1586,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                             preds[d][mb_i] = ops.softmax(out, valid_mask=hm[r])
                         if tab["sf"][t][s] == 1:
                             n = (s + 1) % P
-                            sends.append((fwd_mail[d][n], tab["inf"][t][n], _fit(out, W_rel)))
+                            sends.append((fwd_mail[d][n], tab["inf"][t][n], _fit(out, W_rel), "fwd"))
                     elif op[s] == OP_RECOMPUTE:
                         # the forward again, from the same input bits through
                         # the same _stage_fwd: the stashed run's residuals
@@ -1576,7 +1627,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                                 )
                         if tab["sb"][t][s] == 1:
                             n = (s - 1) % P
-                            sends.append((bwd_mail[d][n], tab["inb"][t][n], _fit(dx, W_rel)))
+                            sends.append((bwd_mail[d][n], tab["inb"][t][n], _fit(dx, W_rel), "bwd"))
                     elif op[s] == OP_BWD_W:
                         sr, gr = tab["sr"][t][s], tab["gr"][t][s]
                         sink = grad_sink(d, r, pending)
@@ -1593,8 +1644,10 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         raise ValueError(f"tick {t} stage {s}: op code {op[s]} not ported")
                 if pending:
                     _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending, tp_n)
-            for mailbox, slot, payload in sends:
-                relay(mailbox, slot, payload)
+            if A.active is not None:
+                A.active.branch = None
+            for mailbox, slot, payload, direction in sends:
+                relay(mailbox, slot, payload, direction)
         if training:
             return (gz if shard_grads else acc), loss
         return preds
@@ -1641,7 +1694,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             loss = functools.reduce(torch.add, losses)
             raw = None
             if zero == 0:
-                grads = dp_sum(acc)
+                grads = dp_sum(acc, ranks=R)
                 del acc
                 raw = grads
                 gnorm = global_norm(grads) if with_grad_norm else None
@@ -1655,7 +1708,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     # each replica's slabs flattened per pp row, then summed
                     # in replica order
                     gvecs = [_flat_rows(acc.pop(0), P, dp * csz, tp_n) for _ in range(dp)]
-                    gsh = functools.reduce(torch.add, gvecs)
+                    gsh = _shard_sum(gvecs, dp)
                     del gvecs
                     if with_digests:
                         raw = _unflat_rows(gsh, stacked, tp_n)
@@ -1663,7 +1716,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     # bucketed zero 2: the slabs dealt into the block-cyclic
                     # layout, summed in replica order
                     deals = [_deal(acc.pop(0), zb_slots, P, dp, tp_n) for _ in range(dp)]
-                    gsh = functools.reduce(torch.add, deals)
+                    gsh = _shard_sum(deals, dp)
                     del deals
                 stacked, opt_state, gnorm = sharded_tail(stacked, opt_state, gsh)
                 del gsh
@@ -1685,7 +1738,12 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     def infer(stacked, flags, x):
         dev = _device_of(stacked)
         preds = run_ticks(stacked, flags, split(x, D_in), None, dev)
-        return torch.cat([p for rep in preds for p in rep[:M]], dim=0)
+        out = torch.cat([p for rep in preds for p in rep[:M]], dim=0)
+        if P > 1 and A.active is not None:
+            # the head stage's predictions handed to every pp rank (the JAX
+            # executor's psum of preds over pp): one replica's rows
+            A.active.note("all_reduce", "preds", A.nbytes(out) // dp)
+        return out
 
     return infer
 

@@ -52,6 +52,14 @@ processes) is a different, unported runtime.
 the same streams: ``submit`` issues a slot's whole chain without blocking
 and returns a handle, so slot k enters stage 0 while slot k-1 occupies a
 later stage.
+
+Each runner's ``warm`` runs every planned stage program once on its
+``example_args`` over clones of the state, through the session's audit
+hook, which holds each to ``expected_stage_comms`` (the JAX runners' warm
+compiles and audits them). The relays, the update's ``dp_sum`` and the
+loss sync note what they move on the program audit's census
+(``observability/program_audit.py``); ``run_batch`` names each program's
+tick branch for it.
 """
 
 import contextlib
@@ -62,6 +70,7 @@ import numpy as np
 import torch
 
 from shallowspeed_tpu_torch import ops, resolve_device
+from shallowspeed_tpu_torch.observability import program_audit as A
 from shallowspeed_tpu_torch.optimizer import join_state, split_state
 from shallowspeed_tpu_torch.parallel import executor as E
 from shallowspeed_tpu_torch.parallel.lowering import (
@@ -465,8 +474,10 @@ class _StagePrograms:
         in place."""
         opt = self.opt
 
+        tp = self.tp
+
         def fn(params, grads, state):
-            return opt.apply(params, E.dp_sum(grads), state)
+            return opt.apply(params, E.dp_sum(grads, ranks=tp), state)
 
         return fn
 
@@ -475,6 +486,8 @@ class _StagePrograms:
         in replica order (the lockstep dp sum)."""
 
         def fn(loss_acc):
+            if A.active is not None:
+                A.active.note("all_reduce", "loss_sync", A.nbytes(loss_acc[0]))
             return functools.reduce(torch.add, loss_acc)
 
         return fn
@@ -621,6 +634,7 @@ class MpmdTrainRunner:
         if not prog.is_training:
             raise ValueError("MpmdTrainRunner needs a training TickProgram")
         self.device = resolve_device(mesh.device)
+        self.spec = spec
         self.P = prog.num_stages
         self.V = prog.num_chunks
         self.dp = mesh.dp
@@ -707,11 +721,18 @@ class MpmdTrainRunner:
             elif direction == "bwd" and src == 0:
                 v -= 1
             t0 = time.perf_counter()
+            if A.active is not None:
+                A.active.note("collective_permute", f"relay.{direction}", A.nbytes(payload[0]))
             ev = st.handover(src, dst, payload)
             self.relay_count += 1
             self._span(spans, "stage.relay", t0, stage=src, to_stage=dst,
                        direction=direction, mb=mb)
             mail[(direction, dst, (v, mb))] = (payload, ev)
+
+        def _branch(role):
+            # the census names the tick branch a stage program runs in
+            if A.active is not None:
+                A.active.branch = role
 
         def receive(direction, s, key):
             payload, ev = mail.pop((direction, s, key))
@@ -741,6 +762,7 @@ class MpmdTrainRunner:
                         args += (y_full, mb, loss_acc)
                     elif c["load"]:
                         args += (mb,)
+                    _branch("fwd")
                     with st.on(s):
                         outs = fn(params[s], flags[s], *args)
                     i = 1 if c["send_fwd"] else 0
@@ -758,6 +780,7 @@ class MpmdTrainRunner:
                     if fn is None:
                         fn = c["_fn"] = progs.get(s, "recompute", (v, c["load"], c["head"]))
                     args = (x_full, mb) if c["load"] else (xin[s].pop(key),)
+                    _branch("recompute")
                     with st.on(s):
                         outs = fn(params[s], flags[s], *args)
                     stash[s][key] = outs[0] + ((outs[1],) if c["head"] else (None,))
@@ -772,6 +795,7 @@ class MpmdTrainRunner:
                         args = (masks, z, y_full, mb)
                     else:
                         args = (masks, receive("bwd", s, key))
+                    _branch("bwd")
                     with st.on(s):
                         outs = fn(params[s], flags[s], *args)
                     gstash[s][key] = outs[-1]
@@ -788,6 +812,7 @@ class MpmdTrainRunner:
                         args = (xs, masks, z, y_full, mb, grads[s])
                     else:
                         args = (xs, masks, receive("bwd", s, key), grads[s])
+                    _branch("bwd")
                     with st.on(s):
                         outs = fn(params[s], flags[s], *args)
                     grads[s] = outs[-1]
@@ -801,6 +826,7 @@ class MpmdTrainRunner:
                     fn = c.get("_fn")
                     if fn is None:
                         fn = c["_fn"] = progs.get(s, "bwd_w", (v,))
+                    _branch("bwd_w")
                     with st.on(s):
                         grads[s] = fn(flags[s], xs, g_effs, grads[s])
                     self.dispatch_count += 1
@@ -810,6 +836,7 @@ class MpmdTrainRunner:
 
         assert not mail, "undelivered relay payloads (tables violated)"
         assert not any(xin), "unconsumed recompute input handles"
+        _branch(None)
         # the per-stage optimizer tail: dp sum + update, one dispatch a stage
         for s in range(P):
             t0 = time.perf_counter()
@@ -885,6 +912,84 @@ class MpmdTrainRunner:
         keys.append((self.P - 1, "loss_sync", ()))
         return keys
 
+    def example_args(self, s, role, variant, params, flags, states):
+        """Shape-correct arguments for one planned program (the warm pass's
+        inputs; ``mpmd.MpmdTrainRunner.example_args``): zero batch stacks,
+        relay payloads and loss tallies of the shapes a batch gives it, the
+        stage's views ``params[s]``/``flags[s]``/``states[s]``, fresh zero
+        gradient accumulators, and for the backward roles the stash of a
+        stage forward over the zero payloads (run here, outside the
+        program: its ``xs``/``masks``/logits, and for ``bwd_w`` the B-input
+        half's effective output-grads)."""
+        progs, dp = self.programs, self.dp
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+        rows = dp * self.mb_sz
+        x_full = zeros(self.M, rows, progs.D_in)
+        y_full = zeros(self.M, rows, progs.D_out)
+        relay_in = tuple(zeros(self.mb_sz, progs.W_rel) for _ in range(dp))
+        loss_acc = [zeros() for _ in range(dp)]
+        p, f = params[s], flags[s]
+        if role in ("fwd", "fwd_ns"):
+            _, load, head, _ = variant
+            args = (p, f, x_full if load else relay_in)
+            if head:
+                return args + (y_full, 0, loss_acc)
+            return args + (0,) if load else args
+        if role == "recompute":
+            _, load, _ = variant
+            return (p, f, x_full, 0) if load else (p, f, relay_in)
+        if role == "update":
+            return (p, self._zero_grads(p), states[s])
+        if role == "loss_sync":
+            return (loss_acc,)
+        v = variant[0]
+        stash = [progs._fwd(p, f, v, E._fit(relay_in[d], progs.D_in)) for d in range(dp)]
+        xs = tuple(st[1] for st in stash)
+        masks = tuple(st[2] for st in stash)
+        logits = tuple(st[0] for st in stash)
+        if role == "bwd":
+            _, head, _ = variant
+            if head:
+                return (p, f, xs, masks, logits, y_full, 0, self._zero_grads(p))
+            return (p, f, xs, masks, relay_in, self._zero_grads(p))
+        if role == "bwd_in":
+            _, head, _ = variant
+            return (p, f, masks, logits, y_full, 0) if head else (p, f, masks, relay_in)
+        if role == "bwd_w":
+            b_in = progs._build_bwd(s, v, False, False, split_input=True)
+            g_effs = b_in(p, f, masks, relay_in)[-1]
+            return (f, xs, g_effs, self._zero_grads(p))
+        raise ValueError(f"unknown stage-program role {role!r}")
+
+    def warm(self, stacked, flags, opt_state, resolve):
+        """Run every planned stage program once on ``example_args`` over
+        CLONES of ``stacked`` and ``opt_state`` (the session's state is
+        untouched), each through ``resolve(label, role, fn, args,
+        expected)``: the session's census and record hook, which holds the
+        program to ``expected_stage_comms`` (``sends`` from a backward
+        variant, as the JAX runner's warm). Issued on the current stream.
+        Returns the number of programs run."""
+        stacked, opt_state = A.clone_tree(stacked), A.clone_tree(opt_state)
+        V, P = self.V, self.P
+        params = [stage_param_view(stacked, s, V) for s in range(P)]
+        fls = [stage_flags_view(flags, s, V, self.device) for s in range(P)]
+        states = [stage_state_view(self.opt, opt_state, s, V) for s in range(P)]
+        planned = self.planned_programs()
+        for s, role, variant in planned:
+            args = self.example_args(s, role, variant, params, fls, states)
+            sends = variant[2] if role in ("bwd", "bwd_in") else True
+            expected = expected_stage_comms(
+                role, self.spec, self.dp, self.programs.tp, sends=sends
+            )
+            resolve(
+                self.programs.label(s, role, variant), role,
+                self.programs.get(s, role, variant), args, expected,
+            )
+        return len(planned)
+
 
 # ---------------------------------------------------------------------------
 # The inference runner
@@ -924,6 +1029,9 @@ class MpmdInferenceRunner:
         if prog.is_training:
             raise ValueError("MpmdInferenceRunner needs an inference program")
         self.device = resolve_device(mesh.device)
+        self.spec = spec
+        self.dp = mesh.dp
+        self.mb_sz = mubatch_size
         self.P = prog.num_stages
         self.V = prog.num_chunks
         self.programs = _StagePrograms(mesh, spec, prog, mubatch_size, None)
@@ -963,12 +1071,45 @@ class MpmdInferenceRunner:
             ev = None
             if c["send_fwd"]:
                 x = outs[0]
+                if A.active is not None:
+                    A.active.note("collective_permute", "relay.fwd", A.nbytes(x[0]))
                 ev = st.handover(s, (s + 1) % self.P, x)
         done = None
         if st.streams is not None:
             done = torch.cuda.Event()
             done.record(st.streams[prev])
         return MpmdHandle(preds, done)
+
+    def example_args(self, c, params, flag_views):
+        """Arguments for one chain cell's program (the warm pass's inputs):
+        the stage's views and a zero slot, ``(dp*mb, in_dim)`` rows at the
+        load stage, else one zero relay payload per replica."""
+        s = c["s"]
+        if c["load"]:
+            x = torch.zeros((self.dp * self.mb_sz, self.spec.in_dim), device=self.device)
+        else:
+            x = tuple(
+                torch.zeros((self.mb_sz, self.programs.W_rel), device=self.device)
+                for _ in range(self.dp)
+            )
+        return (params[s], flag_views[s], x)
+
+    def warm(self, stacked, flags, resolve):
+        """Run every program of the chain once on ``example_args`` over a
+        CLONE of ``stacked``, each through ``resolve(label, "infer_fwd",
+        fn, args, expected, safety=True)`` (the session's census, record and
+        dispatch-safety hook; ``expected_stage_comms("infer_fwd")``).
+        Returns the number of programs run."""
+        params, fls = self.views(A.clone_tree(stacked), flags)
+        expected = expected_stage_comms("infer_fwd", self.spec, self.dp, self.programs.tp)
+        for c in self.chain:
+            variant = (c["v"], c["load"], c["head"], c["send_fwd"])
+            resolve(
+                self.programs.label(c["s"], "infer_fwd", variant), "infer_fwd",
+                self.programs.get(c["s"], "infer_fwd", variant),
+                self.example_args(c, params, fls), expected, safety=True,
+            )
+        return len(self.chain)
 
     def views(self, stacked, flags):
         """Per-stage param and flag views of the session's stacked tensors

@@ -3,7 +3,7 @@
     python -m shallowspeed_tpu_torch.serving [--device cuda|cpu]
         [--dp N] [--pp M] [--tp T] [--schedule gpipe] [--virtual-stages V]
         [--checkpoint ck.npz] [--requests 200] [--rate 100] [--seed 0]
-        [--slo-ms 50] [--verify] [--metrics-out serve.jsonl]
+        [--slo-ms 50] [--verify] [--audit] [--metrics-out serve.jsonl]
         [--faults SPEC] [--retry-budget 2] [--breaker 3] [--knee-rps R]
         [--fleet N] [--fleet-policy least_queue|p2c] [--fleet-retry 2]
         [--fleet-max-queue Q]
@@ -16,7 +16,10 @@ layout), wraps it in a ``ServingEngine``, warms every ladder rung, and
 drives seeded Poisson load (or a closed-loop population) through it. The
 sequential layout runs the CUDA forward kernel; the mesh layouts (dp, pp,
 tp, the four schedules, virtual stages) serve on the plain backend, as the
-JAX CLI's sessions do. ``--verify`` re-computes every ``"ok"`` response
+JAX CLI's sessions do. ``--audit`` holds every mesh inference rung to the
+forward-only serving contract (its movers' census) and to dispatch safety
+(it writes none of its params) before it serves a request
+(``observability/program_audit.py``). ``--verify`` re-computes every ``"ok"`` response
 with a direct ``session.predict()`` of the same rows and demands bitwise
 equality. ``--faults`` injects the chaos plan (``@dispatch=`` grammar;
 also read from ``SHALLOWSPEED_FAULTS``). The loadgen drive loops are the
@@ -47,8 +50,8 @@ each worker, per response; ``--fleet-policy``, ``--fleet-retry`` and
 budget and the bounded fleet queue. Workers write per-replica
 ``<metrics-out>.r{replica_id}`` JSONL shards beside the parent's file.
 
-Refused with exit 2 and a pointer: ``--audit`` (ROADMAP.md §A item 13)
-and ``--aot-cache`` (item 14).
+Refused with exit 2 and a pointer: ``--aot-cache`` (ROADMAP.md §A item
+14).
 
 Graceful drain: SIGTERM/SIGINT stop ADMISSION, drain everything already
 queued to a terminal verdict, flush the metrics sink, and exit under the
@@ -58,7 +61,8 @@ Exit codes (the JAX CLI's contract):
   0  clean — including a signal-drained run whose accepted requests all
      served;
   1  failed responses: dropped / expired / error / unhealthy verdicts, or a
-     bitwise mismatch under --verify;
+     bitwise mismatch under --verify (or an audit mismatch raising out of
+     warm-up);
   2  usage errors (argparse) and the refused flags above;
   3  DEGRADED at exit — the health breaker is still open; in fleet mode,
      the fleet is still degraded (a QUORUM of replicas down) at exit.
@@ -100,8 +104,6 @@ class GracefulStop:
 # refused flags: (flag, pointer) — parsed so a JAX serve command line
 # reads, then refused with exit 2 before anything is built
 REFUSED = (
-    ("audit", "--audit (the compiled-program collective census) is not "
-     "ported: the port compiles no XLA program (ROADMAP.md §A item 13)"),
     ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
      "(ROADMAP.md §A item 14)"),
 )
@@ -250,8 +252,10 @@ def build_parser():
         "same rows and demand bitwise equality (exit 1 on any mismatch)",
     )
     ap.add_argument(
-        "--audit", action="store_true",
-        help="refused: ROADMAP.md §A item 13",
+        "--audit",
+        action="store_true",
+        help="census every compiled inference program against the "
+        "forward-only serving contract before the first dispatch",
     )
     ap.add_argument("--metrics-out", default=None)
     return ap
@@ -289,6 +293,7 @@ def main(argv=None):
         data_dir=args.data_dir,
         resume=args.checkpoint,
         metrics=metrics,
+        audit=args.audit,
         predict_slot_rows=args.slot_rows,
         predict_slot_ladder=(
             tuple(int(r) for r in args.slot_ladder.split(","))
@@ -456,6 +461,7 @@ def _fleet_main(args):
             mubatches=args.mubatches,
             data_dir=args.data_dir,
             resume=args.checkpoint,
+            audit=args.audit,
             predict_slot_rows=args.slot_rows,
             predict_slot_ladder=(
                 tuple(int(r) for r in args.slot_ladder.split(","))

@@ -67,7 +67,12 @@ exits 3 with ``HEALTH HALT:``), ``--digests`` streams per-layer digests,
 ``--profile-dir`` writes a ``torch.profiler`` trace of one epoch, and
 ``--dispatch-probe`` measures the share of an epoch's wall the device is
 idle after the hash line (``--dispatch-probe-out`` also writes it as a
-bench record). ``--audit`` (the XLA program audit) is not ported.
+bench record). ``--audit`` holds every program the run dispatches to the
+layout's comms contract before its first dispatch (the census of the
+executor's data movers, ``observability/program_audit.py``): a mismatch
+prints ``AUDIT MISMATCH:`` and exits 1; with ``--metrics-out`` every
+program's ``xla_audit`` record (census, allocator peak, the contract) lands
+in the stream, as it does for any recorded run.
 """
 
 import argparse
@@ -324,8 +329,15 @@ def build_parser():
         "(bench: dispatch_overhead) to this file; implies --dispatch-probe",
     )
     ap.add_argument(
-        "--audit", action="store_true",
-        help="the root CLI's XLA program audit; not ported (refused)",
+        "--audit",
+        action="store_true",
+        help="program audit: census the data movers of every program (relays, "
+        "dp/tp all-reduces, ZeRO reduce-scatters and all-gathers) and verify "
+        "them against the layout's analytical comms contract — a mismatch "
+        "aborts BEFORE the program's first dispatch. With --metrics-out the "
+        "full audit (census, allocator memory peak, bytes/step comms model) "
+        "lands as a schema-v3 xla_audit record; the report CLI renders its "
+        "memory and comms sections",
     )
     return ap
 
@@ -398,12 +410,6 @@ def parse_args(argv=None, ap=None):
             "stages (the chunked stash rotation is its own lifetime "
             "discipline)"
         )
-    if args.audit:
-        ap.error(
-            "--audit (the compiled-program collective census) is not ported: "
-            "the port compiles no XLA program, and program_audit needs a "
-            "torch design of its own (ROADMAP.md §A item 13)"
-        )
     if args.zero1 and args.zero is not None and args.zero != 1:
         ap.error(
             f"conflicting dp-stage selectors: --zero1 and --zero {args.zero} "
@@ -470,6 +476,7 @@ def main(argv=None):
     from shallowspeed_tpu_torch.checkpoint import CheckpointError
     from shallowspeed_tpu_torch.data import default_data_dir
     from shallowspeed_tpu_torch.observability import HealthError, JsonlMetrics
+    from shallowspeed_tpu_torch.observability.program_audit import AuditMismatchError
 
     metrics = JsonlMetrics(args.metrics_out) if args.metrics_out else None
     try:
@@ -477,6 +484,7 @@ def main(argv=None):
             metrics=metrics,
             health=args.health,
             digests=args.digests,
+            audit=args.audit,
             dp=args.dp,
             pp=args.pp,
             tp=args.tp,
@@ -563,6 +571,15 @@ def main(argv=None):
             metrics.close()
             print(f"telemetry written: {metrics.path}")
         return 3
+    except AuditMismatchError as e:
+        # a program broke the layout's comms contract before it dispatched:
+        # the evidence record is flushed, the state untouched
+        print(f"AUDIT MISMATCH: {e}", file=sys.stderr)
+        run.close()
+        if metrics is not None:
+            metrics.close()
+            print(f"telemetry written: {metrics.path}")
+        return 1
     except BaseException:
         # every exceptional exit drains the async writer, so no accepted
         # snapshot is stranded in its queue; a drain failure must not mask

@@ -61,6 +61,9 @@ def test_every_module_imports_without_jax():
         "shallowspeed_tpu_torch.parallel.executor",
         "shallowspeed_tpu_torch.analysis.progcheck",
         "shallowspeed_tpu_torch.analysis.stash",
+        "shallowspeed_tpu_torch.analysis.rules",
+        "shallowspeed_tpu_torch.analysis.lint",
+        "shallowspeed_tpu_torch.observability.program_audit",
         "shallowspeed_tpu_torch.utils",
         "shallowspeed_tpu_torch.faults",
     } <= set(mods)
@@ -86,7 +89,8 @@ def test_every_module_imports_without_jax():
 @pytest.mark.parametrize(
     "path",
     sorted(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_training_profile.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_training_profile.py"]
+    + sorted((ROOT / "scripts").glob("torch_*_phase.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):

@@ -1,6 +1,6 @@
 """The port's serve CLI against the JAX package's: the mesh, tp and
 schedule layouts with ``--verify`` (the same exit codes and layout lines),
-the fleet mode on CPU replica workers, the flags the port refuses with
+the fleet mode on CPU replica workers, the flag the port refuses with
 exit 2 and a ROADMAP pointer, and a JAX serve command line parsing to the
 same values.
 """
@@ -80,7 +80,7 @@ def test_fleet_verify_on_cpu_workers(policy, data_dir, tmp_path):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--audit"], ["--aot-cache", "cache"]],
+    [["--aot-cache", "cache"]],
     ids=lambda f: f[0],
 )
 def test_refused_flags_exit_2_with_a_roadmap_pointer(flag):
@@ -119,7 +119,7 @@ def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", real)
     jax_ns = seen[0]
     port_ns = vars(tcli.build_parser().parse_args(argv))
-    refused = {"aot_cache", "audit"}
+    refused = {"aot_cache"}
     assert set(port_ns) - {"device"} == set(jax_ns)
     for dest, value in jax_ns.items():
         if dest not in refused:
