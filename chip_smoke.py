@@ -189,7 +189,8 @@ in phases:
    ``measure_dispatch_overhead`` (window valid, device events): the
    steady epoch's samples/s and ``mfu`` beside ``dispatch_overhead`` and
    the profiled device ops per step; then the CLI with ``--metrics-out
-   --health warn`` and the report CLI over its file;
+   --health warn`` and the report CLI over its file (each CLI's ``main``
+   in this process);
 14. ZeRO and the bucketed sync on phase 6's split: 14a flagship DP=2 x
    PP=4 GPipe through the flag kernels, momentum, one epoch a leg (zero 0,
    zero 0 with digests, zero 0 with 64 KiB buckets, zero 1, zero 1 with
@@ -206,8 +207,9 @@ in phases:
    ``max_memory_allocated`` over the steps, anchor zero 2's peak below zero
    1's; 14d a killed anchor zero-2 run resumed to its twin's hash, a zero-3
    snapshot restored bitwise into a sequential and a DP=4 zero-1 session;
-   14e the CLI's ``--zero 2 --grad-bucket-bytes 65536`` and ``--zero 1``
-   hash lines equal, ``--zero 3 --kernel-backend pallas`` refused;
+   14e the CLI's (its ``main``, in this process) ``--zero 2
+   --grad-bucket-bytes 65536`` and ``--zero 1`` hash lines equal, ``--zero
+   3 --kernel-backend pallas`` refused;
 15. tensor parallelism on phase 6's split, on the plain backend (the JAX
    package refuses the flag kernels at tp > 1, so no kernel of the port
    launches on a tp leg, and every leg checks that): 15a the flagship at
@@ -278,7 +280,7 @@ in phases:
    step, achieved rps, p50 and p99, the host CPU share of the router and
    of each replica process, and the slots a worker dispatch packs, every
    response bitwise the card's ``predict()``; 17d ``bench_replay``'s static, autoscaled and chaos legs
-   over a 4 s day sized by 16c's knee (base 0.35 x, peak 1.4 x, one x2
+   over a 2 s day sized by 16c's knee (base 0.35 x, peak 1.4 x, one x2
    spike, 1-3 replicas, static 2, a 1 s deadline): every request
    terminal, every "ok" bitwise, launches exact, the scoreboard's verdicts
    printed. No speed and no verdict is gated.
@@ -326,6 +328,24 @@ in phases:
    DP=2 x PP=2 x TP=2 (exit 0, 40/40 bitwise, every rung record clean and
    dispatch-safe) and a rung that writes its params refused before it
    serves; 19e ``python -m shallowspeed_tpu_torch.analysis.lint`` exits 0.
+20. the AOT program cache (``aot_cache.py``), in child processes
+   (``scripts/torch_aot_child.py``) each run from a fresh copy of the
+   package, so its ``build/`` starts empty: 20a a cold start broken down
+   (the interpreter's start, ``import torch`` and the package, the CUDA
+   context, each kernel's ``nvcc`` build all at once and its dlopen once
+   built, the lowering and analysis of the DP=2 x PP=4 training program,
+   the ladder's inference rungs and the MPMD stage plan, the warm-up of a
+   serving replica's 31-slot ladder and of a sequential and a DP=2 x PP=4
+   trainer's first epoch, the audit probe); 20b a cold child with an empty
+   cache directory serving the flagship ladder and training one
+   sequential and one DP=2 x PP=4 flag-kernel epoch (one ``nvcc`` build a
+   source it launches, a store a program); 20c a second child on the same
+   cache: no ``nvcc`` build, every lookup a hit, predictions, params and
+   B1/B3/B5-B8 launches equal to the cold child's; 20d the entry holding
+   the libraries corrupted: a third child records it, builds again,
+   rewrites it and stays bitwise; 20e a fleet sharing a cache directory:
+   ``ready_wall_s`` and ``scale_up_s`` of a cold and a warm scale-up, the
+   replicas' launches exact. No speed is gated.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -342,11 +362,13 @@ library call; the flag entries' ``launches`` over phase 9b's five card
 drives and phase 11's interleaved ones (11a, 11e), and their times summed
 over one DP=2 x PP=4 microbatch's 7 slots at 16 rows; phase 12's drives add
 to the B1/B3 kernels' and the run mode's ``launches``, phase 13's to
-every kernel's (its CLI subprocess counts in its own process, not here),
+every kernel's (its CLI run, 13e, is not counted),
 phase 14's (14a, 14c) to the flag entries', phase 16's drives (16a, the
 16c sweeps, their oracle's predicts excluded) to the forward's, phase
 17's drained replicas' own counts (read in each worker process) to the
-forward's, and phase 19a's twins and audited drives to each kernel's;
+forward's, phase 19a's twins and audited drives to each kernel's, and
+phase 20's children and drained replicas (each counted in its own
+process) to the B1/B3 and flag entries';
 ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or 9a),
 then ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 either; so does a machine without CUDA, or a directory without the
@@ -2733,26 +2755,20 @@ def phase_observability(torch, cuda_ops, TrainingSession, data_dir):
             f"{row['events_per_step']:.1f} profiled device ops/step, profiler "
             f"inflation {row['profiler_inflation']:.2f}x)"
         )
-    root = Path(__file__).resolve().parent
-    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
-    env["PYTHONPATH"] = str(root)
+    from shallowspeed_tpu_torch import train as train_cli
+    from shallowspeed_tpu_torch.observability import report as report_cli
+
     jsonl = obs / "cli.jsonl"
-    proc = subprocess.run(
-        [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
-         "--epochs", "1", "--metrics-out", str(jsonl), "--health", "warn"],
-        cwd=root, env=env, capture_output=True, text=True, timeout=300,
-    )
-    if proc.returncode != 0 or f"telemetry written: {jsonl}" not in proc.stdout:
-        fail(f"13e CLI: exit {proc.returncode}, {proc.stdout[-300:]} {proc.stderr[-500:]}")
-    rep = subprocess.run(
-        [sys.executable, "-m", "shallowspeed_tpu_torch.observability.report", str(jsonl)],
-        cwd=root, env=env, capture_output=True, text=True, timeout=120,
-    )
-    if rep.returncode != 0 or "| MFU |" not in rep.stdout or "| throughput |" not in rep.stdout:
-        fail(f"13e report: exit {rep.returncode}, {rep.stdout[-500:]} {rep.stderr[-500:]}")
+    rc, out, err = _run_main(train_cli.main, ["--data-dir", str(data_dir), "--epochs", "1",
+                                         "--metrics-out", str(jsonl), "--health", "warn"])
+    if rc != 0 or f"telemetry written: {jsonl}" not in out:
+        fail(f"13e CLI: exit {rc}, {out[-300:]} {err[-500:]}")
+    rc, out, err = _run_main(report_cli.main, [str(jsonl)])
+    if rc != 0 or "| MFU |" not in out or "| throughput |" not in out:
+        fail(f"13e report: exit {rc}, {out[-500:]} {err[-500:]}")
     lines.append(
         "13e CLI --metrics-out --health warn: exit 0, telemetry written; the report: "
-        + " / ".join(l for l in rep.stdout.splitlines() if l.startswith("| MFU") or l.startswith("| throughput"))
+        + " / ".join(l for l in out.splitlines() if l.startswith("| MFU") or l.startswith("| throughput"))
     )
     for line in lines:
         say(f"  {line}")
@@ -3021,26 +3037,23 @@ def phase_zero(torch, cuda_ops, TrainingSession, data_dir):
             fail(f"14d zero-3 snapshot into {label}: momentum differs")
         note(f"14d zero-3 snapshot -> {label}: params and momentum bitwise, epoch {r.epoch}")
 
-    # 14e: the CLI
-    root = Path(__file__).resolve().parent
-    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
-    env["PYTHONPATH"] = str(root)
-    base = [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
-            "--epochs", "1", "--no-eval", "--dp", "2", "--pp", "4", "--optimizer", "momentum"]
+    # 14e: the CLI (in this process)
+    from shallowspeed_tpu_torch import train as train_cli
+
+    base = ["--data-dir", str(data_dir), "--epochs", "1", "--no-eval", "--dp", "2", "--pp", "4",
+            "--optimizer", "momentum"]
     hashes = {}
     for label, extra in (
         ("--zero 2 --grad-bucket-bytes 65536", ["--zero", "2", "--grad-bucket-bytes", str(ZERO_BUCKET)]),
         ("--zero 1", ["--zero", "1"]),
     ):
-        proc = subprocess.run(base + extra, cwd=root, env=env, capture_output=True, text=True, timeout=300)
-        hashes[label] = _hash_line(proc.returncode, proc.stdout, proc.stderr, f"14e {label}")
+        hashes[label] = _hash_line(*_run_main(train_cli.main, base + extra), f"14e {label}")
     if len(set(hashes.values())) != 1:
         fail(f"14e CLI hash lines differ: {hashes}")
-    proc = subprocess.run(base + ["--zero", "3", "--kernel-backend", "pallas"], cwd=root, env=env,
-                          capture_output=True, text=True, timeout=300)
+    rc, _, err = _run_main(train_cli.main, base + ["--zero", "3", "--kernel-backend", "pallas"])
     refusal = "--zero 3 is incompatible with --kernel-backend pallas"
-    if proc.returncode != 2 or refusal not in proc.stderr:
-        fail(f"14e --zero 3 --kernel-backend pallas: exit {proc.returncode}, {proc.stderr[-300:]}")
+    if rc != 2 or refusal not in err:
+        fail(f"14e --zero 3 --kernel-backend pallas: exit {rc}, {err[-300:]}")
     note(
         f"14e CLI: --zero 2 --grad-bucket-bytes 65536 and --zero 1 print the same hash "
         f"{next(iter(hashes.values()))[:12]}; --zero 3 --kernel-backend pallas exits 2 with the refusal"
@@ -3294,6 +3307,21 @@ def _capture(fn, *args):
     return rc, out.getvalue(), err.getvalue()
 
 
+def _run_main(main, argv):
+    """A CLI's ``main(argv)`` in this process, as ``python -m`` would run it
+    but without a new interpreter (whose ``import torch`` alone takes 5-7 s
+    on the card's host, phase 20a): (exit code, stdout, stderr); an
+    argparse refusal's ``SystemExit`` gives its code."""
+
+    def run():
+        try:
+            return main(argv)
+        except SystemExit as e:
+            return e.code
+
+    return _capture(run)
+
+
 def _era_check(np, label, oks, payloads, oracles):
     """Every "ok" response bitwise a direct predict() under the weights
     active at its dispatch: ``oracles`` are sessions holding each era's
@@ -3498,16 +3526,10 @@ def phase_serving_faults(torch, cuda_ops, TrainingSession, data_dir, card):
             fail(f"16b {label}: the plain mesh path launched {counts}")
         lat = next(l for l in lines if l.startswith("latency"))
         cli_rows.append(f"{label}: {lat}")
-    root = Path(__file__).resolve().parent
-    env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
-    env["PYTHONPATH"] = str(root)
-    proc = subprocess.run(
-        [sys.executable, "-m", "shallowspeed_tpu_torch.serving", "--requests", "20",
-         "--rate", "2000", "--faults", "nan@dispatch=1", "--breaker", "1"],
-        cwd=root, env=env, capture_output=True, text=True, timeout=300,
-    )
-    if proc.returncode != 3 or "DEGRADED" not in proc.stderr:
-        fail(f"16b degraded leg: exit {proc.returncode} (want 3), {proc.stderr[-400:]}")
+    rc, _, err = _run_main(serve_cli.main, ["--requests", "20", "--rate", "2000",
+                                       "--faults", "nan@dispatch=1", "--breaker", "1"])
+    if rc != 3 or "DEGRADED" not in err:
+        fail(f"16b degraded leg: exit {rc} (want 3), {err[-400:]}")
     x = np.concatenate(loadgen.request_payloads(40, 784, seed=0))
     kw = dict(dp=2, pp=2, tp=2)
     diff = float(np.abs(TrainingSession(device="cuda", **kw).predict(x)
@@ -3605,7 +3627,7 @@ FLEET_CAPACITY_S = 1.0
 # the capacity scoreboard's day: AUTOSCALE_r01.json's ratios of the knee;
 # a request that waited 1 s (20 x the SLO) is shed rather than served late,
 # which bounds each leg's drain past the day
-REPLAY_ARGS = ("--day-s", "4", "--base-frac", "0.35", "--peak-frac", "1.4",
+REPLAY_ARGS = ("--day-s", "2", "--base-frac", "0.35", "--peak-frac", "1.4",
                "--spike-mult", "2", "--n-spikes", "1", "--min-replicas", "1",
                "--max-replicas", "3", "--static-replicas", "2", "--deadline-ms", "1000")
 
@@ -3660,11 +3682,12 @@ class FleetProbe:
         return False
 
 
-def _fleet_launches(label, fleet, submitted, verify):
+def _fleet_launches(label, fleet, submitted, verify, probe_slots=0):
     """Hold each drained replica's forward launches to the flagship's relu
     layers x (its warm-up slots + the slots of its dispatches that reached
-    predict() + its verify re-predicts' slots); no other kernel. Returns
-    (their sum, {replica: launches})."""
+    predict() + its verify re-predicts' slots + ``probe_slots``, the audit
+    probe's one slot under an AOT cache); no other kernel. Returns (their
+    sum, {replica: launches})."""
     from shallowspeed_tpu_torch.serving.slots import DEFAULT_SLOT_LADDER, slots_needed
 
     relu = len(FLAGSHIP) - 2  # every Linear but the last
@@ -3675,7 +3698,7 @@ def _fleet_launches(label, fleet, submitted, verify):
             slots_needed(r.rows, SLOT_ROWS) for r in submitted
             if verify and r.verdict == "ok" and r.replica_id == rid
         )
-        slots = sum(DEFAULT_SLOT_LADDER) + st["slots_dispatched"] + verify_slots
+        slots = sum(DEFAULT_SLOT_LADDER) + st["slots_dispatched"] + verify_slots + probe_slots
         others = {k: v for k, v in launches.items() if v and k != "linear_act_fwd"}
         if others or launches["linear_act_fwd"] != relu * slots:
             fail(f"{label}: replica {rid} launched {launches}, want {relu} x {slots} slots "
@@ -4576,13 +4599,12 @@ def phase_audit(torch, cuda_ops, TrainingSession, data_dir, card):
     )
 
     # 19e: the house-rule linter over the port
-    proc = subprocess.run(
-        [sys.executable, "-m", "shallowspeed_tpu_torch.analysis.lint"],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=120,
-    )
-    if proc.returncode != 0:
-        fail(f"19e lint: exit {proc.returncode}: {proc.stdout[-600:]}")
-    note(f"19e lint: {proc.stdout.strip().splitlines()[-1]}")
+    from shallowspeed_tpu_torch.analysis import lint as lint_cli
+
+    rc, out, _ = _run_main(lint_cli.main, [])
+    if rc != 0:
+        fail(f"19e lint: exit {rc}: {out[-600:]}")
+    note(f"19e lint: {out.strip().splitlines()[-1]}")
     say(
         "phase 19 audit: ok: every audited program census-clean with the allocator's peak, "
         "bitwise its twin with the probe's launches exact, the ZeRO peaks in 14c's order, "
@@ -4590,6 +4612,217 @@ def phase_audit(torch, cuda_ops, TrainingSession, data_dir, card):
         f"{time.perf_counter() - t_phase:.2f} s"
     )
     return drive
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the AOT program cache — a cold start broken down, then cold,
+# cache-warm and corrupt-entry starts in child processes, and the fleet
+# ---------------------------------------------------------------------------
+
+AOT_CHILD = Path(__file__).resolve().parent / "scripts" / "torch_aot_child.py"
+# the kernels the child's start launches: B1/B3 (serving, the sequential
+# epoch) and B5-B8 through the flag entries (the DP=2xPP=4 epoch)
+AOT_ENTRIES = ("linear_act_fwd", "linear_act_bwd", "linear_flag_fwd", "linear_flag_bwd")
+AOT_SOURCES = ("linear_act_fwd", "linear_act_bwd")
+AOT_CHILD_TIMEOUT_S = 300
+AOT_FLEET_REQUESTS = 32
+
+
+def _fresh_copy(root):
+    """A copy of the package and the child script in ``root``, with no
+    ``build/``: a child run from there builds, or loads from the AOT
+    cache, every kernel it launches."""
+    pkg = Path(__file__).resolve().parent / "shallowspeed_tpu_torch"
+    shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(AOT_CHILD, root / AOT_CHILD.name)
+    return root
+
+
+def _aot_child(label, root, mode, data_dir, cache=None):
+    """Run the child in ``root`` (``scripts/torch_aot_child.py``); returns
+    its JSON and its wall from the spawn. A child that fails or overruns
+    fails the phase (its process is killed)."""
+    argv = [sys.executable, str(root / AOT_CHILD.name), mode, "--data-dir", str(data_dir)]
+    if cache is not None:
+        argv += ["--cache", str(cache)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv + ["--t0", repr(t0)], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=AOT_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{label}: the child did not finish within {AOT_CHILD_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: the child exited {proc.returncode}: {err[-1500:]}")
+    return json.loads(out.strip().splitlines()[-1]), wall
+
+
+def _fmt_s(d):
+    return ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+
+
+def phase_aot(torch, cuda_ops, TrainingSession, data_dir, card):
+    """20: the AOT program cache on the card. Returns the launches of the
+    children (20b-20d, each counted in its own process) and of the fleet's
+    drained replicas (20e)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch import aot_cache as AC
+    from shallowspeed_tpu_torch import faults as F
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(AOT_ENTRIES, 0)
+
+    def note(line):
+        say(f"  {line}")
+
+    with tempfile.TemporaryDirectory(prefix="aot_phase_") as tmp:
+        tmp = Path(tmp)
+        # 20a: where a cold start goes, in a child with an empty build/
+        t_leg = time.perf_counter()
+        bd, wall = _aot_child("20a", _fresh_copy(tmp / "a"), "breakdown", data_dir)
+        if bd["builds"] != {n: 1 for n in bd["build_s"]}:
+            fail(f"20a: builds {bd['builds']}, walls {bd['build_s']}")
+        note(
+            f"20a cold-start breakdown ({card}; a child with an empty build/, {wall:.2f} s): "
+            f"spawn to main {bd['spawn_to_main_s']:.3f} s, import torch {bd['import_torch_s']:.3f} s, "
+            f"import package {bd['import_package_s']:.3f} s, CUDA context {bd['cuda_context_s']:.3f} s; "
+            f"nvcc, all at once: wall {bd['build_all_wall_s']:.3f} s, each ({_fmt_s(bd['build_s'])}) s; "
+            f"_build.load with the library built ({_fmt_s(bd['load_built_s'])}) s"
+        )
+        note(f"20a lowering and analysis (s): {_fmt_s(bd['lowering'])}")
+        note(f"20a warm-up (s): {_fmt_s({k: v for k, v in bd['warm_up'].items() if k.endswith('_s')})} "
+             f"({bd['warm_up']['serve_ladder_slots']} ladder slots)")
+        note(f"20a audit probe (s): {_fmt_s(bd['audit_probe'])}; {time.perf_counter() - t_leg:.2f} s")
+
+        # 20b/20c: a cold start, then a cache-warm one, each from its own
+        # fresh copy (an empty build/), sharing one cache directory
+        cache = tmp / "cache"
+        cold, cold_wall = _aot_child("20b", _fresh_copy(tmp / "b"), "start", data_dir, cache)
+        if cold["builds"] != dict.fromkeys(AOT_SOURCES, 1):
+            fail(f"20b: the cold child built {cold['builds']}, want one nvcc build of each of {AOT_SOURCES}")
+        if cold["aot"]["hit"] or cold["aot"]["miss"] != cold["aot"]["store"] or not cold["aot"]["store"]:
+            fail(f"20b: the cold child's cache counts {cold['aot']}")
+        if not all(cold["launches"][e] for e in AOT_ENTRIES):
+            fail(f"20b: the cold child launched {cold['launches']}")
+        stored = sorted(cache.glob("*.aotx"))
+        if len(stored) != cold["aot"]["store"]:
+            fail(f"20b: {len(stored)} entries on disk, {cold['aot']['store']} stores")
+        warm, warm_wall = _aot_child("20c", _fresh_copy(tmp / "c"), "start", data_dir, cache)
+        if warm["builds"]:
+            fail(f"20c: the cache-warm child ran nvcc: {warm['builds']}")
+        if warm["aot"]["miss"] or warm["aot"]["store"] or warm["aot"]["hit"] != cold["aot"]["store"]:
+            fail(f"20c: the cache-warm child's cache counts {warm['aot']} (cold {cold['aot']})")
+        if warm["hashes"] != cold["hashes"]:
+            fail(f"20c: predictions or params differ from the cold child's: {warm['hashes']} vs {cold['hashes']}")
+        if {e: warm["launches"][e] for e in AOT_ENTRIES} != {e: cold["launches"][e] for e in AOT_ENTRIES}:
+            fail(f"20c: launches {warm['launches']} differ from the cold child's {cold['launches']}")
+        for label, r, w in (("20b cold", cold, cold_wall), ("20c cache-warm", warm, warm_wall)):
+            note(
+                f"{label} child ({card}): nvcc builds {r['builds'] or 'none'}, cache {r['aot']}, "
+                f"start to first result {r['start_to_first_result_s']:.3f} s (spawn to main "
+                f"{r['spawn_to_main_s']:.3f}, import torch {r['import_torch_s']:.3f}, package "
+                f"{r['import_package_s']:.3f}, CUDA context {r['cuda_context_s']:.3f}, serve "
+                f"{r['serve_s']:.3f} s), sequential epoch {r['seq_epoch_s']:.3f} s, DP=2xPP=4 epoch "
+                f"{r['dp2pp4_epoch_s']:.3f} s, total {r['total_s']:.3f} s (wall {w:.2f} s); launches "
+                f"{ {e: r['launches'][e] for e in AOT_ENTRIES} }"
+            )
+        note(f"20c warm == cold: predictions and both trainers' params bitwise, launches equal, "
+             f"{len(stored)} entries")
+
+        # 20d: one entry corrupted: recorded, built again, rewritten, bitwise
+        victim = max(stored, key=lambda p: p.stat().st_size)  # the one holding both libraries
+        F.corrupt_checkpoint_bytes(victim, seed=5)
+        bad = victim.read_bytes()
+        third, third_wall = _aot_child("20d", _fresh_copy(tmp / "d"), "start", data_dir, cache)
+        a = third["aot"]
+        if (a["corrupt"], a["store"], a["miss"], a["hit"]) != (1, 1, 0, cold["aot"]["store"] - 1):
+            fail(f"20d: cache counts {a} after one corrupted entry")
+        if third["hashes"] != cold["hashes"]:
+            fail("20d: the corrupt-entry child's predictions or params differ from the cold child's")
+        if {e: third["launches"][e] for e in AOT_ENTRIES} != {e: cold["launches"][e] for e in AOT_ENTRIES}:
+            fail(f"20d: launches {third['launches']} differ from the cold child's")
+        reread = AC.AotCache(cache, device="cuda")
+        if victim.read_bytes() == bad or reread.load(victim.stem, program="20d") is None:
+            fail(f"20d: {victim.name} was not rewritten into a loadable entry ({reread.counts})")
+        note(
+            f"20d corrupt entry ({card}): {victim.name[:12]}... ({len(bad)} bytes) recorded corrupt, "
+            f"built again (nvcc builds {third['builds'] or 'none'}), rewritten and loadable; "
+            f"predictions and params bitwise the cold child's, launches equal; start to first "
+            f"result {third['start_to_first_result_s']:.3f} s (wall {third_wall:.2f} s)"
+        )
+        for r in (cold, warm, third):
+            for e in AOT_ENTRIES:
+                launches[e] += r["launches"][e]
+
+        # 20e: a fleet sharing a cache: the initial replica and a scale-up
+        # into an emptied cache start cold, a second scale-up warm
+        t_leg = time.perf_counter()
+        ck = tmp / "ck"
+        trainer = TrainingSession(device="cuda", data_dir=data_dir, checkpoint_dir=ck)
+        trainer.train_steps(SERVE_CKPT_STEPS)
+        ck_path = str(trainer.save_step_checkpoint())
+        trainer.close()
+        del trainer
+        oracle = TrainingSession(device="cuda", resume=ck_path)
+        fleet_cache = tmp / "fleet_cache"
+        config = {"session": {"resume": ck_path, "device": "cuda",
+                              "aot_cache_dir": str(fleet_cache)},
+                  "engine": {}, "verify": True}
+        from shallowspeed_tpu_torch.serving import fleet as fleet_mod
+        from shallowspeed_tpu_torch.serving import loadgen
+        from shallowspeed_tpu_torch.serving.engine import TERMINAL_VERDICTS
+
+        with FleetProbe():
+            fleet = fleet_mod.ServingFleet(config, n_replicas=1, slo_ms=5000.0, seed=0)
+            try:
+                fleet.start()
+                walls = {0: fleet.replicas[0].snapshot()["ready_wall_s"]}
+                ups = {}
+                for label in ("cold", "warm"):
+                    if label == "cold":
+                        for entry in fleet_cache.glob("*.aotx"):
+                            entry.unlink()
+                    rid = fleet.scale_up()
+                    walls[rid] = fleet.replicas[rid].snapshot()["ready_wall_s"]
+                    ups[label] = (rid, fleet.stats()["scale_up_s"])
+                payloads = loadgen.request_payloads(AOT_FLEET_REQUESTS, 784, seed=3)
+                submitted = [fleet.submit(x) for x in payloads]
+                t_end = time.perf_counter() + 60
+                while any(r.verdict not in TERMINAL_VERDICTS for r in submitted):
+                    if time.perf_counter() > t_end:
+                        fail("20e: the fleet did not answer its requests within 60 s")
+                    fleet.step()
+                    time.sleep(0.001)
+            finally:
+                fleet.stop()
+        _fleet_answers(np, "20e", submitted, oracle)
+        got, per = _fleet_launches("20e", fleet, submitted, verify=True, probe_slots=1)
+        launches["linear_act_fwd"] += got
+        st = fleet.retired_stats()
+        aot = {rid: st[rid]["aot"] for rid in st}
+        cold_rid, warm_rid = ups["cold"][0], ups["warm"][0]
+        if aot[0]["store"] != 1 or aot[cold_rid]["store"] != 1 or aot[cold_rid]["miss"] != 1:
+            fail(f"20e: the cold replicas' cache counts {aot}")
+        if aot[warm_rid]["hit"] != 1 or aot[warm_rid]["miss"] or aot[warm_rid]["store"]:
+            fail(f"20e: the warm replica's cache counts {aot[warm_rid]}")
+        if any(st[rid]["builds"] for rid in st):
+            fail(f"20e: a replica ran nvcc: { {rid: st[rid]['builds'] for rid in st} }")
+        note(
+            f"20e fleet with aot_cache_dir ({card}): ready_wall_s initial (cold) {walls[0]:.3f} s, "
+            f"cold scale-up r{cold_rid} ready_wall_s {walls[cold_rid]:.3f} s scale_up_s "
+            f"{ups['cold'][1]:.3f} s, warm scale-up r{warm_rid} ready_wall_s {walls[warm_rid]:.3f} s "
+            f"scale_up_s {ups['warm'][1]:.3f} s; cache {aot}; {len(submitted)} requests bitwise the "
+            f"card's predict(), B1 launches a drained replica {per} (exact); "
+            f"{time.perf_counter() - t_leg:.2f} s"
+        )
+    say(f"phase 20 aot cache: ok: cold-start breakdown, warm child zero nvcc builds and no miss, "
+        f"bitwise and launch-equal to the cold child, a corrupt entry rebuilt and rewritten, the "
+        f"fleet's cold and warm scale-ups; {time.perf_counter() - t_phase:.2f} s")
+    return launches
 
 
 def main():
@@ -4648,17 +4881,19 @@ def main():
             audited = phase_audit(torch, cuda_ops, TrainingSession, tmp, card)
         if not seen or seen - checked:
             fail(f"phase 19 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
+        aot = phase_aot(torch, cuda_ops, TrainingSession, tmp, card)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
     entries = [
         ("linear_act_fwd", "linear_act_fwd",
          serving["linear_act_fwd"] + learning["linear_act_fwd"] + observed["linear_act_fwd"]
-         + served["linear_act_fwd"] + fleet["linear_act_fwd"] + audited.get("linear_act_fwd", 0),
+         + served["linear_act_fwd"] + fleet["linear_act_fwd"] + audited.get("linear_act_fwd", 0)
+         + aot["linear_act_fwd"],
          fwd_err, slot),
         ("linear_act_bwd", "linear_act_bwd",
          training["linear_act_bwd"] + learning["linear_act_bwd"] + observed["linear_act_bwd"]
-         + audited.get("linear_act_bwd", 0),
+         + audited.get("linear_act_bwd", 0) + aot["linear_act_bwd"],
          bwd_err, mub),
     ]
     fused_launches["run"] += learning["fused_train"] + audited.get("fused_train:run", 0)
@@ -4671,7 +4906,8 @@ def main():
     for entry in ("linear_flag_fwd", "linear_flag_bwd"):
         entries.append(
             (entry, entry,
-             flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry] + audited.get(entry, 0),
+             flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry] + audited.get(entry, 0)
+             + aot[entry],
              flag_errs[entry], flag_sums[entry])
         )
     kernels = []

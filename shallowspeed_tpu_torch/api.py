@@ -103,6 +103,21 @@ the contract: each program first runs once as a probe on clones of the
 state it writes (and one batch), and a census that breaks the contract, or
 a serving rung that writes its params, raises ``AuditMismatchError``
 before the real dispatch, with the session's state as it was.
+
+The AOT program cache, as the JAX session's (``aot_cache.py``):
+``aot_cache_dir`` resolves every program before its first dispatch through
+an on-disk store of its resolved form (the lowered tick tables, their
+static-analysis verdict and, on the card, the kernel libraries it
+launches): the epoch and chunk programs, each ``run_program``, each mesh
+inference rung, the sequential slot program (``predict_seq``) and, under
+mpmd, each stage program through the runners' ``warm``. A warm start
+writes the stored libraries into ``build/`` (no ``nvcc``) and takes the
+stored tables and verdict instead of the lowering's analysis. Every
+program resolved through the cache, from a hit or a build, runs its audit
+probe on clones before it first dispatches, so a warm start launches what
+its cold twin launches; a hit whose census breaks the contract is lowered
+again and rewritten. ``warm_run(epochs, with_eval)`` resolves the next
+``train_run`` without executing it.
 """
 
 import sys
@@ -113,8 +128,9 @@ import time
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import convert, resolve_device, trainer, utils
-from shallowspeed_tpu_torch.analysis import analyze_program
+from shallowspeed_tpu_torch import _build, convert, resolve_device, trainer, utils
+from shallowspeed_tpu_torch import aot_cache as AC
+from shallowspeed_tpu_torch.analysis import ProgramAnalysisError, analyze_program
 from shallowspeed_tpu_torch import faults as F
 from shallowspeed_tpu_torch import model as Mo
 from shallowspeed_tpu_torch import schedules as S
@@ -141,6 +157,7 @@ from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
 from shallowspeed_tpu_torch.parallel import gradsync, mpmd
 from shallowspeed_tpu_torch.parallel.lowering import (
+    TickProgram,
     lower_schedule,
     program_flops,
     program_stats,
@@ -213,7 +230,8 @@ class TrainingSession:
     (per-stage streams, ``parallel/mpmd.py``; mesh layouts, in the JAX
     session's feature envelope). ``audit``: enforce the layout's comms
     contract on every program before its first dispatch (a probe on clones;
-    ``AuditMismatchError``).
+    ``AuditMismatchError``). ``aot_cache_dir``: the AOT program cache's
+    directory (``aot_cache.py``; None = no cache).
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
@@ -259,6 +277,7 @@ class TrainingSession:
         checkpoint_queue=2,
         predict_slot_rows=None,
         predict_slot_ladder=None,
+        aot_cache_dir=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -280,6 +299,12 @@ class TrainingSession:
         # a program waits for the first's audit
         self._audit_lock = threading.Lock()
         self._mpmd_warmed = False
+        # the AOT program cache (aot_cache.py): each program resolves
+        # through it before its first dispatch, and is audited on clones
+        # before it dispatches, from a hit or a build
+        self._aot = None
+        if aot_cache_dir is not None:
+            self._aot = AC.AotCache(aot_cache_dir, metrics=self._metrics, device=self.device)
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
         if precision == "default":
@@ -590,7 +615,7 @@ class TrainingSession:
         # when a recorder or a monitor consumes it (record_steps=None) or
         # when forced; the digests when asked. The kernel paths keep the
         # gradient inside the fused train kernel, so they have none of it
-        kernel_path = bool(megakernel or epoch_kernel or run_kernel)
+        kernel_path = self._kernel_path = bool(megakernel or epoch_kernel or run_kernel)
         self._gnorm_aux = self._metrics.enabled and clip_norm is not None and not kernel_path
         if record_steps is None:
             record_steps = self._metrics.enabled or self._health is not None
@@ -625,6 +650,7 @@ class TrainingSession:
                 faults=",".join(repr(f) for f in self._faults.faults),
             )
         self._step_aux = bool(record_steps) and not kernel_path
+        self._act, self._precision_name = act, precision
         self.flight = FlightRecorder() if self._step_aux else None
         if self.flight is not None:
             # resumed step records continue the global numbering
@@ -670,11 +696,10 @@ class TrainingSession:
             if self._metrics.enabled:
                 # the lowered program's static passes (send/recv match,
                 # deadlock freedom, stash lifetimes), as the JAX session
-                # records them; a violated contract raises here
-                verdict = analyze_program(self._prog, program="epoch_program")
-                self._metrics.static_analysis(
-                    "epoch_program", **{k: v for k, v in verdict.items() if k != "program"}
-                )
+                # records them; a violated contract raises here (with an
+                # AOT cache they run, or load, as the program resolves)
+                if self._aot is None:
+                    self._analyze(self._prog, "epoch_program")
                 # the lowered program's static tick stats, recorded once
                 stats = program_stats(
                     self._prog, spec=self.spec, mubatch_size=self._mubatch_local, tp=tp
@@ -739,10 +764,8 @@ class TrainingSession:
 
                 self._epoch_fn = _mpmd_epoch
             else:
-                self._epoch_fn = E.make_pipeline_epoch(
-                    self.mesh, self.spec, self._prog, self._mubatch_local, self._opt,
-                    **self._run_kwargs, **aux,
-                )
+                self._epoch_aux = aux
+                self._epoch_fn = self._build_epoch_fn(self._prog)
             self._predict_cache = {}  # inference programs, keyed by ladder rung
 
         if predict_slot_rows is None:
@@ -1147,59 +1170,107 @@ class TrainingSession:
         function was built without one). Audited as the ``epoch_program``,
         or per distinct shorter length as a ``chunk_program`` (under mpmd
         the same stage programs run any length: ``epoch_program``, after
-        the runner's ``warm`` audits each stage program)."""
+        the runner's ``warm`` audits each stage program). With an AOT
+        cache the lockstep and sequential programs resolve through it
+        (``epoch_program``, ``chunk_program_<n>``)."""
         full = self._mpmd is not None or k1 - k0 == self.batches_per_epoch
         if self._mpmd is not None and not self._mpmd_warmed and self._audit_on():
             self._mpmd.warm(self._stacked, self._flags, self._opt_state, self._mpmd_resolve)
             self._mpmd_warmed = True
+        resolve = None
+        if self._mpmd is None:
+            label = "epoch_program" if full else f"chunk_program_{k1 - k0}"
+            resolve = lambda: self._aot_lookup(  # noqa: E731
+                label, None if self._sequential else self._prog, self._train_kernels(),
+                self._build_epoch_fn, None if self._sequential else self._lower_train_prog,
+            )
         out = self._audited(
             "epoch_program" if full else "chunk_program",
             "epoch_program" if full else ("chunk", k1 - k0),
             self._epoch_fn,
             self._state_args() + (self._X[k0:k1], self._Y[k0:k1]),
             lambda: A.clone_tree(self._state_args()) + (self._X[k0 : k0 + 1], self._Y[k0 : k0 + 1]),
+            resolve=resolve,
         )
         self._set_state(out[0], out[1])
         return out[2], (out[3] if len(out) > 3 else None)
 
+    def _build_epoch_fn(self, tables):
+        """The lockstep epoch function over ``tables`` (the session's
+        lowering, or an AOT cache entry's), made the session's; the
+        sequential and MPMD layouts keep theirs."""
+        if self._sequential or self._mpmd is not None:
+            return self._epoch_fn
+        self._prog = tables
+        self._epoch_fn = E.make_pipeline_epoch(
+            self.mesh, self.spec, tables, self._mubatch_local, self._opt,
+            **self._run_kwargs, **self._epoch_aux,
+        )
+        return self._epoch_fn
+
+    def _lower_train_prog(self):
+        """The layout's training program, lowered afresh."""
+        return lower_schedule(
+            S.SCHEDULES[self.schedule], self.M, self.pp, virtual=self.V,
+            backward_split=self._backward_split, recompute=self._recompute,
+        )
+
     # -- the program audit ----------------------------------------------------
 
     def _audit_on(self):
-        return self._metrics.enabled or self._audit_strict
+        return self._metrics.enabled or self._audit_strict or self._aot is not None
 
-    def _audited(self, program, dedup, fn, args, probe_args, contract=None, safety=False):
+    def _audited(self, program, dedup, fn, args, probe_args, contract=None, safety=False,
+                 resolve=None):
         """``fn(*args)``, a real dispatch of ``program``, with its audit
-        once per ``dedup`` variant when a recorder or ``audit=True`` asks
-        for it. Under ``audit=True`` the program first runs as a probe on
-        ``probe_args()`` (clones of the state it writes and one batch),
-        recorded, and a census that breaks the contract raises before the
-        real dispatch, so the session's state stays as it was (a failure is
-        never latched: a retry probes again); with a recorder alone the
+        once per ``dedup`` variant when a recorder, ``audit=True`` or an AOT
+        cache asks for it (``_audit_before``). With a recorder alone the
         census rides the first real dispatch and adds no launch.
         ``contract``: a callable giving the program's contract (default
         the session's training one); ``safety``: a serving program, whose
-        first argument (its params) must come back unwritten."""
+        first argument (its params) must come back unwritten; ``resolve``:
+        the program's AOT cache lookup (``_aot_lookup``), which gives the
+        program to dispatch."""
         if dedup in self._audit_done or not self._audit_on():
             return fn(*args)
         with self._audit_lock:
             if dedup in self._audit_done:
                 return fn(*args)
-            expected = contract() if contract is not None else None
-            if self._audit_strict:
-                self._record_audit(program, fn, probe_args(), expected, safety)
-                self._audit_done.add(dedup)
+            fn, ride = self._audit_before(program, dedup, fn, probe_args, contract, safety, resolve)
+            if not ride:
                 return fn(*args)
-            out = self._record_audit(program, fn, args, expected, safety)
+            out = self._record_audit(
+                program, fn, args, contract() if contract is not None else None, safety,
+            )
             self._audit_done.add(dedup)
             return out
 
-    def _record_audit(self, program, fn, args, expected=None, safety=False, **fields):
+    def _audit_before(self, program, dedup, fn, probe_args, contract, safety, resolve):
+        """What a program's audit does before its first real dispatch (the
+        caller holds the audit lock). With an AOT cache and a ``resolve``:
+        the program resolves through the cache and is probed on clones
+        (``_aot_audit``); under ``audit=True``: the probe on
+        ``probe_args()`` (clones of the state it writes and one batch),
+        recorded, and a census that breaks the contract raises before the
+        real dispatch, so the session's state stays as it was (a failure is
+        never latched: a retry probes again). Returns ``(fn, ride)``:
+        the program to dispatch, and True when its census is still owed and
+        rides the first real dispatch (a recorder alone)."""
+        if self._aot is not None and resolve is not None:
+            fn = self._aot_audit(program, resolve(), probe_args, contract, safety)
+        elif self._audit_strict:
+            self._record_audit(
+                program, fn, probe_args(), contract() if contract is not None else None, safety,
+            )
+        else:
+            return fn, True
+        self._audit_done.add(dedup)
+        return fn, False
+
+    def _probe(self, program, fn, args, expected=None, safety=False):
         """Run ``fn(*args)`` under a census and the allocator's peak
-        (``program_audit.recording``), emit the ``xla_audit`` record (with
-        ``fields``), and raise ``AuditMismatchError``, after the record is
-        flushed: under ``audit=True`` on a census that breaks the contract
-        (``expected``, default the session's), always on a serving program
-        that wrote its params. Returns ``fn``'s outputs."""
+        (``program_audit.recording``); -> ``(outputs, the xla_audit
+        record's fields, the dispatch-safety mismatches)``."""
         before = A.tensor_versions(args[0]) if safety else None
         with A.recording(self.device, A.tree_nbytes(args)) as (census, memory):
             out = fn(*args)
@@ -1214,9 +1285,22 @@ class TrainingSession:
         if safety:
             unsafe = A.check_dispatch_safety(before, A.tensor_versions(args[0]), context=program)
             rec["dispatch_safety"] = {"params_checked": len(before), "mismatches": unsafe}
+        return out, rec, unsafe
+
+    def _emit_audit(self, program, rec, **fields):
         if self._metrics.enabled:
             self._metrics.audit(program, **fields, **rec)
             self._metrics.flush()  # the mismatch evidence hits the disk first
+
+    def _record_audit(self, program, fn, args, expected=None, safety=False, **fields):
+        """Run ``fn(*args)`` under a census (``_probe``), emit the
+        ``xla_audit`` record (with ``fields``), and raise
+        ``AuditMismatchError``, after the record is flushed: under
+        ``audit=True`` on a census that breaks the contract (``expected``,
+        default the session's), always on a serving program that wrote its
+        params. Returns ``fn``'s outputs."""
+        out, rec, unsafe = self._probe(program, fn, args, expected, safety)
+        self._emit_audit(program, rec, **fields)
         if self._audit_strict and not rec["census_ok"]:
             raise A.AuditMismatchError(
                 f"{program}: compiled collective census disagrees with the "
@@ -1231,14 +1315,160 @@ class TrainingSession:
         """The MPMD runners' ``warm`` hook: one stage program, run once on
         its example args, recorded as an ``mpmd_stage_program`` (with its
         ``program_label``) against its per-stage contract; an inference
-        program must also leave its params unwritten."""
+        program must also leave its params unwritten. With an AOT cache the
+        stage program resolves through it first (its entry's tables: the
+        tick tables the runner plans it from)."""
         dedup = ("mpmd", label)
         if dedup in self._audit_done:
             return
-        self._record_audit(
-            "mpmd_stage_program", fn, args, expected, safety, program_label=label, role=role,
-        )
+        fields = dict(program_label=label, role=role)
+        if self._aot is not None:
+            tables = self._lower_inference_prog(1) if role == "infer_fwd" else self._prog
+            entry = self._aot_lookup(label, tables, (), lambda _tables: fn)
+            self._aot_audit("mpmd_stage_program", entry, lambda: args, lambda: expected, safety, fields)
+        else:
+            self._record_audit("mpmd_stage_program", fn, args, expected, safety, **fields)
         self._audit_done.add(dedup)
+
+    # -- the AOT program cache ------------------------------------------------
+
+    def _aot_layout(self):
+        """The layout half of the AOT cache key (JAX ``_aot_layout``; the
+        program's content hash does the invalidation, this keeps distinct
+        configurations from sharing a filename)."""
+        return (
+            tuple(self.spec.sizes), self._act, self.dp, self.pp, self.tp,
+            self.V, self.schedule, self.B, self.M, self._precision_name,
+            self._kernel_backend, self._slot_rows, self._recompute,
+        )
+
+    def _train_kernels(self, with_eval=False):
+        """The sources of the kernels a training program launches (none
+        off the card, none on the plain mesh backend)."""
+        if self.device.type != "cuda":
+            return ()
+        if self._sequential:
+            if self._kernel_path:
+                return ("fused_train", "linear_act_fwd") if with_eval else ("fused_train",)
+            return ("linear_act_fwd", "linear_act_bwd")
+        return ("linear_act_fwd", "linear_act_bwd") if self._kernel_backend == "pallas" else ()
+
+    def _infer_kernels(self):
+        """The sources of the kernels an inference program launches."""
+        if self.device.type == "cuda" and (self._sequential or self._kernel_backend == "pallas"):
+            return ("linear_act_fwd",)
+        return ()
+
+    def _analyze(self, tables, program):
+        """The static passes over lowered tables (send/recv match, deadlock
+        freedom, stash lifetimes; ``analysis.analyze_program``), recorded as
+        a ``static_analysis`` record; a violated contract records the
+        finding, then raises ``ProgramAnalysisError``. Returns the verdict,
+        or None for a program without tables."""
+        if not isinstance(tables, TickProgram):
+            return None
+        try:
+            verdict = analyze_program(tables, program=program)
+        except ProgramAnalysisError as e:
+            if self._metrics.enabled:
+                self._metrics.static_analysis(
+                    program, passes=["send_recv", "deadlock", "stash"], findings=1, finding=str(e),
+                )
+                self._metrics.flush()
+            raise
+        self._record_verdict(program, verdict)
+        return verdict
+
+    def _record_verdict(self, program, verdict):
+        if verdict is not None and self._metrics.enabled:
+            self._metrics.static_analysis(
+                program, **{k: v for k, v in verdict.items() if k != "program"}
+            )
+
+    def _aot_lookup(self, label, tables, kernels, build, relower=None):
+        """Resolve one program through the AOT cache: key it on its label,
+        the layout, the fingerprint and its content (``program_text``:
+        ``tables``, the session's fresh lowering, and the stems of the
+        ``kernels`` libraries), then load its entry. A hit writes the
+        entry's libraries into ``build/`` where they are missing and takes
+        its tables and verdict instead of the lowering and the analysis; a
+        miss (or a corrupt or stale entry) analyses ``tables`` and builds
+        the libraries from source. ``build(tables)`` makes the dispatchable
+        program; ``relower()`` lowers afresh after an audit mismatch.
+        Returns the entry ``_aot_audit`` audits and stores."""
+        aot = self._aot
+        stems = {_build.library_path(n).stem: n for n in kernels}
+        key = aot.key_for(
+            label, self._aot_layout(),
+            AC.program_text(label, self._kernel_backend, tables, stems),
+        )
+        entry = dict(
+            label=label, key=key, hit=False, tables=tables, verdict=None, libraries={},
+            build=build, relower=relower,
+        )
+        payload = aot.load(key, program=label)
+        if payload is not None:
+            try:
+                got = dict(
+                    tables=payload["tables"], verdict=payload["verdict"],
+                    libraries=dict(payload["libraries"]),
+                )
+            except (TypeError, KeyError, ValueError) as e:
+                aot.record("fallback", program=label, key=key, reason=f"malformed payload: {e}"[:200])
+            else:
+                entry.update(got, hit=True)
+        if entry["hit"]:
+            try:
+                for stem, data in entry["libraries"].items():
+                    _build.install_library(stem, data)
+            except OSError as e:  # the build from source stands in
+                aot.record(
+                    "fallback", program=label, key=key, reason=f"library install failed: {e}"[:200],
+                )
+            self._record_verdict(label, entry["verdict"])
+        else:
+            entry["verdict"] = self._analyze(tables, label)
+            if kernels:
+                _build.build_all(kernels)
+                entry["libraries"] = {
+                    stem: _build.library_path(n).read_bytes() for stem, n in stems.items()
+                }
+        entry["fn"] = build(entry["tables"])
+        return entry
+
+    def _aot_audit(self, program, entry, probe_args, contract, safety, fields=None):
+        """The audit every program resolved through the AOT cache gets
+        before its first dispatch: the probe on ``probe_args()`` against its
+        contract. A hit whose census breaks it (or a serving program that
+        writes its params) is recorded ``audit_mismatch`` and ``fallback``,
+        its tables are dropped and the program is lowered again; a built
+        program is probed under the session's rules (``audit=True`` raises)
+        and its entry written. Returns the program to dispatch."""
+        fields = fields or {}
+        expected = contract() if contract is not None else None
+        aot, fn = self._aot, entry["fn"]
+        if entry["hit"]:
+            _, rec, unsafe = self._probe(program, fn, probe_args(), expected, safety)
+            if rec.get("census_ok") is not False and not unsafe:
+                self._emit_audit(program, rec, **fields)
+                return fn
+            reason = (
+                "; ".join(rec.get("mismatches", ())) if rec.get("census_ok") is False
+                else "dispatch-safety: " + "; ".join(unsafe)
+            )
+            aot.record("audit_mismatch", program=entry["label"], key=entry["key"], reason=reason[:200])
+            aot.record("fallback", program=entry["label"], key=entry["key"], reason="audit_mismatch")
+            if entry["relower"] is not None:
+                entry["tables"] = entry["relower"]()
+                entry["verdict"] = self._analyze(entry["tables"], entry["label"])
+            fn = entry["build"](entry["tables"])
+        self._record_audit(program, fn, probe_args(), expected, safety, **fields)
+        aot.store(
+            entry["key"],
+            {k: entry[k] for k in ("tables", "verdict", "libraries")},
+            program=entry["label"],
+        )
+        return fn
 
     def _rung_contract(self, n_slots):
         """The forward-only contract of the mesh's inference rung of
@@ -1380,46 +1610,15 @@ class TrainingSession:
                 "multi-epoch run program does not thread — drive digest "
                 "sessions with train_epoch()/train_steps()"
             )
-        if with_eval:
-            self._load_val()
-        if with_eval not in self._run_fns:
-            kwargs = dict(self._run_kwargs, with_grad_norm=self._gnorm_aux)
-            if self._sequential:
-                if not with_eval and self._run_kernel:
-                    # the eval-free run is one launch of the whole-run kernel;
-                    # per-epoch eval needs per-epoch params, so the evaluated
-                    # run loops the epoch kernel
-                    kwargs.update(epoch_kernel=False, run_kernel=True)
-                self._run_fns[with_eval] = trainer.make_train_run(
-                    self.spec, self._opt, with_eval=with_eval, **kwargs
-                )
-            else:
-                if with_eval:
-                    # the whole padded split as one microbatch, one row
-                    # block per dp replica (the JAX session's fused-run eval)
-                    kwargs.update(
-                        eval_prog=self._lower_inference_prog(),
-                        eval_mubatch_size=self._vx_padded.shape[0] // self.dp,
-                    )
-                self._run_fns[with_eval] = E.make_pipeline_run(
-                    self.mesh, self.spec, self._prog, self._mubatch_local,
-                    self._opt, **kwargs,
-                )
-        evals = ()
-        if with_eval:
-            evals = (
-                (self._vx, self._vy) if self._sequential
-                else (self._vx_padded, self._vy_labels)
-            )
+        fn, evals, probe_args, resolve = self._run_program(with_eval)
         start = self.epoch
         first_dispatch = self._metrics.enabled and not self._epoch_dispatched
         t0 = time.perf_counter()
         with self._metrics.span("train_run"):
             out = self._audited(
-                "run_program", ("run", (with_eval, epochs)), self._run_fns[with_eval],
+                "run_program", ("run", (with_eval, epochs)), fn,
                 self._state_args() + (self._X, self._Y) + evals + (epochs,),
-                lambda: A.clone_tree(self._state_args()) + (self._X[:1], self._Y[:1])
-                + evals + (1,),
+                probe_args, resolve=resolve,
             )
             self._set_state(out[0], out[1])
             losses = [float(v) for v in out[2].cpu()]  # waits for the device
@@ -1463,6 +1662,98 @@ class TrainingSession:
             self._note_health_findings(findings)
             self._health.dispatch(findings, self._metrics)
         return losses, accs
+
+    def warm_run(self, epochs: int, with_eval: bool = True):
+        """Resolve everything the next ``train_run(epochs, with_eval)``
+        needs without executing it: the kernel libraries it launches
+        (built or loaded, or written from the AOT cache), its lowered
+        programs and, where its audit runs before the dispatch (an AOT
+        cache, ``audit=True``), the probe on clones. The session's params,
+        optimizer state and cursor stay bitwise as they were, so e.g. a
+        profiler trace around that ``train_run`` captures steady-state
+        execution, not the build."""
+        if epochs <= 0:
+            raise ValueError("epochs must be positive")
+        if self.runtime == "mpmd":
+            raise ValueError(
+                "warm_run() AOT-compiles the fused run program, which the "
+                "MPMD runtime does not dispatch — the per-stage programs "
+                "warm through the audit/AOT pass on the first epoch"
+            )
+        self._require_data("warm_run")
+        fn, _, probe_args, resolve = self._run_program(with_eval)
+        for name in self._train_kernels(with_eval):
+            _build.load(name)
+        dedup = ("run", (with_eval, epochs))
+        if dedup in self._audit_done:
+            return
+        with self._audit_lock:
+            if dedup not in self._audit_done and (self._aot is not None or self._audit_strict):
+                self._audit_before("run_program", dedup, fn, probe_args, None, False, resolve)
+
+    def _run_program(self, with_eval):
+        """The whole-run program of ``train_run(.., with_eval)``: ``(fn,
+        the eval arguments, the probe's arguments, its AOT cache
+        lookup)``."""
+        if with_eval:
+            self._load_val()
+        if with_eval not in self._run_fns:
+            self._build_run_fn(with_eval, self._run_tables(with_eval))
+        evals = ()
+        if with_eval:
+            evals = (
+                (self._vx, self._vy) if self._sequential
+                else (self._vx_padded, self._vy_labels)
+            )
+
+        def probe_args():
+            return A.clone_tree(self._state_args()) + (self._X[:1], self._Y[:1]) + evals + (1,)
+
+        def resolve():
+            return self._aot_lookup(
+                "run_program_eval" if with_eval else "run_program",
+                self._run_tables(with_eval), self._train_kernels(with_eval),
+                lambda tables: self._build_run_fn(with_eval, tables),
+                lambda: self._run_tables(with_eval, fresh=True),
+            )
+
+        return self._run_fns[with_eval], evals, probe_args, resolve
+
+    def _run_tables(self, with_eval, fresh=False):
+        """The run program's lowered tables on the mesh (the training
+        program, and the eval's one-microbatch inference program), None on
+        the sequential layout."""
+        if self._sequential:
+            return None
+        train = self._lower_train_prog() if fresh else self._prog
+        return (train, self._lower_inference_prog() if with_eval else None)
+
+    def _build_run_fn(self, with_eval, tables):
+        """Build the layout's whole-run function (over ``tables`` on the
+        mesh) as the session's for ``with_eval``; returns it."""
+        kwargs = dict(self._run_kwargs, with_grad_norm=self._gnorm_aux)
+        if self._sequential:
+            if with_eval in self._run_fns:
+                return self._run_fns[with_eval]
+            if not with_eval and self._run_kernel:
+                # the eval-free run is one launch of the whole-run kernel;
+                # per-epoch eval needs per-epoch params, so the evaluated
+                # run loops the epoch kernel
+                kwargs.update(epoch_kernel=False, run_kernel=True)
+            fn = trainer.make_train_run(self.spec, self._opt, with_eval=with_eval, **kwargs)
+        else:
+            train, ev = tables
+            if with_eval:
+                # the whole padded split as one microbatch, one row
+                # block per dp replica (the JAX session's fused-run eval)
+                kwargs.update(
+                    eval_prog=ev, eval_mubatch_size=self._vx_padded.shape[0] // self.dp,
+                )
+            fn = E.make_pipeline_run(
+                self.mesh, self.spec, train, self._mubatch_local, self._opt, **kwargs,
+            )
+        self._run_fns[with_eval] = fn
+        return fn
 
     # -- evaluation ---------------------------------------------------------
 
@@ -1545,10 +1836,7 @@ class TrainingSession:
                 xb = np.pad(chunk, ((0, m * S_rows - chunk.shape[0]), (0, 0)))
                 xd = torch.from_numpy(xb).to(self.device)
                 preds = torch.cat(
-                    [
-                        self._predict(self._params, xd[k * S_rows : (k + 1) * S_rows])
-                        for k in range(m)
-                    ],
+                    [self._predict_slot(xd[k * S_rows : (k + 1) * S_rows]) for k in range(m)],
                     dim=0,
                 ).cpu().numpy()
             elif self.runtime == "mpmd":
@@ -1574,6 +1862,11 @@ class TrainingSession:
                     lambda: (A.clone_tree(self._eval_stacked()), self._flags, torch.zeros_like(xd)),
                     contract=lambda: self._rung_contract(rung),
                     safety=True,
+                    resolve=lambda: self._aot_lookup(
+                        f"inference_r{rung}", self._lower_inference_prog(rung),
+                        self._infer_kernels(), lambda tables: self._inference_step(rung, tables),
+                        lambda: self._lower_inference_prog(rung),
+                    ),
                 )
                 preds = serving_slots.unpack_slots(out.cpu().numpy(), rung, self.dp)
             outs.append(preds[: chunk.shape[0], :out_dim])
@@ -1662,12 +1955,29 @@ class TrainingSession:
             )
         return self._eval_stacked_cache
 
-    def _inference_step(self, n_slots):
+    def _predict_slot(self, xs):
+        """The sequential layout's slot-shaped forward of one slot. With an
+        AOT cache the slot program resolves through it (``predict_seq``)
+        and is audited before its first dispatch, as in the JAX session;
+        without one it is not audited."""
+        if self._aot is None:
+            return self._predict(self._params, xs)
+        return self._audited(
+            "inference_program", ("inference", "seq"), self._predict, (self._params, xs),
+            lambda: (A.clone_tree(self._params), torch.zeros_like(xs)),
+            safety=True,
+            resolve=lambda: self._aot_lookup(
+                "predict_seq", None, self._infer_kernels(), lambda _tables: self._predict,
+            ),
+        )
+
+    def _inference_step(self, n_slots, tables=None):
         """The mesh's inference program for a ladder rung of ``n_slots``
-        slots, built once per rung."""
+        slots, built once per rung, or anew over ``tables`` (an AOT cache
+        entry's, or a fresh lowering after an audit mismatch)."""
         step = self._predict_cache.get(n_slots)
-        if step is None:
-            prog = self._lower_inference_prog(n_slots)
+        if step is None or tables is not None:
+            prog = self._lower_inference_prog(n_slots) if tables is None else tables
             step = E.make_pipeline_step(
                 self.mesh, self.spec, prog, self._slot_rows // self.dp,
                 kernel_backend=self._kernel_backend,

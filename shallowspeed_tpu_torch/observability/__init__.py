@@ -29,7 +29,9 @@ package's report, watch and divergence CLIs read the port's files).
                    the serving rungs' dispatch safety (``xla_audit``
                    records; ``audit=True`` / ``--audit`` enforce it).
 
-Not ported yet: the ``aot_cache`` (ROADMAP.md §A item 14).
+The AOT program cache (``shallowspeed_tpu_torch/aot_cache.py``) records
+its outcomes through ``metrics.aot_cache`` (schema v8), which the report's
+Reliability section renders.
 """
 
 from shallowspeed_tpu_torch.observability.flight import FlightRecorder

@@ -50,8 +50,11 @@ each worker, per response; ``--fleet-policy``, ``--fleet-retry`` and
 budget and the bounded fleet queue. Workers write per-replica
 ``<metrics-out>.r{replica_id}`` JSONL shards beside the parent's file.
 
-Refused with exit 2 and a pointer: ``--aot-cache`` (ROADMAP.md §A item
-14).
+``--aot-cache DIR`` resolves the rung ladder's warm-up through the AOT
+program cache (``aot_cache.py``): the first run stores each rung's lowered
+tables and kernel library, a later one (or a fleet's scale-up
+replacement, every replica sharing the directory) loads them instead of
+lowering and building, each program audited before it serves.
 
 Graceful drain: SIGTERM/SIGINT stop ADMISSION, drain everything already
 queued to a terminal verdict, flush the metrics sink, and exit under the
@@ -63,7 +66,7 @@ Exit codes (the JAX CLI's contract):
   1  failed responses: dropped / expired / error / unhealthy verdicts, or a
      bitwise mismatch under --verify (or an audit mismatch raising out of
      warm-up);
-  2  usage errors (argparse) and the refused flags above;
+  2  usage errors (argparse);
   3  DEGRADED at exit — the health breaker is still open; in fleet mode,
      the fleet is still degraded (a QUORUM of replicas down) at exit.
 """
@@ -99,14 +102,6 @@ class GracefulStop:
         for s, h in self._previous.items():
             signal.signal(s, h)
         self._previous.clear()
-
-
-# refused flags: (flag, pointer) — parsed so a JAX serve command line
-# reads, then refused with exit 2 before anything is built
-REFUSED = (
-    ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
-     "(ROADMAP.md §A item 14)"),
-)
 
 
 def build_parser():
@@ -242,8 +237,16 @@ def build_parser():
         "(reason fleet_queue_full); default unbounded",
     )
     ap.add_argument(
-        "--aot-cache", default=None, metavar="DIR",
-        help="refused: ROADMAP.md §A item 14",
+        "--aot-cache",
+        default=None,
+        metavar="DIR",
+        help="AOT program cache: the rung ladder warm-up loads each rung's "
+        "lowered tables and kernel library from this directory instead of "
+        "lowering and building with nvcc (entries are written on the first "
+        "cold start, re-verified by the audit probe before serving, and fall "
+        "back to a clean build on corruption). In fleet mode every replica "
+        "shares the directory — a scale-up replacement warms from what the "
+        "first replicas stored",
     )
     ap.add_argument(
         "--verify",
@@ -264,10 +267,6 @@ def build_parser():
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, why in REFUSED:
-        if getattr(args, dest):
-            print(f"{ap.prog}: error: {why}", file=sys.stderr)
-            return 2
     if args.fleet:
         return _fleet_main(args)
 
@@ -294,6 +293,7 @@ def main(argv=None):
         resume=args.checkpoint,
         metrics=metrics,
         audit=args.audit,
+        aot_cache_dir=args.aot_cache,
         predict_slot_rows=args.slot_rows,
         predict_slot_ladder=(
             tuple(int(r) for r in args.slot_ladder.split(","))
@@ -462,6 +462,7 @@ def _fleet_main(args):
             data_dir=args.data_dir,
             resume=args.checkpoint,
             audit=args.audit,
+            aot_cache_dir=args.aot_cache,
             predict_slot_rows=args.slot_rows,
             predict_slot_ladder=(
                 tuple(int(r) for r in args.slot_ladder.split(","))

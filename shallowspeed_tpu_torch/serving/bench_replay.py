@@ -8,8 +8,9 @@ The port of ``shallowspeed_tpu/serving/bench_replay.py``: the scoring
 functions (``oracle_schedule`` .. ``scoreboard_record``) are copies, held
 to the JAX module by ``tests/test_torch_replay.py``; the driven legs run
 the port's ``ServingFleet`` on ``--device`` (the card unless ``cpu`` is
-asked for). ``--aot-cache`` reaches every worker, which refuses it (the
-port has no AOT cache, ROADMAP.md §A item 14).
+asked for). ``--aot-cache`` reaches every worker: the replicas share the
+AOT program cache (``aot_cache.py``), so a scale-out replica loads the
+rung programs the first ones stored.
 
 The three replays of the SAME ``serving/replay.py`` arrival schedule:
 

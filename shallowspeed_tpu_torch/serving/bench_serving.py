@@ -57,8 +57,10 @@ SIGKILLs the busiest replica after ``--kill-after`` served responses and
 scales up a replacement: zero silently-lost requests and zero worker-side
 parity mismatches are gated (exit 1 otherwise).
 
-Refused with exit 2 and a pointer: ``--aot-cache`` (ROADMAP.md §A item
-14).
+``--aot-cache DIR`` hands the AOT program cache (``aot_cache.py``) to the
+session, or to every fleet replica: the first replicas store the rung
+ladder's resolved programs, a scale-up replacement loads them (its
+``scale_up_s`` beside the initial replicas' ``initial_ready_s``).
 """
 
 import argparse
@@ -592,14 +594,6 @@ def fleet_chaos_soak(
     }
 
 
-# refused flags: (dest, the flag's refusal) — parsed so a JAX bench command
-# line reads, then refused with exit 2 before anything is built
-REFUSED = (
-    ("aot_cache", "--aot-cache (the AOT executable cache) is not ported "
-     "(ROADMAP.md §A item 14)"),
-)
-
-
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="python -m shallowspeed_tpu_torch.serving.bench_serving",
@@ -712,8 +706,15 @@ def build_parser():
     ap.add_argument(
         "--fleet-out", default=None, help="write the fleet chaos JSON here"
     )
-    ap.add_argument("--aot-cache", default=None, metavar="DIR",
-                    help="refused: ROADMAP.md §A item 14")
+    ap.add_argument(
+        "--aot-cache",
+        default=None,
+        metavar="DIR",
+        help="AOT program cache directory (shared by every fleet replica: "
+        "the first replicas write entries on their cold start, a scale-up "
+        "replacement loads them — its scale_up_s vs the initial replicas' "
+        "cold ready walls is the record's scoreboard)",
+    )
     ap.add_argument(
         "--metrics-out",
         default=None,
@@ -727,10 +728,6 @@ def build_parser():
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, why in REFUSED:
-        if getattr(args, dest):
-            print(f"{ap.prog}: error: {why}", file=sys.stderr)
-            return 2
 
     from shallowspeed_tpu_torch.api import TrainingSession
     from shallowspeed_tpu_torch.checkpoint import STEP_CHECKPOINT_RE
@@ -749,6 +746,7 @@ def main(argv=None):
         data_dir=args.data_dir,
         resume=args.checkpoint,
         metrics=metrics,
+        aot_cache_dir=args.aot_cache,
         device=args.device,
     )
     if args.chaos is not None or args.reload_dir is not None:
@@ -864,6 +862,7 @@ def _fleet_main(args, metrics):
             mubatches=args.mubatches,
             data_dir=args.data_dir,
             resume=args.checkpoint,
+            aot_cache_dir=args.aot_cache,
             device=args.device,
         ),
         "engine": dict(

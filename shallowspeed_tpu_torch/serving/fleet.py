@@ -47,10 +47,12 @@ The per-request contract is the engine's, lifted fleet-wide:
 - **elasticity rides what exists**: ``scale_up()`` spawns a replica from
   the newest ``checkpoint.find_latest_good`` snapshot (its ladder warmed
   before it takes traffic), ``scale_down()`` drains-and-retires,
-  ``watch_reload()`` broadcasts the per-replica hot-reload poll. The port
-  has no AOT cache (ROADMAP.md §A item 14): an ``aot_cache_dir`` in the
-  worker's session kwargs is refused by the worker with a ``fatal`` that
-  names the item, never ignored;
+  ``watch_reload()`` broadcasts the per-replica hot-reload poll. With an
+  ``aot_cache_dir`` in the worker's session kwargs (``aot_cache.py``) the
+  warm-up resolves the rung ladder through the AOT program cache: a
+  replacement loads the lowered tables and the kernel library the first
+  replicas stored instead of lowering and building them (every program
+  audited before it serves; per-replica ``ready_wall_s`` in the summary);
 - **quorum**: the fleet refuses admission (verdict ``"dropped"``, reason
   ``"fleet_degraded"``) while fewer than a majority of its target
   replicas are healthy (``router.quorum``); the serve CLI exits 3 when
@@ -69,8 +71,9 @@ ready (ladder warmed), and each replica's spawn-to-ready wall is its
 Counting launches across processes: ``cuda_ops.LAUNCHES`` is per process,
 so the parent sees none of the workers' launches. A worker ships its
 ``LAUNCHES`` in the ``drained`` message's ``stats`` (key ``launches``, a
-port-only key that goes in no JSONL record); ``retired_stats()`` returns
-them per retired replica. A SIGKILLed replica sends no ``drained``
+port-only key that goes in no JSONL record, as ``builds``, its ``nvcc``
+builds, and ``aot``, its AOT cache's stats, do); ``retired_stats()``
+returns them per retired replica. A SIGKILLed replica sends no ``drained``
 message, so its count is not known.
 
 Clock-domain contract: every ``FleetRequest`` timestamp and every
@@ -221,20 +224,15 @@ def _worker_main(conn, config):
     error (reported as a ``fatal`` message, so the parent can raise it
     with the real cause instead of a bare dead replica): no GPU for a
     ``"cuda"`` worker, a kernel that does not build or launch during the
-    warm-up, or an ``aot_cache_dir`` (the port has no AOT cache, ROADMAP.md
-    §A item 14). A ``drained`` worker's stats carry its process's
-    ``cuda_ops.LAUNCHES`` under ``launches``."""
+    warm-up. A ``drained`` worker's stats carry its process's
+    ``cuda_ops.LAUNCHES`` under ``launches`` and its ``nvcc`` builds
+    (``_build.BUILDS``) under ``builds``."""
     config = dict(config)
     session_kwargs = dict(config.get("session") or {})
     engine_kwargs = dict(config.get("engine") or {})
     rid = int(config.get("replica_id", 0))
     inner = None
     try:
-        if session_kwargs.pop("aot_cache_dir", None) is not None:
-            raise ValueError(
-                "aot_cache_dir: the port has no AOT executable cache "
-                "(ROADMAP.md §A item 14)"
-            )
         from shallowspeed_tpu_torch import cuda_ops
         from shallowspeed_tpu_torch import faults as F
         from shallowspeed_tpu_torch.api import TrainingSession
@@ -416,6 +414,9 @@ def _worker_main(conn, config):
             if draining and not engine.queue_depth and not fleet_ids:
                 stats = engine.stats()
                 stats["launches"] = dict(cuda_ops.LAUNCHES)
+                stats["builds"] = dict(_build.BUILDS)
+                if session._aot is not None:
+                    stats["aot"] = session._aot.stats()
                 send({"kind": "drained", "stats": stats})
                 return
     finally:
@@ -843,7 +844,9 @@ class ServingFleet:
         """``{replica_id: stats}`` of every replica that drained and
         retired: its engine's ``stats()`` plus ``launches``, its process's
         ``cuda_ops.LAUNCHES`` at exit (warm-up, dispatches and verify
-        re-predicts all counted). A SIGKILLed replica is absent."""
+        re-predicts all counted), ``builds``, its ``_build.BUILDS``, and
+        with an AOT cache ``aot``, the cache's ``stats()``. A SIGKILLed
+        replica is absent."""
         return {
             rid: h.retired_stats
             for rid, h in self._replicas.items()
@@ -1081,10 +1084,12 @@ class ServingFleet:
             h.close()
             h.dead = True
             h.retired_stats = msg.get("stats")
-            # the worker's launch counts are the port's own: kept on the
-            # handle (retired_stats), out of the JSONL record
+            # the worker's launch and build counts and cache stats are the
+            # port's own: kept on the handle (retired_stats), out of the
+            # JSONL record
             stats = dict(h.retired_stats or {})
-            stats.pop("launches", None)
+            for k in ("launches", "builds", "aot"):
+                stats.pop(k, None)
             self._metrics.fleet_health(
                 "replica_retired",
                 replica_id=info.replica_id,

@@ -72,7 +72,10 @@ layout's comms contract before its first dispatch (the census of the
 executor's data movers, ``observability/program_audit.py``): a mismatch
 prints ``AUDIT MISMATCH:`` and exits 1; with ``--metrics-out`` every
 program's ``xla_audit`` record (census, allocator peak, the contract) lands
-in the stream, as it does for any recorded run.
+in the stream, as it does for any recorded run. ``--aot-cache DIR``
+resolves every program through the AOT program cache (``aot_cache.py``):
+a warm start loads the lowered tables and the kernel libraries the first
+run stored, each program audited before its first dispatch.
 """
 
 import argparse
@@ -278,6 +281,16 @@ def build_parser():
         help="write step checkpoints through the background writer: the step "
         "path pays only a host copy of the state and an enqueue; the run "
         "drains the writer before it exits",
+    )
+    ap.add_argument(
+        "--aot-cache", default=None, metavar="DIR",
+        help="AOT program cache directory: each program's resolved form (its "
+        "lowered tick tables, their static-analysis verdict and the kernel "
+        "libraries it launches) is stored here and cold starts load it "
+        "instead of lowering and building with nvcc — keyed by layout + "
+        "torch/CUDA/card/nvcc fingerprint + program content hash, re-verified "
+        "by the audit probe before first dispatch, falling back to a clean "
+        "build on any corruption",
     )
     ap.add_argument(
         "--resume", default=None,
@@ -514,6 +527,7 @@ def main(argv=None):
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_keep=args.keep,
             async_checkpoint=args.async_checkpoint,
+            aot_cache_dir=args.aot_cache,
             device=args.device,
         )
     except CheckpointError as e:
@@ -672,6 +686,10 @@ def _train(run, args, t0, metrics):
         if not args.no_eval:
             print(f"Epoch: {run.epoch}, Accuracy: {run.accuracy() * 100:.2f}%")
         start = run.epoch
+        if args.profile_dir:
+            # resolve the run first (libraries, lowering, the audit probe)
+            # so the trace holds steady-state execution, not the build
+            run.warm_run(args.epochs, with_eval=not args.no_eval)
         with capture(args.profile_dir, metrics, cuda=cuda):
             losses, accs = run.train_run(args.epochs, with_eval=not args.no_eval)
         for e, loss in enumerate(losses):

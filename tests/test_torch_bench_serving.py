@@ -2,7 +2,8 @@
 saturation knee on the same rows, a two-rate sweep record and a chaos-soak
 record with the JAX records' keys, the soak's invariants (zero lost, bitwise
 parity under the weights active at each dispatch, recovery), and the CLI
-(sweep, soak, and ``--aot-cache`` refused with exit 2), and the fleet
+(sweep, soak, and ``--aot-cache``, which once exited 2 and now runs
+through the AOT program cache), and the fleet
 chaos soak on CPU replica workers with the JAX record's keys.
 """
 
@@ -184,11 +185,19 @@ def test_cli_sweep_and_chaos(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--aot-cache", "cache"]], ids=lambda f: f[0])
-def test_fleet_flags_refused_with_exit_2(flag):
-    """The fleet flags run (below); only ``--aot-cache`` is still refused."""
-    rc, out, err = _main(["--device", "cpu"] + flag)
-    assert rc == 2 and out == ""
-    assert err.count("\n") == 1 and "ROADMAP.md §A item 14" in err and flag[0] in err
+def test_fleet_flags_refused_with_exit_2(flag, tmp_path, monkeypatch):
+    """No flag is refused any more: ``--aot-cache`` (refused with exit 2
+    until the AOT cache was ported) runs the sweep through the cache. The
+    cold run stores the sequential slot program's entry, the warm run
+    loads it, and both sweeps agree on their records' shapes."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--device", "cpu", "--rates", "400", "--requests", "8", "--slo-ms", "1000"]
+    for out in ("cold.json", "warm.json"):
+        rc, text, err = _main(argv + ["--out", out] + flag)
+        assert rc == 0 and "saturation knee:" in text, err
+    assert len(list((tmp_path / flag[1]).glob("*.aotx"))) == 1
+    cold, warm = (json.loads((tmp_path / f).read_text()) for f in ("cold.json", "warm.json"))
+    assert set(cold) == set(warm) and cold["bench"] == warm["bench"]
 
 
 def _jax_fleet_record_keys():

@@ -3,8 +3,9 @@ package: a checkpoint the JAX package wrote, served by a port fleet with
 worker-side ``verify``, answers within 1e-6 of the JAX session's
 ``predict``; SIGKILL failover leaves every admitted id terminal;
 ``scale_up``/``scale_down``; the loadgen ``should_stop`` drain; the serve
-CLI's exit 3 with the quorum down; the worker's ``aot_cache_dir``
-refusal; the ``fleet``/``fleet_health`` records with the JAX fleet's key
+CLI's exit 3 with the quorum down; workers sharing an ``aot_cache_dir``
+(the first stores, a scale-up replacement loads); the
+``fleet``/``fleet_health`` records with the JAX fleet's key
 sets; and the skewed-clock alignment with zero orphan span chains.
 
 Every test spawns real worker processes (2 replicas, a two-rung ladder,
@@ -32,7 +33,7 @@ from shallowspeed_tpu_torch.observability.report import build_report, render
 from shallowspeed_tpu_torch.serving import __main__ as tcli
 from shallowspeed_tpu_torch.serving import fleet as fleet_mod
 from shallowspeed_tpu_torch.serving import loadgen, router
-from shallowspeed_tpu_torch.serving.fleet import FleetError, ServingFleet
+from shallowspeed_tpu_torch.serving.fleet import ServingFleet
 
 SIZES = (24, 20, 18, 16, 14, 12, 11, 10)
 GBS = 64
@@ -355,17 +356,35 @@ def test_cli_exit_3_when_quorum_down():
     assert "failover: 1 replica death(s)" in out and "completed" in out
 
 
-def test_aot_cache_dir_refused_by_the_worker(jax_checkpoint):
-    """The port has no AOT cache: a worker handed ``aot_cache_dir`` sends
-    ``fatal`` naming ROADMAP item 14, and the parent raises it."""
+def test_aot_cache_dir_refused_by_the_worker(jax_checkpoint, tmp_path):
+    """Workers take ``aot_cache_dir`` (refused, with a ``fatal``, until the
+    AOT cache was ported): the first replica's warm-up misses and stores
+    the slot program, a scale-up replacement loads it (a hit, no miss, no
+    store), and every response stays within 1e-6 of the JAX predict."""
     _require_workers()
-    _, ck, _ = jax_checkpoint
+    _, ck, jax_session = jax_checkpoint
     cfg = _worker_config(ck)
-    cfg["session"]["aot_cache_dir"] = "cache"
-    with ServingFleet(cfg, n_replicas=1, seed=0) as fleet:
-        with pytest.raises(FleetError, match="item 14") as err:
-            fleet.start()
-    assert "replica 0 failed to start" in str(err.value)
+    cfg["session"]["aot_cache_dir"] = str(tmp_path / "cache")
+    with ServingFleet(cfg, n_replicas=1, slo_ms=5000, seed=0) as fleet:
+        fleet.start()
+        rid = fleet.scale_up()
+        submitted, _, _ = _drive(fleet, 8, seed=4)
+        for r in (rid, 0):
+            fleet.scale_down(r)
+            deadline = time.time() + 60
+            while fleet.replicas[r].state != "retired" and time.time() < deadline:
+                fleet.step()
+        stats = fleet.stats()
+    assert all(r.verdict == "ok" and r.parity_ok is True for r in submitted)
+    for r in submitted:
+        np.testing.assert_allclose(r.result, np.asarray(jax_session.predict(r.x)),
+                                   rtol=0, atol=1e-6)
+    st = fleet.retired_stats()
+    cold, warm = st[0]["aot"], st[rid]["aot"]
+    assert (cold["miss"], cold["store"], cold["hit"]) == (1, 1, 0)
+    assert (warm["hit"], warm["miss"], warm["store"]) == (1, 0, 0)
+    assert stats["scale_ups"] == 1 and stats["scale_up_s"] is not None
+    assert len(list((tmp_path / "cache").glob("*.aotx"))) == 1
 
 
 def test_cuda_fleet_raises_without_a_gpu():

@@ -317,8 +317,8 @@ def test_cli_trains_a_tp_layout_on_cpu(split, capsys):
     assert "(tensor-parallel)" in capsys.readouterr().out
 
 
-# The root CLI tests' command lines (tests/test_cli.py; without --audit
-# and --aot-cache, which the port refuses or lacks) and the root CLI's
+# The root CLI tests' command lines (tests/test_cli.py; without --audit,
+# plus one with --aot-cache, which the port now has) and the root CLI's
 # --runtime mpmd refusals (train.py:425-441), each with None (parses) or
 # the refusal the root CLI prints (exit 2)
 ROOT_CLI_LINES = [
@@ -373,6 +373,8 @@ ROOT_CLI_LINES = [
       "--health", "halt"], None),
     (["--epochs", "2", "--global-batch-size", "32", "--mubatches", "2", "--no-eval",
       "--checkpoint-dir", "d", "--checkpoint-every-steps", "4", "--resume", "auto"], None),
+    (["--dp", "2", "--pp", "2", "--epochs", "1", "--global-batch-size", "32", "--mubatches", "2",
+      "--no-eval", "--aot-cache", "cache"], None),
 ]
 
 

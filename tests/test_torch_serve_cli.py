@@ -83,10 +83,19 @@ def test_fleet_verify_on_cpu_workers(policy, data_dir, tmp_path):
     [["--aot-cache", "cache"]],
     ids=lambda f: f[0],
 )
-def test_refused_flags_exit_2_with_a_roadmap_pointer(flag):
-    rc, out, err = _run(tcli.main, ["--device", "cpu", "--requests", "2"] + flag)
-    assert rc == 2 and out == []
-    assert err.count("\n") == 1 and "ROADMAP.md §A item" in err and flag[0] in err
+def test_refused_flags_exit_2_with_a_roadmap_pointer(flag, tmp_path, monkeypatch):
+    """The serve CLI refuses no flag any more: ``--aot-cache`` (exit 2
+    until the AOT cache was ported) serves through the cache — the cold run
+    stores the slot program's entry, the warm run loads it, and both answer
+    every request bitwise their direct predict()."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--device", "cpu", "--requests", "6", "--rate", "400", "--slo-ms", "2000",
+            "--verify"] + flag
+    for _ in range(2):
+        rc, out, err = _run(tcli.main, argv)
+        assert rc == 0, err
+        assert "verify: 6/6 responses bitwise-equal to direct predict()" in out
+    assert len(list((tmp_path / flag[1]).glob("*.aotx"))) == 1
 
 
 def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
@@ -102,6 +111,7 @@ def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
         "--faults", "error@dispatch=4", "--retry-budget", "3", "--breaker", "2",
         "--fleet", "2", "--fleet-policy", "p2c", "--fleet-retry", "3",
         "--fleet-max-queue", "4", "--verify", "--metrics-out", str(tmp_path / "m.jsonl"),
+        "--aot-cache", "cache",
     ]
     seen = []
 
@@ -119,9 +129,7 @@ def test_jax_command_line_parses_to_the_same_values(tmp_path, monkeypatch):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", real)
     jax_ns = seen[0]
     port_ns = vars(tcli.build_parser().parse_args(argv))
-    refused = {"aot_cache"}
     assert set(port_ns) - {"device"} == set(jax_ns)
     for dest, value in jax_ns.items():
-        if dest not in refused:
-            assert port_ns[dest] == value, dest
+        assert port_ns[dest] == value, dest
     assert port_ns["device"] == "cuda"
