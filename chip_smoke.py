@@ -346,6 +346,27 @@ in phases:
    rewrites it and stays bitwise; 20e a fleet sharing a cache directory:
    ``ready_wall_s`` and ``scale_up_s`` of a cold and a warm scale-up, the
    replicas' launches exact. No speed is gated.
+21. the multi-process runtime (``parallel/multihost.py``): four child
+   processes (``scripts/torch_multihost_child.py``) join one gloo group and
+   share the card, every payload staged through pinned host memory; each
+   leg runs on a process mesh and, in this process, on its lockstep twin
+   (``mh_drive`` both), from the flagship's deterministic init on phase 6's
+   batches through the flag kernels: 21a two processes, DP=2 x PP=4 GPipe
+   for an epoch, each process one replica; 21b all four at DP=2 x PP=4 (two
+   ranks a process, so the stage 1 -> 2 relays and the dp sum cross
+   processes): GPipe momentum, ZeRO-1 momentum with a clip, DP=2 x PP=2 x
+   V=2 interleaved, the fused 2-epoch run, a bucketed zero 0 (one
+   all-reduce a bucket, bitwise the unbucketed leg); 21c DP=4 over four
+   processes, a zero-1 leg. Gated: every process's rows of the params and
+   state and its losses bitwise the twin's where every sum keeps its order
+   (dp = 2 without a clip), within ``rtol=3e-4, atol=3e-6`` elsewhere;
+   ``assert_dp_replicas_in_sync_global`` after every step; in 21a a copy
+   diverged on one process detected on both; each process's B5/B7 launches
+   exactly its ranks' share, the processes' sum the twin's; each process's
+   census clean against ``expected_comms``. Reported: a DP=4 step's wall a
+   process split into compute, staging copies and collectives beside the
+   twin's wall and device busy; each process's zero-1 peak beside
+   ``zero_peak_forecast``.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -368,7 +389,8 @@ phase 14's (14a, 14c) to the flag entries', phase 16's drives (16a, the
 17's drained replicas' own counts (read in each worker process) to the
 forward's, phase 19a's twins and audited drives to each kernel's, and
 phase 20's children and drained replicas (each counted in its own
-process) to the B1/B3 and flag entries';
+process) to the B1/B3 and flag entries', phase 21's children's (each
+counted in its own process) to the flag entries';
 ``max_abs_err`` over every shape or recipe of phase 3, 3b, 8a or 9a),
 then ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 either; so does a machine without CUDA, or a directory without the
@@ -4825,6 +4847,388 @@ def phase_aot(torch, cuda_ops, TrainingSession, data_dir, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the multi-process runtime (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+MH_CHILD = Path(__file__).resolve().parent / "scripts" / "torch_multihost_child.py"
+MH_WORLD = 4  # the fleet's processes, all on cuda:0 over gloo
+MH_FLEET_TIMEOUT_S = 300  # the fleet's bound, from the spawn
+MH_COLLECTIVE_TIMEOUT_S = 120  # the join's and every collective's bound
+MH_LR = 0.006
+MH_MUBATCHES = 4
+# (label, the fleet's processes it runs on (None: all four), layout, bitwise
+# the lockstep twin): phase 6's split and recipe through the flag kernels.
+# Bitwise where every cross-process sum keeps the twin's order (dp = 2, no
+# norm assembled from per-process partials); the class elsewhere
+MH_LEGS = (
+    ("21a", (0, 1), dict(dp=2, pp=4, steps=TRAIN_BATCHES, check=True, negative=True), True),
+    ("21b gpipe momentum", None, dict(dp=2, pp=4, steps=2, opt="momentum", check=True), True),
+    ("21b zero1 momentum clip", None,
+     dict(dp=2, pp=4, steps=2, opt="momentum", zero=1, clip_norm=1.0, check=True), False),
+    ("21b interleaved", None, dict(dp=2, pp=2, virtual=2, steps=2, check=True), True),
+    ("21b run", None, dict(dp=2, pp=4, run_epochs=2, check=True), True),
+    ("21b bucketed", None,
+     dict(dp=2, pp=4, steps=2, opt="momentum", grad_bucket_bytes=ZERO_BUCKET, check=True), True),
+    ("21c dp4", None, dict(dp=4, pp=1, steps=4, check=True), False),
+    ("21c dp4 zero1", None, dict(dp=4, pp=1, steps=2, opt="momentum", zero=1, check=True), False),
+)
+
+
+def mh_slug(label):
+    return label.replace(" ", "_")
+
+
+def mh_drive(torch, mesh, kw, X, Y, capture=None):
+    """One phase-21 leg on ``mesh`` (the fleet's ``ProcessMesh``, or the
+    twin's ``VirtualMesh``): the flagship at full width from the
+    deterministic init through the flag kernels (B5/B7), on this process's
+    rows of ``X``/``Y`` (``(batches, 128, ...)`` host numpy). Every step's
+    host wall and, on a process mesh, its staging and collective seconds;
+    the first dispatch's census against ``expected_comms`` and its peak
+    above the resident state; the launches from 0; on a process mesh the
+    global replica check after every step (``check``) and the negative
+    control (``negative``); the steps inside ``capture`` (a context, e.g.
+    a profiler's) when one is given. On the mesh's device (``cuda`` on the
+    card; the CPU for a dry run of the phase). Returns a JSON-able dict with
+    ``arrays`` (this process's rows of the params and state, host numpy)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch import cuda_ops, utils
+    from shallowspeed_tpu_torch import model as Mo
+    from shallowspeed_tpu_torch import schedules as S
+    from shallowspeed_tpu_torch.observability import program_audit as A
+    from shallowspeed_tpu_torch.optimizer import make_optimizer
+    from shallowspeed_tpu_torch.parallel import executor as E
+    from shallowspeed_tpu_torch.parallel import gradsync, multihost
+    from shallowspeed_tpu_torch.parallel.lowering import lower_schedule
+    from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh
+
+    dp, pp, V, zero = kw["dp"], kw["pp"], kw.get("virtual", 1), kw.get("zero", 0)
+    procs = isinstance(mesh, ProcessMesh) and mesh.world > 1
+    spec = Mo.make_model_spec(FLAGSHIP, pp * V, X.shape[1])
+    prog = lower_schedule(S.InterleavedSchedule if V > 1 else S.GPipeSchedule, MH_MUBATCHES, pp,
+                          virtual=V)
+    opt = make_optimizer(kw.get("opt", "sgd"), MH_LR)
+    dev = mesh.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    stacked, flags = E.init_stacked(spec, mesh, order=E.interleave_order(pp * V, pp) if V > 1 else None)
+    state = E.zero1_init_state(opt, spec, mesh) if zero else opt.init(stacked)
+    rows = multihost.batch_rows(X.shape[1], mesh, ("dp",)) if procs else range(X.shape[1])
+    Xd, Yd = (torch.from_numpy(np.ascontiguousarray(a[:, rows.start:rows.stop])).to(dev) for a in (X, Y))
+    mb = X.shape[1] // dp // MH_MUBATCHES
+    common = dict(kernel_backend="pallas", zero=zero, clip_norm=kw.get("clip_norm"),
+                  grad_bucket_bytes=kw.get("grad_bucket_bytes", 0))
+    plan = gradsync.plan_buckets(spec, dp, pp, common["grad_bucket_bytes"], zero=zero)
+    expected = A.expected_comms(spec, dp, pp, prog, zero=zero, mubatch_size=mb, grad_bucket_plan=plan)
+    comm = mesh.comm if procs else None
+    res = dict(losses=[], steps=[], checks=0)
+
+    def audited(fn):
+        with A.recording(dev) as (census, memory):
+            out = fn()
+        ops = census.ops()
+        res["census"] = A.check_census(A.census_of_ops(ops), expected, ops=ops)
+        res["sites"] = {s: list(v) for s, v in census.sites.items()}
+        res["peak_above_resident_bytes"] = memory["peak_hbm_bytes"]
+        return out
+
+    def check():
+        if procs and kw.get("check"):
+            utils.assert_dp_replicas_in_sync_global(stacked, spec, mesh)
+            if not zero:
+                utils.assert_dp_replicas_in_sync_global(state, spec, mesh)
+            res["checks"] += 1
+
+    sync()
+    cuda_ops.reset_launches()
+    if comm is not None:
+        comm.reset_stats()
+    ctx = capture if capture is not None else contextlib.nullcontext()
+    if kw.get("run_epochs"):
+        run = E.make_pipeline_run(mesh, spec, prog, mb, opt, **common)
+        with ctx:
+            stacked, state, losses = audited(lambda: run(stacked, flags, state, Xd, Yd, kw["run_epochs"]))
+        res["losses"] = losses.tolist()
+        check()
+    else:
+        step = E.make_pipeline_step(mesh, spec, prog, mb, opt, **common)
+
+        def one_step(i):
+            nonlocal stacked, state
+            c0 = dict(comm.stats) if comm is not None else None
+            t0 = time.perf_counter()
+
+            def call():
+                return step(stacked, flags, state, Xd[i], Yd[i])
+
+            stacked, state, loss = audited(call) if i == 0 else call()
+            res["losses"].append(float(loss))  # a sync: the step's wall ends on the card
+            wall = time.perf_counter() - t0
+            row = dict(wall_s=wall)
+            if comm is not None:
+                row.update({k: comm.stats[k] - c0[k] for k in ("staging_s", "collective_s",
+                                                               "staged_bytes", "collectives")})
+                row["compute_s"] = wall - row["staging_s"] - row["collective_s"]
+            res["steps"].append(row)
+            check()
+
+        with ctx:
+            for i in range(kw["steps"]):
+                one_step(i)
+            sync()
+    sync()
+    res["launches"] = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+    if comm is not None:
+        res["comm"] = dict(comm.stats)
+    if procs and kw.get("negative"):
+        # a copy diverged on the mesh's last process: detected on every one
+        bad = {k: tuple(a.clone() for a in v) for k, v in stacked.items()}
+        if mesh.process == mesh.world - 1:
+            bad["W"][0].view(-1)[0] += 1.0
+        try:
+            utils.assert_dp_replicas_in_sync_global(bad, spec, mesh)
+            res["desync"] = None
+        except ValueError as e:
+            res["desync"] = str(e)
+    arrays = {f"{k}{l}": a.cpu().numpy() for k in ("W", "b") for l, a in enumerate(stacked[k])}
+    for path, leaf in utils._leaves(state):
+        arrays["state_" + "_".join(str(p) for p in path)] = leaf.cpu().numpy()
+    res["arrays"] = arrays
+    res["active"] = np.asarray(flags["active"]).sum(axis=1).tolist()  # active slots a stacked row
+    return res
+
+
+def _mh_share(kw, active, dp_rows, stages):
+    """The flag-kernel launches (each entry) of the ranks ``dp_rows`` x
+    ``stages``: M microbatches x the active slots of their stacked rows,
+    a step."""
+    V = kw.get("virtual", 1)
+    steps = kw["run_epochs"] * TRAIN_BATCHES if kw.get("run_epochs") else kw["steps"]
+    return steps * MH_MUBATCHES * len(dp_rows) * sum(
+        active[s * V + ck] for s in stages for ck in range(V))
+
+
+def _mh_fleet(work, device):
+    """Spawn the phase's ``MH_WORLD`` children on a fresh localhost port
+    (``scripts/torch_multihost_child.py``); returns the processes and the
+    spawn's time."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, str(MH_CHILD), str(p), str(MH_WORLD), str(port), str(work),
+                          device],
+                         cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for p in range(MH_WORLD)
+    ]
+    return procs, t0
+
+
+def _mh_wait(procs, t0):
+    """Every child's JSON; a child that fails or overruns the fleet's bound
+    fails the phase, and every child is killed first."""
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, MH_FLEET_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                out, err = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                fail(f"21: a child did not finish within {MH_FLEET_TIMEOUT_S} s of the spawn")
+            if p.returncode != 0:
+                fail(f"21: child {len(outs)} exited {p.returncode}: {err[-2500:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
+    """21: the multi-process runtime on the card. Four children share
+    ``cuda:0`` over gloo; each leg is held to the lockstep twin run in this
+    process on the same rows. Returns the flag entries' launches, counted
+    in each child's own process. ``device="cpu"``: the same phase on the
+    CPU (a dry run of its logic; the kernels' plain versions launch
+    nothing)."""
+    import numpy as np
+
+    from shallowspeed_tpu_torch.observability import program_audit as A
+    from shallowspeed_tpu_torch.observability import spans, trace_stats
+    from shallowspeed_tpu_torch.parallel import executor as E
+    from shallowspeed_tpu_torch.parallel import gradsync
+    from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh, VirtualMesh
+    from shallowspeed_tpu_torch import model as Mo
+
+    t_phase = time.perf_counter()
+    n = TRAIN_BATCHES * 128
+    X = np.load(Path(data_dir) / "x_train.npy")[:n].reshape(TRAIN_BATCHES, 128, -1)
+    Y = np.load(Path(data_dir) / "y_train.npy")[:n].reshape(TRAIN_BATCHES, 128, -1)
+    launches = {"linear_flag_fwd": 0, "linear_flag_bwd": 0}
+
+    def note(line):
+        say(f"  {line}")
+
+    with tempfile.TemporaryDirectory(prefix="multihost_phase_") as work:
+        work = Path(work)
+        np.save(work / "x.npy", X)
+        np.save(work / "y.npy", Y)
+        procs, t_spawn = _mh_fleet(work, device)
+        # the twins, in this process, while the children start
+        twins = {}
+        try:
+            for label, _, kw, _ in MH_LEGS:
+                twins[label] = mh_drive(torch, VirtualMesh(kw["dp"], kw["pp"], device), kw, X, Y)
+        except BaseException:
+            for p in procs:
+                p.kill()
+            raise
+        outs = _mh_wait(procs, t_spawn)
+        fleet_s = time.perf_counter() - t_spawn
+        for label, members, kw, bitwise in MH_LEGS:
+            twin = twins[label]
+            if twin["census"]:
+                fail(f"{label}: the twin's census {twin['census']}")
+            members = members or tuple(range(MH_WORLD))
+            world = len(members)
+            V = kw.get("virtual", 1)
+            sums = dict.fromkeys(launches, 0)
+            for q, pid in enumerate(members):
+                r = outs[pid]["legs"].get(label)
+                if r is None:
+                    fail(f"{label}: process {pid} did not run the leg")
+                pm = ProcessMesh(kw["dp"], kw["pp"], world, q, "cpu")
+                z = np.load(work / f"{mh_slug(label)}.p{pid}.npz")
+                rows = slice(pm.local_stages.start * V, pm.local_stages.stop * V)
+                for key, full in twin["arrays"].items():
+                    got = z[key]
+                    if key.startswith("state") and kw.get("zero"):
+                        _, csz = E.zero1_flat_len(Mo.make_model_spec(FLAGSHIP, kw["pp"] * V, 128),
+                                                  VirtualMesh(kw["dp"], kw["pp"], "cpu"))
+                        d = pm.local_dp
+                        want = full[pm.local_stages.start:pm.local_stages.stop,
+                                    d.start * csz:d.stop * csz]
+                    else:
+                        want = full if full.ndim == 0 else full[rows]
+                    if got.shape != want.shape:
+                        fail(f"{label}: process {pid}'s {key} has shape {got.shape}, want {want.shape}")
+                    if bitwise and not np.array_equal(got, want):
+                        fail(f"{label}: process {pid}'s {key} is not bitwise the twin's "
+                             f"(max |diff| {np.max(np.abs(got - want)):.3e})")
+                    if not bitwise and not np.allclose(got, want, rtol=SEQ_RTOL, atol=SEQ_ATOL):
+                        fail(f"{label}: process {pid}'s {key} is outside the cross-layout class of the "
+                             f"twin's (max |diff| {np.max(np.abs(got - want)):.3e})")
+                if bitwise and r["losses"] != twin["losses"]:
+                    fail(f"{label}: process {pid}'s losses {r['losses']} are not the twin's {twin['losses']}")
+                if not np.allclose(r["losses"], twin["losses"], rtol=SEQ_RTOL, atol=0):
+                    fail(f"{label}: process {pid}'s losses {r['losses']} vs the twin's {twin['losses']}")
+                if r["losses"] != outs[members[0]]["legs"][label]["losses"]:
+                    fail(f"{label}: the processes returned different losses")
+                if r["census"]:
+                    fail(f"{label}: process {pid}'s census: {r['census']}")
+                want_checks = (1 if kw.get("run_epochs") else kw["steps"]) if kw.get("check") else 0
+                if r["checks"] != want_checks:
+                    fail(f"{label}: process {pid} ran {r['checks']} global replica checks, want {want_checks}")
+                share = _mh_share(kw, twin["active"], pm.local_dp, pm.local_stages)
+                for e in launches:
+                    if device == "cuda" and r["launches"].get(e, 0) != share:
+                        fail(f"{label}: process {pid} launched {r['launches']}, its ranks' share is "
+                             f"{share} each of B5/B7")
+                    sums[e] += r["launches"].get(e, 0)
+                if kw.get("negative") and not (r["desync"] or "").startswith(
+                        "cross-process replica desync at (leaf, shard-index)"):
+                    fail(f"{label}: the diverged copy was not detected on process {pid}: {r['desync']}")
+            for e in launches:
+                if sums[e] != twin["launches"].get(e, 0):
+                    fail(f"{label}: the processes launched {sums[e]} {e}, the twin {twin['launches']}")
+                launches[e] += sums[e]
+            legs = [outs[p]["legs"][label] for p in members]
+            if kw.get("grad_bucket_bytes"):
+                spec = Mo.make_model_spec(FLAGSHIP, kw["pp"], 128)
+                plan = gradsync.plan_buckets(spec, kw["dp"], kw["pp"], kw["grad_bucket_bytes"])
+                want = [["all_reduce", b] for b in plan.bucket_census_bytes()]
+                for r in legs:
+                    got = [r["sites"].get(f"dp_sum.bucket{i}") for i in range(plan.num_buckets)]
+                    if got != want or "dp_sum" in r["sites"] or plan.num_buckets < 3:
+                        fail(f"{label}: bucket sites {r['sites']}, want one all-reduce a bucket {want}")
+                base = "21b gpipe momentum"
+                for pid in members:
+                    a = np.load(work / f"{mh_slug(label)}.p{pid}.npz")
+                    b = np.load(work / f"{mh_slug(base)}.p{pid}.npz")
+                    if any(not np.array_equal(a[k], b[k]) for k in a.files):
+                        fail(f"{label}: process {pid} is not bitwise the unbucketed leg")
+            staged = sum(r["comm"]["staged_bytes"] for r in legs)
+            note(
+                f"{label} ({card}; {world} processes, DP={kw['dp']} x PP={kw['pp']}"
+                f"{f' x V={V}' if V > 1 else ''}): {'bitwise' if bitwise else 'within 3e-4/3e-6 of'} "
+                f"the twin, losses {legs[0]['losses'][:3]}{'...' if len(legs[0]['losses']) > 3 else ''}; "
+                f"B5/B7 a process {[r['launches'].get('linear_flag_fwd', 0) for r in legs]} (twin "
+                f"{twin['launches'].get('linear_flag_fwd', 0)}); censuses clean; replica checks "
+                f"{legs[0]['checks']}; staged {staged} bytes in "
+                f"{sum(r['comm']['staged_copies'] for r in legs)} pinned copies, "
+                f"{sum(r['comm']['collectives'] for r in legs)} collectives"
+                + (f"; desync detected on every process: {legs[0]['desync']}" if kw.get("negative") else "")
+            )
+        # the reports: a step's wall split per process beside the twin's
+        # wall (21a, 21c) and device busy (21c); the zero-1 peaks beside
+        # the forecast (21c)
+        def wall_split(label, members):
+            per = []
+            for p in members:
+                w = outs[p]["legs"][label]["steps"][1:]
+                per.append("p%d %s" % (p, " / ".join(
+                    f"{sum(s[k] for s in w) / len(w) * 1e3:.3f}"
+                    for k in ("wall_s", "compute_s", "staging_s", "collective_s"))))
+            tw = twins[label]["steps"][1:]
+            return (f"{label} step ({card}), ms a step per process (wall / compute / pinned staging / "
+                    f"collectives, mean of steps 2-{len(tw) + 1}): {'; '.join(per)}; the twin's wall "
+                    f"{sum(s['wall_s'] for s in tw) / len(tw) * 1e3:.3f} ms")
+
+        note(wall_split("21a", MH_LEGS[0][1]))
+        cap = spans.capture(str(work / "trace"), cuda=device == "cuda")
+        timed = mh_drive(torch, VirtualMesh(4, 1, device), MH_LEGS[-2][2], X, Y, capture=cap)
+        busy = trace_stats.dispatch_busy(cap.path)
+        n_steps = len(timed["steps"])
+        note(
+            wall_split("21c dp4", range(MH_WORLD)) + "; the twin's device busy "
+            f"{busy['busy_union_s'] * 1e3 / n_steps if busy['busy_union_s'] else float('nan'):.4f} ms a "
+            f"step over a profiled drive of {n_steps} ({busy['op_events']} ops, {busy['source']})"
+        )
+        label = "21c dp4 zero1"
+        fc = A.zero_peak_forecast(Mo.make_model_spec(FLAGSHIP, 1, 128), 4, 1, state_parts=1)["stages"]["1"]
+        rs = [outs[p]["legs"][label] for p in range(MH_WORLD)]
+        z = [np.load(work / f"{mh_slug(label)}.p{p}.npz") for p in range(MH_WORLD)]
+        resident = [sum(zz[k].nbytes for k in zz.files) for zz in z]  # params + state shard
+        if any(r["peak_above_resident_bytes"] is None for r in rs):
+            note(f"{label} peak: not measured (no device allocator on {device})")
+        else:
+            peaks = [r["peak_above_resident_bytes"] + b for r, b in zip(rs, resident)]
+            note(
+                f"{label} peak a process ({card}): resident params + state shard + the step's peak "
+                f"above what was allocated {[round(p / 2**20, 4) for p in peaks]} MiB (above: "
+                f"{[round(r['peak_above_resident_bytes'] / 2**20, 4) for r in rs]} MiB) beside "
+                f"zero_peak_forecast (stage 1, momentum) x 1 local rank {fc['total_bytes'] / 2**20:.4f} "
+                f"MiB (params {fc['params_bytes'] / 2**20:.4f}, grads {fc['grads_bytes'] / 2**20:.4f}, "
+                f"state {fc['state_bytes'] / 2**20:.4f}): measured / forecast "
+                f"{[round(p / fc['total_bytes'], 4) for p in peaks]}; the twin's 4 ranks in one "
+                f"process {twins[label]['peak_above_resident_bytes'] / 2**20:.4f} MiB above"
+            )
+        imports = [round(o["import_s"], 2) for o in outs]
+        note(f"21 fleet: {MH_WORLD} children on {card} over gloo, import torch + package {imports} s, "
+             f"the fleet's wall {fleet_s:.2f} s from the spawn")
+    say(f"phase 21 multihost: ok: 21a, 21b bitwise where the sum order is kept, the rest within the "
+        f"class, replicas hash-equal, the desync detected, B5/B7 launches a process exact, censuses "
+        f"clean; {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -4882,6 +5286,7 @@ def main():
         if not seen or seen - checked:
             fail(f"phase 19 launched flag entries at shapes 9a did not check: {sorted(seen - checked)}")
         aot = phase_aot(torch, cuda_ops, TrainingSession, tmp, card)
+        multi = phase_multihost(torch, cuda_ops, tmp, card)
     # launches: each path's drive, counted from 0 just before it; phase 12's
     # drives add to the B1/B3 kernels and the run mode, phase 11's to the
     # flag entries
@@ -4907,7 +5312,7 @@ def main():
         entries.append(
             (entry, entry,
              flag_launches[entry] + lattice[entry] + observed[entry] + zero[entry] + audited.get(entry, 0)
-             + aot[entry],
+             + aot[entry] + multi[entry],
              flag_errs[entry], flag_sums[entry])
         )
     kernels = []

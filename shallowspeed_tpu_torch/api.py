@@ -163,6 +163,7 @@ from shallowspeed_tpu_torch.parallel.lowering import (
     program_stats,
 )
 from shallowspeed_tpu_torch.parallel.mesh import VirtualMesh
+from shallowspeed_tpu_torch.parallel import multihost
 from shallowspeed_tpu_torch.serving import slots as serving_slots
 
 # The reference's canonical training configuration.
@@ -280,6 +281,13 @@ class TrainingSession:
         aot_cache_dir=None,
         device=None,
     ):
+        if multihost.process_count() > 1:
+            raise ValueError(
+                "TrainingSession runs in one process, but a torch.distributed "
+                f"group of {multihost.process_count()} processes is up: drive "
+                "the executor on a process mesh (parallel/multihost.py) across "
+                "processes; the session over processes is ROADMAP item 7b"
+            )
         self.device = resolve_device(device)
         # telemetry: NullMetrics records nothing and costs nothing; the
         # live rollup windows and alert rules are fed only inside

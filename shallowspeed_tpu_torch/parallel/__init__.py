@@ -2,7 +2,8 @@
 
 - ``lowering``  the JAX package's schedule -> clock-tick compiler, copied:
                 numpy tables indexed [tick, stage];
-- ``mesh``      the virtual ``(dp, pp)`` mesh and the one device it lives on;
+- ``mesh``      the virtual ``(dp, pp)`` mesh and the one device it lives on,
+                and ``ProcessMesh``, the same grid laid over processes;
 - ``executor``  the lockstep tick interpreter over zero-padded stacked stage
                 parameters: every virtual rank runs its table cell, payloads
                 move between neighbouring ranks' mailboxes, and the dp
@@ -12,10 +13,15 @@
                 from the tick tables, one CUDA stream a stage, relays
                 ordered by events (bitwise the lockstep weights);
 - ``gradsync``  the bucketed gradient sync: the JAX package's bucket plans
-                and comms contract (one device runs the anchor sum).
+                and comms contract, and on a process mesh its emitters (one
+                collective a bucket; one device runs the anchor sum);
+- ``multihost`` the multi-process runtime: ``torch.distributed`` groups, the
+                process mesh's collectives, each process's share of the
+                batch and the params.
 """
 
+from shallowspeed_tpu_torch.parallel import multihost
 from shallowspeed_tpu_torch.parallel.lowering import TickProgram, lower_schedule
-from shallowspeed_tpu_torch.parallel.mesh import VirtualMesh
+from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh, VirtualMesh
 
-__all__ = ["TickProgram", "VirtualMesh", "lower_schedule"]
+__all__ = ["ProcessMesh", "TickProgram", "VirtualMesh", "lower_schedule", "multihost"]

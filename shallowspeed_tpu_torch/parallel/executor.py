@@ -31,9 +31,19 @@ everything but the physical placement:
 
 ``relay`` and ``dp_sum`` are the two data movers between ranks. The MPMD
 runtime (``parallel/mpmd.py``) reuses the stage functions and ``dp_sum``
-per stage, each stage on its own CUDA stream of the one device; a
-multi-process runtime (the JAX package's ``multihost``, not ported) would
-replace the movers with NCCL send/recv and all-reduce and keep the rest.
+per stage, each stage on its own CUDA stream of the one device. On a
+``ProcessMesh`` (``parallel/multihost.py``) each process runs only its own
+ranks over only its stages' rows, and a mover whose ends sit in two
+processes becomes a ``torch.distributed`` collective of the mesh's
+``ProcessComm`` (below ``_shard_sum``): a tick's cross-process relays in
+one ``batch_isend_irecv``, the dp sum an ``all_reduce`` (one a bucket with
+``grad_bucket_bytes``), ZeRO-1's sum a ``reduce_scatter_tensor`` and its
+gather an ``all_gather_into_tensor``, the loss and the inference head's
+predictions a ``broadcast`` from the head stage's process, and every
+global norm an ``all_reduce`` of per-process squares. Each process sums
+its own replicas in replica order first, so at dp = 2 without a norm the
+result is bitwise the one-process run. Zero 2/3 and digests are refused
+there (ROADMAP item 7b).
 
 The host knows every slot's ``active`` and ``relu`` flag (``flags`` are
 host numpy), so each tick's work is decided on the host: a noop cell costs
@@ -126,11 +136,14 @@ from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
 from shallowspeed_tpu_torch.observability import program_audit as A
 from shallowspeed_tpu_torch.optimizer import (
+    clip_scale,
     clip_tree,
     global_norm,
     is_stateless,
     join_state,
     split_state,
+    tree_map,
+    tree_sq_sum,
 )
 from shallowspeed_tpu_torch.trainer import row_crcs, stack_epoch_aux
 from shallowspeed_tpu_torch.parallel.lowering import (
@@ -140,7 +153,7 @@ from shallowspeed_tpu_torch.parallel.lowering import (
     OP_NOOP,
     OP_RECOMPUTE,
 )
-from shallowspeed_tpu_torch.parallel.mesh import mesh_tp
+from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh, mesh_tp
 
 KERNEL_BACKENDS = ("xla", "pallas")
 
@@ -342,8 +355,14 @@ def put_stacked(stacked_np, device):
 
 def init_stacked(spec: ModelSpec, mesh, order=None):
     """The deterministic init, stacked in ``order`` at the mesh's tp:
-    ``(stacked tensors on the mesh's device, host flags)``."""
+    ``(stacked tensors on the mesh's device, host flags)``. On a
+    ``ProcessMesh`` the tensors are this process's stages' rows only (every
+    process builds the same init); the flags stay whole."""
     stacked, flags = stack_params(init_model(spec), spec, order=order, tp=mesh_tp(mesh))
+    if isinstance(mesh, ProcessMesh):
+        V = spec.n_stages // mesh.pp
+        s = mesh.local_stages
+        stacked = {k: tuple(a[s.start * V:s.stop * V] for a in v) for k, v in stacked.items()}
     return put_stacked(stacked, mesh.device), flags
 
 
@@ -487,9 +506,20 @@ def _zero_state(opt, mesh, width, rows_of=None):
     if is_stateless(opt):
         return ()
     parts, scalars = _zero1_check_state(opt, width // mesh.dp)
+    n_rows = mesh.pp * mesh_tp(mesh)
+    if isinstance(mesh, ProcessMesh):
+        if rows_of is not None:
+            raise ValueError(
+                "a ZeRO state from the logical form on a process mesh: slice "
+                "this process's stages' rows and dp ranks' columns of the full "
+                "state instead"
+            )
+        # this process's chunks: its stages' rows, its dp ranks' columns
+        n_rows = len(mesh.local_stages)
+        width = len(mesh.local_dp) * (width // mesh.dp)
     state = {}
     for key in parts:
-        host = np.zeros((mesh.pp * mesh_tp(mesh), width), np.float32)
+        host = np.zeros((n_rows, width), np.float32)
         if rows_of is not None:
             host[:, : rows_of(key).shape[1]] = rows_of(key)
         state[key] = torch.from_numpy(host).to(mesh.device)
@@ -502,7 +532,8 @@ def _zero_state(opt, mesh, width, rows_of=None):
 def zero1_init_state(opt, spec: ModelSpec, mesh):
     """The initial ZeRO-1 optimizer state: one ``(pp*tp, dp*chunk)`` zeros
     tensor per 'params' state part, a 0-d tensor per 'scalar' part; ``()``
-    for a stateless optimizer."""
+    for a stateless optimizer. On a ``ProcessMesh``, this process's chunks
+    only: ``(local stages, local dp ranks * chunk)``."""
     _, csz = zero1_flat_len(spec, mesh)
     return _zero_state(opt, mesh, mesh.dp * csz)
 
@@ -1209,6 +1240,11 @@ def dp_sum(trees, ranks=1):
     one rank's gradient bytes."""
     if A.active is not None:
         A.active.note("all_reduce", "dp_sum", A.tree_nbytes(trees[0]) // ranks)
+    return _add_trees(trees)
+
+
+def _add_trees(trees):
+    """Stacked trees added leaf by leaf in list order."""
     return functools.reduce(
         lambda a, b: {k: tuple(x + y for x, y in zip(a[k], b[k])) for k in a}, trees
     )
@@ -1222,6 +1258,109 @@ def _shard_sum(parts, dp):
         p0 = parts[0]
         A.active.note("reduce_scatter", "zero_sum", A.nbytes(p0) // (p0.shape[0] * dp))
     return functools.reduce(torch.add, parts)
+
+
+# ---------------------------------------------------------------------------
+# The movers across processes (a ProcessMesh, parallel/multihost.py)
+# ---------------------------------------------------------------------------
+#
+# On a process mesh each process runs its own ranks. A mover whose ends sit
+# in one process stays the in-memory mover above; one that crosses becomes
+# a collective of the mesh's ``ProcessComm``, each summing this process's
+# replicas in replica order first. Every process builds the same lists from
+# the same tick tables, so sends and receives pair up by tag.
+
+
+def _tick_transfers(tab, num_ticks, P, dp):
+    """Every relay the tick tables make: per tick, ``[(d, s, n, slot,
+    direction)]``, rank ``(d, s)``'s payload into slot ``slot`` of ``(d,
+    n)``'s mailbox (the sends ``run_ticks`` makes, in its order)."""
+    out = []
+    for t in range(num_ticks):
+        xs = []
+        for s in range(P):
+            op = tab["op"][t][s]
+            if op == OP_FWD and tab["sf"][t][s] == 1:
+                n = (s + 1) % P
+                xs += [(d, s, n, tab["inf"][t][n], "fwd") for d in range(dp)]
+            elif op == OP_BWD and tab["sb"][t][s] == 1:
+                n = (s - 1) % P
+                xs += [(d, s, n, tab["inb"][t][n], "bwd") for d in range(dp)]
+        out.append(xs)
+    return out
+
+
+def _relay_tag(d, s, direction, P):
+    """The point-to-point tag of rank ``(d, s)``'s relay in ``direction``:
+    unique among a tick's relays."""
+    return 2 * (d * P + s) + (direction == "bwd")
+
+
+def _relay_across(mesh, sends, incoming, mail, shape):
+    """A tick's relays on a process mesh: ``sends`` ``[(d, s, n, slot,
+    payload, direction)]`` from this process's ranks (delivered in memory
+    when ``(d, n)`` is its own, else sent), ``incoming`` the tick's ``[(d,
+    s, n, slot, direction)]`` from other processes' ranks into its own, all
+    in one ``batch_isend_irecv`` (``ProcessComm.exchange``). ``mail``:
+    direction -> mailboxes; ``shape``: a payload's."""
+    P = mesh.pp
+    out = []
+    for d, s, n, slot, payload, direction in sends:
+        q = mesh.owner(d, n)
+        if q == mesh.process:
+            relay(mail[direction][d][n], slot, payload, direction)
+            continue
+        if A.active is not None:
+            A.active.note("collective_permute", f"relay.{direction}", A.nbytes(payload))
+        out.append((q, _relay_tag(d, s, direction, P), payload))
+    if not out and not incoming:
+        return
+    recvs = []
+    for d, s, n, slot, direction in incoming:
+        # the receiving end takes part in the permute, as every device of
+        # the JAX executor's ppermute does
+        if A.active is not None:
+            A.active.note("collective_permute", f"relay.{direction}", 4 * shape[0] * shape[1])
+        recvs.append((mesh.owner(d, s), _relay_tag(d, s, direction, P), shape))
+    got = mesh.comm.exchange(out, recvs)
+    for (d, s, n, slot, direction), payload in zip(incoming, got):
+        mail[direction][d][n][slot] = payload
+
+
+def _all_reduce_tree(tree, comm, axis="dp"):
+    """A stacked ``{W, b}`` tree summed over ``axis``'s processes, flattened
+    into one payload (elementwise: the bits of a sum per leaf)."""
+    if comm.size(axis) == 1:
+        return tree
+    leaves = [a for k in ("W", "b") for a in tree[k]]
+    flat = comm.all_reduce(torch.cat([a.reshape(-1) for a in leaves]), axis)
+    out, off = {"W": [], "b": []}, 0
+    for k in ("W", "b"):
+        for a in tree[k]:
+            out[k].append(flat[off:off + a.numel()].view(a.shape))
+            off += a.numel()
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _shard_sum_across(parts, comm, dp):
+    """ZeRO-1's reduce-scatter on a process mesh: this process's replicas'
+    ``(rows, dp*chunk)`` flat rows added in replica order (``_shard_sum``,
+    with its census note), then ``reduce_scatter_tensor`` over the dp
+    group, its ``i``-th process receiving the columns of its dp ranks:
+    ``(rows, dl*chunk)``."""
+    local = _shard_sum(parts, dp)
+    G = comm.size("dp")
+    return comm.reduce_scatter(local.view(local.shape[0], G, -1).transpose(0, 1), "dp")
+
+
+def _sq_across(sq, comm, axis, site):
+    """A partial sum of squares summed over ``axis``'s processes (the
+    global norm's ``psum``; a 0-d payload on the census)."""
+    if comm.size(axis) == 1:
+        return sq
+    if A.active is not None:
+        A.active.note("all_reduce", site, 4)
+    return comm.all_reduce(sq, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -1373,7 +1512,14 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     (implies it) then the post-update global parameter norm (padded
     entries are exactly zero, so the stacked norms are the logical ones);
     ``with_digests`` (zero <= 1) appends the ``_digest_grids`` dict last.
-    All stay on the device."""
+    All stay on the device.
+
+    On a ``ProcessMesh`` of more than one process (``parallel/
+    multihost.py``; zero 0 or 1): ``stacked``/``opt_state`` are this
+    process's rows and chunks (``init_stacked``, ``zero1_init_state``),
+    ``x``/``y`` its dp rows (``multihost.shard_batch_for_process``), and
+    ``loss`` and the norms the mesh's, the same on every process; an
+    inference step returns this process's dp rows of the predictions."""
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel_backend {kernel_backend!r}")
     zero = int(zero)
@@ -1410,8 +1556,27 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         )
     if with_step_stats:
         with_grad_norm = True  # step stats carry the grad norm per step
+    pm = mesh if isinstance(mesh, ProcessMesh) else None
+    if pm is not None:
+        if zero >= 2:
+            raise ValueError(
+                f"zero={zero} on a process mesh: its per-tick scatters and "
+                "gathers would each be a collective a tick (ROADMAP item 7b); "
+                "run zero 0 or 1 across processes"
+            )
+        if with_digests:
+            raise ValueError(
+                "with_digests on a process mesh: the digest grids span every "
+                "stage's rows (ROADMAP item 7b); record digests on one process"
+            )
+        if pm.world == 1:
+            pm = None  # one process owns every rank: the in-memory movers
     P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
     R = P * tp_n  # device rows of the ZeRO layouts, (pp, tp) pp-major
+    # this process's dp rows and stages (every rank on a virtual mesh)
+    local_d = range(dp) if pm is None else pm.local_dp
+    local_s = range(P) if pm is None else pm.local_stages
+    d0, s0, dl, pl = local_d.start, local_s.start, len(local_d), len(local_s)
     if zero >= 2 and with_digests:
         raise ValueError(
             "with_digests reads the zero1 flat-chunk segment map; the "
@@ -1456,6 +1621,19 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         ).items()
     }
     head_masks = {}  # device copies of the head-mask rows, keyed by content
+    if pm is not None:
+        # the relays from other processes' ranks into this one's, per tick,
+        # and the head stage (its process tallies the loss)
+        incoming = [
+            [x for x in xs if pm.owner(x[0], x[2]) == pm.process != pm.owner(x[0], x[1])]
+            for xs in _tick_transfers(tab, prog.num_ticks, P, dp)
+        ]
+        (head_s,) = {s for row in tab["ih"] for s, h in enumerate(row) if h == 1}
+        bucket_plan = None
+        if grad_bucket_bytes:
+            from shallowspeed_tpu_torch.parallel import gradsync
+
+            bucket_plan = gradsync.plan_buckets(spec, dp, P, grad_bucket_bytes, zero=zero)
 
     def head_mask_rows(flags, device):
         hm = np.asarray(flags["head_mask"], np.bool_)
@@ -1479,13 +1657,14 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             def chunk_weights(s, ck):
                 return _gather_chunk(pv, zb_slots, s, ck, L, tp_n)
         else:
-            Ws = [[w[r] for w in stacked["W"]] for r in range(P * V)]
-            bs = [[b[r] for b in stacked["b"]] for r in range(P * V)]
+            Ws = [[w[r] for w in stacked["W"]] for r in range(pl * V)]
+            bs = [[b[r] for b in stacked["b"]] for r in range(pl * V)]
 
             def chunk_weights(s, ck):
-                return Ws[s * V + ck], bs[s * V + ck]
+                return Ws[(s - s0) * V + ck], bs[(s - s0) * V + ck]
         fwd_mail = [[[None] * (Kf + 1) for _ in range(P)] for _ in range(dp)]
         bwd_mail = [[[None] * (Kb + 1) for _ in range(P)] for _ in range(dp)]
+        mail = {"fwd": fwd_mail, "bwd": bwd_mail}
         if training:
             # per rank: the activation stash, the split backward's grad
             # stash and recompute's input stash (lowering-assigned slots,
@@ -1499,11 +1678,11 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             else:
                 acc = [
                     {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
-                    for _ in range(dp)
+                    for _ in range(dl)
                 ]
-            loss = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(dp)]
+            loss = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(dl)]
         else:
-            preds = [[None] * (M + 1) for _ in range(dp)]
+            preds = [[None] * (M + 1) for _ in range(dl)]
 
         def grad_sink(d, r, pending):
             """Where replica ``d``'s slot gradients of row ``r`` go: into
@@ -1518,8 +1697,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         dw, db = pending[l][0] + dw, pending[l][1] + db
                     pending[l] = (dw, db)
             else:
-                gW = [_tp_w(w[r], l, tp_n) for l, w in enumerate(acc[d]["W"])]
-                gb = [_tp_b(b[r], tp_n) for b in acc[d]["b"]]
+                gW = [_tp_w(w[r - s0 * V], l, tp_n) for l, w in enumerate(acc[d - d0]["W"])]
+                gb = [_tp_b(b[r - s0 * V], tp_n) for b in acc[d - d0]["b"]]
 
                 def sink(l, dw, db):
                     gW[l].add_(dw)
@@ -1528,14 +1707,14 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
         def head_or_mail(d, s, t, r, z, mb_r):
             if tab["ih"][t][s] == 1:
-                return ops.softmax_mse_head_grad(z, Y[d, mb_r], B_global, valid_mask=hm[r])
+                return ops.softmax_mse_head_grad(z, Y[d - d0, mb_r], B_global, valid_mask=hm[r])
             return bwd_mail[d][s][tab["rb"][t][s]]
 
         for t in range(prog.num_ticks):
             op, mbt = tab["op"][t], tab["mb"][t]
-            sends = []  # (mailbox, slot, payload) delivered at the tick's end
+            sends = []  # (d, s, n, slot, payload, direction), delivered at the tick's end
             for s in range(P):
-                if op[s] == OP_NOOP:
+                if op[s] == OP_NOOP or s not in local_s:
                     continue
                 if A.active is not None:
                     A.active.branch = _BRANCH.get(op[s])
@@ -1565,10 +1744,10 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         kernel_backend, act,
                     )
 
-                for d in range(dp):
+                for d in local_d:
                     if op[s] == OP_FWD:
                         if load_in:
-                            x_in = X[d, mb_r]
+                            x_in = X[d - d0, mb_r]
                         else:
                             x_in = _fit(fwd_mail[d][s][tab["rf"][t][s]], D_in)
                         out, xs_l, masks_l = fwd(x_in)
@@ -1581,17 +1760,17 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                                 stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
                             if is_head:
                                 p = ops.softmax(out, valid_mask=hm[r])
-                                loss[d] = loss[d] + ops.mse_loss(p, Y[d, mb_r], B_global)
+                                loss[d - d0] = loss[d - d0] + ops.mse_loss(p, Y[d - d0, mb_r], B_global)
                         elif is_head:
-                            preds[d][mb_i] = ops.softmax(out, valid_mask=hm[r])
+                            preds[d - d0][mb_i] = ops.softmax(out, valid_mask=hm[r])
                         if tab["sf"][t][s] == 1:
                             n = (s + 1) % P
-                            sends.append((fwd_mail[d][n], tab["inf"][t][n], _fit(out, W_rel), "fwd"))
+                            sends.append((d, s, n, tab["inf"][t][n], _fit(out, W_rel), "fwd"))
                     elif op[s] == OP_RECOMPUTE:
                         # the forward again, from the same input bits through
                         # the same _stage_fwd: the stashed run's residuals
                         xr = tab["xr"][t][s]
-                        x_in = X[d, mb_r] if load_in else _fit(xin[d][s][xr], D_in)
+                        x_in = X[d - d0, mb_r] if load_in else _fit(xin[d][s][xr], D_in)
                         xin[d][s][xr] = None
                         out, xs_l, masks_l = fwd(x_in)
                         stash[d][s][tab["sw"][t][s]] = (xs_l, masks_l, out)
@@ -1627,7 +1806,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                                 )
                         if tab["sb"][t][s] == 1:
                             n = (s - 1) % P
-                            sends.append((bwd_mail[d][n], tab["inb"][t][n], _fit(dx, W_rel), "bwd"))
+                            sends.append((d, s, n, tab["inb"][t][n], _fit(dx, W_rel), "bwd"))
                     elif op[s] == OP_BWD_W:
                         sr, gr = tab["sr"][t][s], tab["gr"][t][s]
                         sink = grad_sink(d, r, pending)
@@ -1646,8 +1825,11 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending, tp_n)
             if A.active is not None:
                 A.active.branch = None
-            for mailbox, slot, payload, direction in sends:
-                relay(mailbox, slot, payload, direction)
+            if pm is None:
+                for d, s, n, slot, payload, direction in sends:
+                    relay(mail[direction][d][n], slot, payload, direction)
+            else:
+                _relay_across(pm, sends, incoming[t], mail, (mb_sz, W_rel))
         if training:
             return (gz if shard_grads else acc), loss
         return preds
@@ -1655,16 +1837,18 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     def split(a, width):
         """``(global_batch, dim)`` -> ``(dp, M, mubatch, width)``: replica
         ``d`` takes rows ``[d, d + 1) * M * mubatch`` (``P('dp')``)."""
-        if a.shape[0] != dp * M * mb_sz:
+        if a.shape[0] != dl * M * mb_sz:
             raise ValueError(
-                f"expected {dp} x {M} x {mb_sz} = {dp * M * mb_sz} rows, got {a.shape[0]}"
+                f"expected {dl} x {M} x {mb_sz} = {dl * M * mb_sz} rows, got {a.shape[0]}"
             )
-        return _fit(a, width).reshape(dp, M, mb_sz, width)
+        return _fit(a, width).reshape(dl, M, mb_sz, width)
 
     def sharded_tail(stacked, opt_state, gsh):
         """ZeRO-1/2/3 after the sync: the norms over the shards, the clip,
         every rank's chunk update and the gather back. Returns (stacked,
         opt_state, gnorm or None)."""
+        if pm is not None:
+            return _sharded_tail_across(stacked, opt_state, gsh)
         gnorm = None
         if with_grad_norm:
             # the shards partition the dp-summed gradient; padding is zero
@@ -1684,6 +1868,48 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             _undeal_into(pch, zb_slots, stacked, P, dp, tp_n)
         return stacked, opt_state, gnorm
 
+    def _sharded_tail_across(stacked, opt_state, gsh):
+        """ZeRO-1's tail on a process mesh: ``gsh`` holds this process's
+        ranks' chunks ``(local stages, dl*chunk)``; the norm's squares are
+        summed over every process of the mesh, each rank's chunk updated
+        with its state shard, and the chunks all-gathered over the dp group
+        back into the stacked rows."""
+        gnorm = None
+        if with_grad_norm or clip_norm is not None:
+            sq = _sq_across(torch.sum(gsh * gsh), pm.comm, "mesh", "grad_norm")
+            if with_grad_norm:
+                gnorm = torch.sqrt(sq)
+            if clip_norm is not None:
+                gsh = gsh * clip_scale(sq, clip_norm)
+        pch = _flat_rows(stacked, pl, dp * csz, tp_n).view(pl, dp, csz)[:, d0:d0 + dl]
+        pch = pch.reshape(pl, dl * csz)
+        opt_state = _apply_sharded(opt, pch, gsh, opt_state, pl * tp_n, dl)
+        rows = pm.comm.all_gather(pch, "dp").transpose(0, 1).reshape(pl, dp * csz)
+        _unflat_rows_into(rows, stacked, tp_n)
+        return stacked, opt_state, gnorm
+
+    def mesh_loss(loss):
+        """The loss on a process mesh: the head stage's processes sum their
+        tallies over dp, and each hands its sum to its pp group."""
+        if head_s in local_s:
+            if A.active is not None and pm.comm.size("dp") > 1:
+                A.active.note("all_reduce", "loss", A.nbytes(loss))
+            loss = pm.comm.all_reduce(loss, "dp")
+        return pm.comm.broadcast(loss, pm.owner(d0, head_s), "pp")
+
+    def dp_sum_across(acc):
+        """Zero 0's sync on a process mesh: this process's replicas summed
+        in replica order, then one all-reduce over the dp group, or one a
+        planned bucket (``gradsync.psum_bucketed``)."""
+        if bucket_plan is None:
+            return _all_reduce_tree(dp_sum(acc, ranks=pl * tp_n), pm.comm)
+        return gradsync.psum_bucketed(_add_trees(acc), bucket_plan, pm.comm)
+
+    def tree_norm_sq(tree):
+        """The squares of a stacked tree over every stage on a process mesh
+        (this process's rows, summed over its pp group)."""
+        return _sq_across(tree_sq_sum(tree), pm.comm, "pp", "norm")
+
     if training:
 
         def step(stacked, flags, opt_state, x, y):
@@ -1692,8 +1918,19 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             # loss: the dp sum of the head stage's tallies (psum over dp; the
             # pmax over pp picks the head stage, the only one that tallied)
             loss = functools.reduce(torch.add, losses)
+            if pm is not None:
+                loss = mesh_loss(loss)
             raw = None
-            if zero == 0:
+            if zero == 0 and pm is not None:
+                grads = dp_sum_across(acc)
+                del acc
+                sq = tree_norm_sq(grads) if (with_grad_norm or clip_norm is not None) else None
+                gnorm = torch.sqrt(sq) if with_grad_norm else None
+                if clip_norm is not None:
+                    scale = clip_scale(sq, clip_norm)
+                    grads = tree_map(lambda g: g * scale, grads)
+                stacked, opt_state = opt.apply(stacked, grads, opt_state)
+            elif zero == 0:
                 grads = dp_sum(acc, ranks=R)
                 del acc
                 raw = grads
@@ -1707,8 +1944,13 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                 elif zero1:
                     # each replica's slabs flattened per pp row, then summed
                     # in replica order
-                    gvecs = [_flat_rows(acc.pop(0), P, dp * csz, tp_n) for _ in range(dp)]
-                    gsh = _shard_sum(gvecs, dp)
+                    gvecs = [_flat_rows(acc.pop(0), pl, dp * csz, tp_n) for _ in range(dl)]
+                    if pm is None:
+                        gsh = _shard_sum(gvecs, dp)
+                    elif bucket_plan is not None:
+                        gsh = gradsync.psum_scatter_bucketed(gvecs, bucket_plan, pm.comm)
+                    else:
+                        gsh = _shard_sum_across(gvecs, pm.comm, dp)
                     del gvecs
                     if with_digests:
                         raw = _unflat_rows(gsh, stacked, tp_n)
@@ -1727,6 +1969,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                 if zero == 3:
                     pch = stacked["P"]
                     outs += (torch.sqrt(torch.sum(pch * pch)),)
+                elif pm is not None:
+                    outs += (torch.sqrt(tree_norm_sq(stacked)),)
                 else:
                     outs += (global_norm(stacked),)
             if with_digests:
@@ -1738,11 +1982,17 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     def infer(stacked, flags, x):
         dev = _device_of(stacked)
         preds = run_ticks(stacked, flags, split(x, D_in), None, dev)
-        out = torch.cat([p for rep in preds for p in rep[:M]], dim=0)
+        if pm is None or head_s in local_s:
+            out = torch.cat([p for rep in preds for p in rep[:M]], dim=0)
+        else:
+            out = torch.empty((dl * M * mb_sz, D_out), dtype=torch.float32, device=dev)
         if P > 1 and A.active is not None:
             # the head stage's predictions handed to every pp rank (the JAX
             # executor's psum of preds over pp): one replica's rows
-            A.active.note("all_reduce", "preds", A.nbytes(out) // dp)
+            A.active.note("all_reduce", "preds", A.nbytes(out) // dl)
+        if pm is not None:
+            # this process's dp rows, from the head stage's process
+            out = pm.comm.broadcast(out, pm.owner(d0, head_s), "pp")
         return out
 
     return infer
@@ -1820,6 +2070,12 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
             "the fused multi-epoch run cannot shard params at rest: its "
             "eval step consumes the full stacked layout every epoch — "
             "use --zero 3 without --fused-run (per-epoch dispatch)"
+        )
+    if eval_prog is not None and isinstance(mesh, ProcessMesh) and mesh.world > 1:
+        raise ValueError(
+            "the fused run's eval on a process mesh: each process holds its "
+            "own dp rows of the predictions (ROADMAP item 7b); run the eval "
+            "step apart"
         )
     epoch = make_pipeline_epoch(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,

@@ -9,18 +9,26 @@ host data: ``BucketLeaf``, ``BucketPlan``, the three planners,
 ``plan_buckets`` and the analytical ``sync_comm_bytes``. The plans feed the
 session's ``grad_sync_plan`` record and choose the executor's ZeRO-2 tail.
 
-The JAX module's emitters have no counterpart here. On the port's virtual
-mesh every dp replica's gradient lies on the one device, so a bucket has no
-communication to overlap, and a per-bucket sum is the unbucketed
-replica-order sum sliced and put back together (both are elementwise: the
-JAX module's bitwise contract). The executor runs the unbucketed sum; the
-multi-card runtime, where a bucket is a real collective, brings per-bucket
-emission back (ROADMAP.md §A item 7). At tp > 1 every plan covers one
-device's Megatron shards (``executor.tp_local_dims``), so the dp payload
-shrinks by tp, as in the JAX package.
+The emitters, ``psum_bucketed`` and ``psum_scatter_bucketed`` (the JAX
+module's ``:270``, ``:293``), run on a process mesh (``parallel/
+multihost.py``), where the dp replicas sit in different processes: one
+``all_reduce`` (zero 0) or ``reduce_scatter_tensor`` (zero 1) over the dp
+group a planned bucket, in the plan's backward order, each noted on the
+program audit's census as its own site. On the virtual mesh every dp
+replica's gradient lies on the one device, so a bucket has no
+communication to overlap: there the executor runs the unbucketed
+replica-order sum, which a per-bucket sum equals bit for bit (both are
+elementwise: the JAX module's bitwise contract). At tp > 1 every plan
+covers one device's Megatron shards (``executor.tp_local_dims``), so the
+dp payload shrinks by tp, as in the JAX package.
 """
 
 import dataclasses
+import functools
+
+import torch
+
+from shallowspeed_tpu_torch.observability import program_audit as A
 
 from shallowspeed_tpu_torch.parallel.executor import (
     slot_shapes,
@@ -277,3 +285,39 @@ def sync_comm_bytes(spec, dp, pp, plan=None, tp=1, zero=0, mubatches=1, gather_p
         axis["bucket_grad_bytes"] = plan.bucket_grad_bytes()
         axis["bucket_census_bytes"] = plan.bucket_census_bytes()
     return axis
+
+
+def psum_bucketed(tree, plan, comm):
+    """Zero 0's bucketed dp sum on a process mesh: one ``all_reduce`` over
+    the dp group a bucket of ``plan`` (a ``mode="dp"`` plan), in its
+    backward order; each bucket's leaves of ``tree`` (this process's
+    stacked gradient, its replicas already summed) flattened into one
+    payload and the sum written back in place. Returns ``tree``."""
+    for i, group in enumerate(plan.buckets):
+        leaves = [tree[leaf.kind][leaf.slot] for leaf in group]
+        if A.active is not None:
+            A.active.note("all_reduce", f"dp_sum.bucket{i}", sum(leaf.nbytes for leaf in group))
+        flat = comm.all_reduce(torch.cat([a.reshape(-1) for a in leaves]), "dp")
+        off = 0
+        for a in leaves:
+            a.copy_(flat[off:off + a.numel()].view(a.shape))
+            off += a.numel()
+    return tree
+
+
+def psum_scatter_bucketed(parts, plan, comm):
+    """Zero 1's bucketed reduce-scatter on a process mesh: ``parts``, this
+    process's replicas' ``(rows, dp*chunk)`` flat gradient rows, summed in
+    replica order, then one ``reduce_scatter_tensor`` over the dp group a
+    column range ``(a, b)`` of ``plan`` (a ``mode="zero1"`` plan), in its
+    order: every dp rank's ``[a, b)`` columns of its chunk. Returns this
+    process's ``(rows, dl*chunk)`` chunk columns."""
+    local = functools.reduce(torch.add, parts)
+    rows, csz = local.shape[0], plan.buckets[-1][1]
+    view = local.view(rows, comm.size("dp"), -1, csz)  # (rows, G, dl, chunk)
+    out = torch.empty((rows, view.shape[2], csz), dtype=local.dtype, device=local.device)
+    for i, (a, b) in enumerate(plan.buckets):
+        if A.active is not None:
+            A.active.note("reduce_scatter", f"zero_sum.bucket{i}", 4 * (b - a))
+        out[:, :, a:b] = comm.reduce_scatter(view[:, :, :, a:b].permute(1, 0, 2, 3), "dp")
+    return out.view(rows, -1)

@@ -45,8 +45,9 @@ dispatch cost; the port's stage views are already one set of tensors).
 
 On the CPU the stream contexts are null contexts: the order of issue is the
 only order, which is the lockstep executor's order. ``runtime="mpmd"`` in
-``api.TrainingSession`` runs this module; ``parallel/multihost.py`` (several
-processes) is a different, unported runtime.
+``api.TrainingSession`` runs this module. ``parallel/multihost.py`` (several
+processes) is a different runtime, the lockstep executor on a process
+mesh; a process mesh given to a runner here is refused (ROADMAP item 7b).
 
 ``MpmdInferenceRunner`` streams request slots through per-stage forwards on
 the same streams: ``submit`` issues a slot's whole chain without blocking
@@ -80,7 +81,7 @@ from shallowspeed_tpu_torch.parallel.lowering import (
     OP_NOOP,
     OP_RECOMPUTE,
 )
-from shallowspeed_tpu_torch.parallel.mesh import mesh_tp
+from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh, mesh_tp
 
 # ---------------------------------------------------------------------------
 # Zero-copy stage views
@@ -266,6 +267,12 @@ class _StagePrograms:
     per replica."""
 
     def __init__(self, mesh, spec, prog, mubatch_size, opt=None):
+        if isinstance(mesh, ProcessMesh):
+            raise ValueError(
+                "the MPMD runtime issues every stage from one process; across "
+                "processes run the lockstep executor on the process mesh (the "
+                "MPMD runtime over processes is ROADMAP item 7b)"
+            )
         self.prog = prog
         self.tp = mesh_tp(mesh)
         self.dp = mesh.dp

@@ -1,9 +1,11 @@
 """Bounded exponential-backoff retry: a copy of ``shallowspeed_tpu/retry.py``.
 
-Two consumers: the serving engine's dispatch recovery (``RetryPolicy``, the
-policy as a value for a caller that owns its retry loop) and the checkpoint
-write path (``checkpoint.write_snapshot`` retries the atomic write on a
-transient ``OSError`` through ``retry_call``). Delay for attempt ``i``
+Three consumers: the serving engine's dispatch recovery (``RetryPolicy``,
+the policy as a value for a caller that owns its retry loop), the
+checkpoint write path (``checkpoint.write_snapshot`` retries the atomic
+write on a transient ``OSError`` through ``retry_call``) and the
+multi-process join (``parallel/multihost.initialize`` retries an explicit
+coordinator through ``retry_call``, on the JAX schedule). Delay for attempt ``i``
 (0-based, before retry ``i+1``) is ``min(base * factor**i, max_delay)``
 plus uniform jitter in ``[-jitter, +jitter] * delay``, DETERMINISTIC given
 ``seed``.

@@ -6,7 +6,9 @@ SHA1s), computed over the *logical* per-layer (W, b) blocks in global layer
 order, so a sequential run, a DP=4 run and a DP=2 x PP=4 run of the same
 model give the SAME hash — and the same hash as the JAX package gives for
 the same float32 bytes. Everything here is host numpy over the logical
-tree that ``TrainingSession.params()`` returns.
+tree that ``TrainingSession.params()`` returns, but the multi-process
+replica check, which gathers each process's row hashes over the process
+mesh (``parallel/multihost.py``), and ``p0print``.
 """
 
 from hashlib import sha1
@@ -67,8 +69,8 @@ def assert_dp_replicas_in_sync(stacked, spec) -> None:
     in ``dp_sum`` and one optimizer step updates that copy), so there are no
     per-replica copies that could drift apart. What is checked is that
     invariant itself — every stacked leaf has one slot per pipeline stage and
-    no replica axis. A runtime that keeps a copy per replica (one process per
-    rank, ROADMAP.md §A item 7) compares their hashes instead. Raises
+    no replica axis. The multi-process runtime keeps a copy per process and
+    compares their hashes (``assert_dp_replicas_in_sync_global``). Raises
     ``ValueError`` when a leaf is not of that layout."""
     for key in ("W", "b"):
         for l, leaf in enumerate(stacked[key]):
@@ -80,6 +82,81 @@ def assert_dp_replicas_in_sync(stacked, spec) -> None:
                 )
 
 
+def _leaves(tree, path=()):
+    """``(path, leaf)`` of a nest of dicts (keys sorted), lists and tuples."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _stacks(tree):
+    """Every stacked ``{W, b}`` dict inside a nest of dicts."""
+    if isinstance(tree, dict):
+        if set(tree) == {"W", "b"}:
+            yield tree
+            return
+        for k in sorted(tree):
+            yield from _stacks(tree[k])
+
+
+def assert_dp_replicas_in_sync_global(tree, spec, mesh) -> None:
+    """The multi-process replica-sync check (the JAX package's
+    ``utils.assert_dp_replicas_in_sync_global``, and the reference's gather
+    of the replicas' hashes over the dp communicator). ``tree``: this
+    process's share of state every dp replica must hold alike — the stacked
+    params, or an optimizer state of their layout (zero 0) — as nests whose
+    tensors lead with this process's stacked rows, and 0-d scalars (Adam's
+    step). Each process SHA1s each of its leaves' rows; the hashes are
+    gathered with ``all_gather_object`` over the mesh, and the rows that
+    hold the same logical ``(leaf, stacked row)`` on different dp replicas
+    are compared (a scalar is one row every process holds). A mismatch
+    raises ``ValueError`` on every process. On one process (a
+    ``VirtualMesh``, or a process mesh of world 1) it is
+    ``assert_dp_replicas_in_sync`` on each stacked ``{W, b}`` of ``tree``."""
+    from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh
+
+    if not isinstance(mesh, ProcessMesh) or mesh.world == 1:
+        for stacked in _stacks(tree):
+            assert_dp_replicas_in_sync(stacked, spec)
+        return
+    V = spec.n_stages // mesh.pp
+    first, n_rows = mesh.local_stages.start * V, len(mesh.local_stages) * V
+    mine = {}
+    for li, (path, leaf) in enumerate(_leaves(tree)):
+        host = np.ascontiguousarray(leaf.detach().cpu().numpy())
+        if host.ndim == 0:
+            mine[(li, None)] = sha1(host.tobytes()).hexdigest()
+            continue
+        if host.shape[0] != n_rows:
+            raise ValueError(
+                f"leaf {path} has {host.shape[0]} rows: not this process's "
+                f"{n_rows} stacked rows of the process mesh"
+            )
+        for r in range(n_rows):
+            mine[(li, first + r)] = sha1(host[r].tobytes()).hexdigest()
+    seen = {}
+    for theirs in mesh.comm.all_gather_object(mine):
+        for key, h in theirs.items():
+            seen.setdefault(key, set()).add(h)
+    mismatches = sorted(
+        (key for key, hashes in seen.items() if len(hashes) > 1),
+        key=lambda k: (k[0], -1 if k[1] is None else k[1]),
+    )
+    if mismatches:
+        raise ValueError(
+            f"cross-process replica desync at (leaf, shard-index): {mismatches}"
+        )
+
+
 def p0print(*args, **kwargs):
-    """Print from process 0 only: the port runs one process, so a print."""
-    print(*args, **kwargs)
+    """Print from process 0 only (the reference's ``rprint``): rank 0 of
+    the process group, or the one process when none is up."""
+    from shallowspeed_tpu_torch.parallel import multihost
+
+    if multihost.process_index() == 0:
+        print(*args, **kwargs)

@@ -67,6 +67,8 @@ def test_every_module_imports_without_jax():
         "shallowspeed_tpu_torch.utils",
         "shallowspeed_tpu_torch.faults",
         "shallowspeed_tpu_torch.aot_cache",
+        "shallowspeed_tpu_torch.parallel.gradsync",
+        "shallowspeed_tpu_torch.parallel.multihost",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -92,7 +94,7 @@ def test_every_module_imports_without_jax():
     sorted(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_training_profile.py"]
     + sorted((ROOT / "scripts").glob("torch_*_phase.py"))
-    + [ROOT / "scripts" / "torch_aot_child.py"],
+    + [ROOT / "scripts" / "torch_aot_child.py", ROOT / "scripts" / "torch_multihost_child.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):
