@@ -357,16 +357,31 @@ in phases:
    processes): GPipe momentum, ZeRO-1 momentum with a clip, DP=2 x PP=2 x
    V=2 interleaved, the fused 2-epoch run, a bucketed zero 0 (one
    all-reduce a bucket, bitwise the unbucketed leg); 21c DP=4 over four
-   processes, a zero-1 leg. Gated: every process's rows of the params and
-   state and its losses bitwise the twin's where every sum keeps its order
-   (dp = 2 without a clip), within ``rtol=3e-4, atol=3e-6`` elsewhere;
+   processes, a zero-1 leg; 21d DP=2 x PP=4 ZeRO-2 through the flag kernels
+   on two and on four processes (a reduce-scatter a slot and backward tick
+   over the dp group), bucketed ZeRO-2 (one reduce-scatter a bucket) and
+   ZeRO-3 (a parameter all-gather a stage and tick) on four; 21e tensor
+   parallelism, DP=2 x TP=2 (tp across processes: each process computes
+   its own tp rank's products, each Megatron sum an all-reduce over the tp
+   group) and DP=2 x PP=2 x TP=2 (tp inside a
+   process); 21f DP=4 ZeRO-2 with a clip; 21g digests and the fused run
+   with its in-run eval on two processes; 21h mlp-deep (8 of its 22 hidden
+   layers) DP=2 x PP=2 on four processes at ZeRO-2 through B6/B8 and at
+   ZeRO-3. Gated: every process's
+   rows (at tp > 1 its bands, at zero 3 its shard) of the params and state
+   and its losses, digests and accuracies bitwise the twin's where every
+   sum keeps its order and every product its shape (dp = 2 and tp = 2
+   inside a process, without a norm from partials), within ``rtol=3e-4,
+   atol=3e-6`` elsewhere (with tp across processes too: each multiplies
+   its own ranks' bands only), the largest difference reported;
    ``assert_dp_replicas_in_sync_global`` after every step; in 21a a copy
-   diverged on one process detected on both; each process's B5/B7 launches
-   exactly its ranks' share, the processes' sum the twin's; each process's
-   census clean against ``expected_comms``. Reported: a DP=4 step's wall a
-   process split into compute, staging copies and collectives beside the
-   twin's wall and device busy; each process's zero-1 peak beside
-   ``zero_peak_forecast``.
+   diverged on one process detected on both; each process's B5/B7 (B6/B8)
+   launches exactly its ranks' share, the processes' sum the twin's; each
+   process's census clean against ``expected_comms``. Reported: a step's
+   wall a process split into compute, staging copies and collectives
+   (21a, 21c, 21d zero 3, 21e, 21h) beside the twin's wall, the DP=4
+   twin's device busy; each process's zero-1 peak and mlp-deep's zero-2
+   and zero-3 peaks beside ``zero_peak_forecast``.
 
 Times come from CUDA events around a CUDA graph of repeated launches, so
 they are device times without the host's launch overhead, with the
@@ -1944,18 +1959,23 @@ def _kill_and_resume(torch, cuda_ops, TrainingSession, F, ckpt, data_dir, ck, kw
 
 
 def _cli(data_dir, ck, *extra, faults=None):
-    """``python -m shallowspeed_tpu_torch.train`` on the card from the
-    checkout, 2 epochs without eval; returns (exit code, stdout)."""
+    """The training CLI on the card from the checkout, 2 epochs without
+    eval; returns (exit code, stdout, stderr). A run with ``faults`` (a
+    SIGKILL plan) is ``python -m shallowspeed_tpu_torch.train`` in a child
+    process; one without runs the CLI's ``main`` in this process
+    (``_run_main``: no second ``import torch``)."""
+    args = ["--data-dir", str(data_dir), "--epochs", "2", "--no-eval", *extra]
+    if ck is not None:
+        args += ["--checkpoint-dir", str(ck), "--checkpoint-every-steps", str(RECOVERY_EVERY)]
+    if not faults:
+        from shallowspeed_tpu_torch import train
 
+        return _run_main(train.main, args)
     env = {k: v for k, v in os.environ.items() if k != "SHALLOWSPEED_FAULTS"}
-    if faults:
-        env["SHALLOWSPEED_FAULTS"] = faults
+    env["SHALLOWSPEED_FAULTS"] = faults
     root = Path(__file__).resolve().parent
     env["PYTHONPATH"] = str(root)
-    argv = [sys.executable, "-m", "shallowspeed_tpu_torch.train", "--data-dir", str(data_dir),
-            "--epochs", "2", "--no-eval", *extra]
-    if ck is not None:
-        argv += ["--checkpoint-dir", str(ck), "--checkpoint-every-steps", str(RECOVERY_EVERY)]
+    argv = [sys.executable, "-m", "shallowspeed_tpu_torch.train", *args]
     proc = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True, timeout=300)
     return proc.returncode, proc.stdout, proc.stderr
 
@@ -4859,8 +4879,12 @@ MH_LR = 0.006
 MH_MUBATCHES = 4
 # (label, the fleet's processes it runs on (None: all four), layout, bitwise
 # the lockstep twin): phase 6's split and recipe through the flag kernels.
-# Bitwise where every cross-process sum keeps the twin's order (dp = 2, no
-# norm assembled from per-process partials); the class elsewhere
+# Bitwise where every cross-process sum keeps the twin's order (dp = 2, tp
+# inside a process, no norm assembled from per-process partials); the class
+# elsewhere, and where tp crosses processes: a process multiplies only its
+# held ranks' bands, a product of another shape than the twin's
+MH_VAL_ROWS = 100  # the fused run's in-run eval split (21g), padded to a dp multiple
+MH_DEEP_HIDDEN = 8  # 21h: mlp-deep's 2048-wide hidden layers kept (of 22; the time limit)
 MH_LEGS = (
     ("21a", (0, 1), dict(dp=2, pp=4, steps=TRAIN_BATCHES, check=True, negative=True), True),
     ("21b gpipe momentum", None, dict(dp=2, pp=4, steps=2, opt="momentum", check=True), True),
@@ -4872,26 +4896,58 @@ MH_LEGS = (
      dict(dp=2, pp=4, steps=2, opt="momentum", grad_bucket_bytes=ZERO_BUCKET, check=True), True),
     ("21c dp4", None, dict(dp=4, pp=1, steps=4, check=True), False),
     ("21c dp4 zero1", None, dict(dp=4, pp=1, steps=2, opt="momentum", zero=1, check=True), False),
+    ("21d zero2", (0, 1), dict(dp=2, pp=4, steps=2, opt="momentum", zero=2, check=True), True),
+    ("21d zero2 x4", None, dict(dp=2, pp=4, steps=2, opt="momentum", zero=2, check=True), True),
+    ("21d zero2 bucketed", None,
+     dict(dp=2, pp=4, steps=2, opt="momentum", zero=2, grad_bucket_bytes=ZERO_BUCKET, check=True), True),
+    ("21d zero3", None,
+     dict(dp=2, pp=4, steps=2, opt="momentum", zero=3, backend="xla", check=True), True),
+    ("21e dp2 tp2", None, dict(dp=2, pp=1, tp=2, steps=2, opt="momentum", backend="xla", check=True),
+     False),
+    ("21e dp2 pp2 tp2", None,
+     dict(dp=2, pp=2, tp=2, steps=2, opt="momentum", backend="xla", check=True), True),
+    ("21f dp4 zero2 clip", None,
+     dict(dp=4, pp=1, steps=2, opt="momentum", zero=2, clip_norm=1.0, check=True), False),
+    ("21g digests", (0, 1), dict(dp=2, pp=4, steps=2, opt="momentum", digests=True, check=True), True),
+    ("21g run eval", (0, 1), dict(dp=2, pp=4, run_epochs=2, eval=True, check=True), True),
+    ("21h mlp-deep zero2", None,
+     dict(model="mlp-deep", hidden=MH_DEEP_HIDDEN, dp=2, pp=2, steps=2, opt="momentum", zero=2,
+          check=True), True),
+    ("21h mlp-deep zero3", None,
+     dict(model="mlp-deep", hidden=MH_DEEP_HIDDEN, dp=2, pp=2, steps=2, opt="momentum", zero=3,
+          backend="xla", check=True), True),
 )
+MH_LABELS = {label: (members, kw) for label, members, kw, _ in MH_LEGS}
+
+
+def mh_legs(device):
+    """The phase's legs on ``device``: all of them on the card; the CPU's
+    dry run of the phase's logic leaves out mlp-deep's (a card-size model)."""
+    return tuple(leg for leg in MH_LEGS if device == "cuda" or not leg[2].get("model"))
 
 
 def mh_slug(label):
     return label.replace(" ", "_")
 
 
-def mh_drive(torch, mesh, kw, X, Y, capture=None):
+def mh_drive(torch, mesh, kw, X, Y, capture=None, val=None):
     """One phase-21 leg on ``mesh`` (the fleet's ``ProcessMesh``, or the
-    twin's ``VirtualMesh``): the flagship at full width from the
-    deterministic init through the flag kernels (B5/B7), on this process's
-    rows of ``X``/``Y`` (``(batches, 128, ...)`` host numpy). Every step's
-    host wall and, on a process mesh, its staging and collective seconds;
-    the first dispatch's census against ``expected_comms`` and its peak
-    above the resident state; the launches from 0; on a process mesh the
-    global replica check after every step (``check``) and the negative
-    control (``negative``); the steps inside ``capture`` (a context, e.g.
-    a profiler's) when one is given. On the mesh's device (``cuda`` on the
+    twin's ``VirtualMesh``): the flagship (``kw["model"]`` mlp-deep: that
+    model, cut to ``kw["hidden"]`` hidden layers, ``mh_sizes``) at full
+    width from the deterministic init, through the flag kernels (B5/B7,
+    B6/B8 at mlp-deep's widths; ``kw["backend"]`` "xla":
+    their plain versions, as zero 3 and tp > 1 need), on this process's
+    rows of ``X``/``Y`` (``(batches, 128, ...)`` host numpy); ``val``, the
+    in-run eval's ``(rows, labels)`` (``kw["eval"]``). Every step's host
+    wall and, on a process mesh, its staging and collective seconds; the
+    first dispatch's census against ``expected_comms`` and its peak above
+    the resident state; the launches from 0; on a process mesh the global
+    replica check after every step (``check``) and the negative control
+    (``negative``); the steps inside ``capture`` (a context, e.g. a
+    profiler's) when one is given. On the mesh's device (``cuda`` on the
     card; the CPU for a dry run of the phase). Returns a JSON-able dict with
-    ``arrays`` (this process's rows of the params and state, host numpy)."""
+    ``arrays`` (this process's share of the params and state, host
+    numpy)."""
     import numpy as np
 
     from shallowspeed_tpu_torch import cuda_ops, utils
@@ -4905,24 +4961,34 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
     from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh
 
     dp, pp, V, zero = kw["dp"], kw["pp"], kw.get("virtual", 1), kw.get("zero", 0)
+    tp = kw.get("tp", 1)
     procs = isinstance(mesh, ProcessMesh) and mesh.world > 1
-    spec = Mo.make_model_spec(FLAGSHIP, pp * V, X.shape[1])
+    spec = Mo.make_model_spec(mh_sizes(kw), pp * V, X.shape[1])
     prog = lower_schedule(S.InterleavedSchedule if V > 1 else S.GPipeSchedule, MH_MUBATCHES, pp,
                           virtual=V)
     opt = make_optimizer(kw.get("opt", "sgd"), MH_LR)
     dev = mesh.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    stacked, flags = E.init_stacked(spec, mesh, order=E.interleave_order(pp * V, pp) if V > 1 else None)
-    state = E.zero1_init_state(opt, spec, mesh) if zero else opt.init(stacked)
+    order = E.interleave_order(pp * V, pp) if V > 1 else None
+    stacked, flags = E.init_stacked(spec, mesh, order=order)
+    if zero >= 2:
+        state = E.zero_block_init_state(opt, spec, mesh)
+    else:
+        state = E.zero1_init_state(opt, spec, mesh) if zero else opt.init(stacked)
+    if zero == 3:
+        full, _ = E.stack_params(Mo.init_model(spec), spec, order=order, tp=tp)
+        stacked = E.zero_params_at_rest(full, spec, mesh)
+        del full
     rows = multihost.batch_rows(X.shape[1], mesh, ("dp",)) if procs else range(X.shape[1])
     Xd, Yd = (torch.from_numpy(np.ascontiguousarray(a[:, rows.start:rows.stop])).to(dev) for a in (X, Y))
     mb = X.shape[1] // dp // MH_MUBATCHES
-    common = dict(kernel_backend="pallas", zero=zero, clip_norm=kw.get("clip_norm"),
+    common = dict(kernel_backend=kw.get("backend", "pallas"), zero=zero, clip_norm=kw.get("clip_norm"),
                   grad_bucket_bytes=kw.get("grad_bucket_bytes", 0))
-    plan = gradsync.plan_buckets(spec, dp, pp, common["grad_bucket_bytes"], zero=zero)
-    expected = A.expected_comms(spec, dp, pp, prog, zero=zero, mubatch_size=mb, grad_bucket_plan=plan)
+    plan = gradsync.plan_buckets(spec, dp, pp, common["grad_bucket_bytes"], zero=zero, tp=tp)
+    expected = A.expected_comms(spec, dp, pp, prog, zero=zero, mubatch_size=mb, grad_bucket_plan=plan,
+                                tp=tp)
     comm = mesh.comm if procs else None
-    res = dict(losses=[], steps=[], checks=0)
+    res = dict(losses=[], steps=[], checks=0, digests=[])
 
     def audited(fn):
         with A.recording(dev) as (census, memory):
@@ -4936,8 +5002,7 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
     def check():
         if procs and kw.get("check"):
             utils.assert_dp_replicas_in_sync_global(stacked, spec, mesh)
-            if not zero:
-                utils.assert_dp_replicas_in_sync_global(state, spec, mesh)
+            utils.assert_dp_replicas_in_sync_global(state, spec, mesh, sharded=zero >= 1)
             res["checks"] += 1
 
     sync()
@@ -4946,13 +5011,27 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
         comm.reset_stats()
     ctx = capture if capture is not None else contextlib.nullcontext()
     if kw.get("run_epochs"):
+        extra = ()
+        if kw.get("eval"):
+            vx, vy = val
+            n_pad = -(-len(vx) // dp) * dp
+            vxp = np.zeros((n_pad, vx.shape[1]), np.float32)
+            vxp[:len(vx)] = vx
+            vrows = multihost.batch_rows(n_pad, mesh, ("dp",)) if procs else range(n_pad)
+            extra = (torch.from_numpy(vxp[vrows.start:vrows.stop]).to(dev), torch.from_numpy(vy).to(dev))
+            common.update(eval_prog=lower_schedule(S.InferenceSchedule, 1, pp, training=False),
+                          eval_mubatch_size=n_pad // dp)
         run = E.make_pipeline_run(mesh, spec, prog, mb, opt, **common)
         with ctx:
-            stacked, state, losses = audited(lambda: run(stacked, flags, state, Xd, Yd, kw["run_epochs"]))
+            out = audited(lambda: run(stacked, flags, state, Xd, Yd, *extra, kw["run_epochs"]))
+        stacked, state, losses = out[:3]
         res["losses"] = losses.tolist()
+        if kw.get("eval"):
+            res["accs"] = out[3].tolist()
         check()
     else:
-        step = E.make_pipeline_step(mesh, spec, prog, mb, opt, **common)
+        step = E.make_pipeline_step(mesh, spec, prog, mb, opt, with_digests=kw.get("digests", False),
+                                    **common)
 
         def one_step(i):
             nonlocal stacked, state
@@ -4962,9 +5041,12 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
             def call():
                 return step(stacked, flags, state, Xd[i], Yd[i])
 
-            stacked, state, loss = audited(call) if i == 0 else call()
+            out = audited(call) if i == 0 else call()
+            stacked, state, loss = out[:3]
             res["losses"].append(float(loss))  # a sync: the step's wall ends on the card
             wall = time.perf_counter() - t0
+            if kw.get("digests"):
+                res["digests"].append({k: v.tolist() for k, v in out[-1].items()})
             row = dict(wall_s=wall)
             if comm is not None:
                 row.update({k: comm.stats[k] - c0[k] for k in ("staging_s", "collective_s",
@@ -4991,7 +5073,10 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
             res["desync"] = None
         except ValueError as e:
             res["desync"] = str(e)
-    arrays = {f"{k}{l}": a.cpu().numpy() for k in ("W", "b") for l, a in enumerate(stacked[k])}
+    if "P" in stacked:
+        arrays = {"P": stacked["P"].cpu().numpy()}
+    else:
+        arrays = {f"{k}{l}": a.cpu().numpy() for k in ("W", "b") for l, a in enumerate(stacked[k])}
     for path, leaf in utils._leaves(state):
         arrays["state_" + "_".join(str(p) for p in path)] = leaf.cpu().numpy()
     res["arrays"] = arrays
@@ -5000,13 +5085,65 @@ def mh_drive(torch, mesh, kw, X, Y, capture=None):
 
 
 def _mh_share(kw, active, dp_rows, stages):
-    """The flag-kernel launches (each entry) of the ranks ``dp_rows`` x
-    ``stages``: M microbatches x the active slots of their stacked rows,
-    a step."""
+    """The flag-kernel launches of each entry of the ranks ``dp_rows`` x
+    ``stages``: M microbatches x the active slots of their stacked rows, a
+    step, and with the in-run eval one forward microbatch an epoch; none on
+    the plain backend."""
+    if kw.get("backend", "pallas") != "pallas":
+        return {"linear_flag_fwd": 0, "linear_flag_bwd": 0}
     V = kw.get("virtual", 1)
+    slots = len(dp_rows) * sum(active[s * V + ck] for s in stages for ck in range(V))
     steps = kw["run_epochs"] * TRAIN_BATCHES if kw.get("run_epochs") else kw["steps"]
-    return steps * MH_MUBATCHES * len(dp_rows) * sum(
-        active[s * V + ck] for s in stages for ck in range(V))
+    evals = kw["run_epochs"] if kw.get("eval") else 0
+    return {"linear_flag_fwd": (steps * MH_MUBATCHES + evals) * slots,
+            "linear_flag_bwd": steps * MH_MUBATCHES * slots}
+
+
+def mh_sizes(kw):
+    """A leg's layer sizes: the flagship's, or ``kw["model"]``'s with its
+    hidden layers cut to ``kw["hidden"]`` (its widths kept)."""
+    from shallowspeed_tpu_torch import model as Mo
+
+    if not kw.get("model"):
+        return FLAGSHIP
+    sizes = Mo.resolve_model(kw["model"])[0]
+    return sizes[:1] + sizes[1:-1][:kw.get("hidden", len(sizes))] + sizes[-1:]
+
+
+def _mh_spec_mesh(kw):
+    """A leg's model spec and its ``VirtualMesh`` on the CPU (layout
+    arithmetic only)."""
+    from shallowspeed_tpu_torch import model as Mo
+    from shallowspeed_tpu_torch.parallel.mesh import VirtualMesh
+
+    spec = Mo.make_model_spec(mh_sizes(kw), kw["pp"] * kw.get("virtual", 1), 128)
+    return spec, VirtualMesh(kw["dp"], kw["pp"], "cpu", tp=kw.get("tp", 1))
+
+
+def _mh_want(key, full, kw, pm):
+    """Process ``pm``'s share of one of the twin's arrays: a ZeRO tensor's
+    device rows and dp ranks' columns (the ZeRO-3 params ``P``, a zero >= 1
+    state part), a scalar whole, else its stages' rows and tp bands (params
+    ``W<l>``/``b<l>``, a zero-0 state mirror ``state_..._<W|b>_<l>``)."""
+    from shallowspeed_tpu_torch.parallel import executor as E
+
+    if full.ndim == 0:
+        return full
+    if key == "P" or (key.startswith("state") and kw.get("zero")):
+        return E.local_chunks(full, pm)
+    spec, _ = _mh_spec_mesh(kw)
+    kind, l = key.split("_")[-2:] if key.startswith("state") else (key[0], key[1:])
+    return E.local_leaf(full, kind, int(l), spec, pm)
+
+
+def mh_val(data_dir):
+    """The in-run eval's split (21g): the first ``MH_VAL_ROWS`` rows of the
+    validation split and their labels, host numpy."""
+    import numpy as np
+
+    vx = np.load(data_dir / "x_val.npy")[:MH_VAL_ROWS].astype(np.float32)
+    vy = np.argmax(np.load(data_dir / "y_val.npy")[:MH_VAL_ROWS], axis=1).astype(np.int64)
+    return vx, vy
 
 
 def _mh_fleet(work, device):
@@ -5080,57 +5217,58 @@ def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
         work = Path(work)
         np.save(work / "x.npy", X)
         np.save(work / "y.npy", Y)
+        val = mh_val(Path(data_dir))
+        np.save(work / "vx.npy", val[0])
+        np.save(work / "vy.npy", val[1])
         procs, t_spawn = _mh_fleet(work, device)
         # the twins, in this process, while the children start
         twins = {}
         try:
-            for label, _, kw, _ in MH_LEGS:
-                twins[label] = mh_drive(torch, VirtualMesh(kw["dp"], kw["pp"], device), kw, X, Y)
+            for label, _, kw, _ in mh_legs(device):
+                twins[label] = mh_drive(torch, VirtualMesh(kw["dp"], kw["pp"], device, tp=kw.get("tp", 1)),
+                                        kw, X, Y, val=val)
         except BaseException:
             for p in procs:
                 p.kill()
             raise
         outs = _mh_wait(procs, t_spawn)
         fleet_s = time.perf_counter() - t_spawn
-        for label, members, kw, bitwise in MH_LEGS:
+        for label, members, kw, bitwise in mh_legs(device):
             twin = twins[label]
             if twin["census"]:
                 fail(f"{label}: the twin's census {twin['census']}")
             members = members or tuple(range(MH_WORLD))
             world = len(members)
-            V = kw.get("virtual", 1)
             sums = dict.fromkeys(launches, 0)
+            worst = 0.0  # the largest |diff| from the twin over the processes' arrays
             for q, pid in enumerate(members):
                 r = outs[pid]["legs"].get(label)
                 if r is None:
                     fail(f"{label}: process {pid} did not run the leg")
-                pm = ProcessMesh(kw["dp"], kw["pp"], world, q, "cpu")
+                pm = ProcessMesh(kw["dp"], kw["pp"], world, q, "cpu", tp=kw.get("tp", 1))
                 z = np.load(work / f"{mh_slug(label)}.p{pid}.npz")
-                rows = slice(pm.local_stages.start * V, pm.local_stages.stop * V)
+                if set(z.files) != set(twin["arrays"]):
+                    fail(f"{label}: process {pid} saved {sorted(z.files)}, the twin {sorted(twin['arrays'])}")
                 for key, full in twin["arrays"].items():
-                    got = z[key]
-                    if key.startswith("state") and kw.get("zero"):
-                        _, csz = E.zero1_flat_len(Mo.make_model_spec(FLAGSHIP, kw["pp"] * V, 128),
-                                                  VirtualMesh(kw["dp"], kw["pp"], "cpu"))
-                        d = pm.local_dp
-                        want = full[pm.local_stages.start:pm.local_stages.stop,
-                                    d.start * csz:d.stop * csz]
-                    else:
-                        want = full if full.ndim == 0 else full[rows]
+                    got, want = z[key], _mh_want(key, full, kw, pm)
                     if got.shape != want.shape:
                         fail(f"{label}: process {pid}'s {key} has shape {got.shape}, want {want.shape}")
+                    if got.size:
+                        worst = max(worst, float(np.max(np.abs(got - want))))
                     if bitwise and not np.array_equal(got, want):
                         fail(f"{label}: process {pid}'s {key} is not bitwise the twin's "
                              f"(max |diff| {np.max(np.abs(got - want)):.3e})")
                     if not bitwise and not np.allclose(got, want, rtol=SEQ_RTOL, atol=SEQ_ATOL):
                         fail(f"{label}: process {pid}'s {key} is outside the cross-layout class of the "
                              f"twin's (max |diff| {np.max(np.abs(got - want)):.3e})")
-                if bitwise and r["losses"] != twin["losses"]:
-                    fail(f"{label}: process {pid}'s losses {r['losses']} are not the twin's {twin['losses']}")
+                for what in ("losses", "digests", "accs"):
+                    if bitwise and r.get(what) != twin.get(what):
+                        fail(f"{label}: process {pid}'s {what} {r.get(what)} are not the twin's "
+                             f"{twin.get(what)}")
+                    if r.get(what) != outs[members[0]]["legs"][label].get(what):
+                        fail(f"{label}: the processes returned different {what}")
                 if not np.allclose(r["losses"], twin["losses"], rtol=SEQ_RTOL, atol=0):
                     fail(f"{label}: process {pid}'s losses {r['losses']} vs the twin's {twin['losses']}")
-                if r["losses"] != outs[members[0]]["legs"][label]["losses"]:
-                    fail(f"{label}: the processes returned different losses")
                 if r["census"]:
                     fail(f"{label}: process {pid}'s census: {r['census']}")
                 want_checks = (1 if kw.get("run_epochs") else kw["steps"]) if kw.get("check") else 0
@@ -5138,9 +5276,9 @@ def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
                     fail(f"{label}: process {pid} ran {r['checks']} global replica checks, want {want_checks}")
                 share = _mh_share(kw, twin["active"], pm.local_dp, pm.local_stages)
                 for e in launches:
-                    if device == "cuda" and r["launches"].get(e, 0) != share:
+                    if device == "cuda" and r["launches"].get(e, 0) != share[e]:
                         fail(f"{label}: process {pid} launched {r['launches']}, its ranks' share is "
-                             f"{share} each of B5/B7")
+                             f"{share}")
                     sums[e] += r["launches"].get(e, 0)
                 if kw.get("negative") and not (r["desync"] or "").startswith(
                         "cross-process replica desync at (leaf, shard-index)"):
@@ -5151,27 +5289,42 @@ def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
                 launches[e] += sums[e]
             legs = [outs[p]["legs"][label] for p in members]
             if kw.get("grad_bucket_bytes"):
-                spec = Mo.make_model_spec(FLAGSHIP, kw["pp"], 128)
-                plan = gradsync.plan_buckets(spec, kw["dp"], kw["pp"], kw["grad_bucket_bytes"])
-                want = [["all_reduce", b] for b in plan.bucket_census_bytes()]
+                spec, _ = _mh_spec_mesh(kw)
+                zero = kw.get("zero", 0)
+                plan = gradsync.plan_buckets(spec, kw["dp"], kw["pp"], kw["grad_bucket_bytes"], zero=zero)
+                site, kind = ("zero_sum", "reduce_scatter") if zero else ("dp_sum", "all_reduce")
+                want = [[kind, b] for b in plan.bucket_census_bytes()]
                 for r in legs:
-                    got = [r["sites"].get(f"dp_sum.bucket{i}") for i in range(plan.num_buckets)]
-                    if got != want or "dp_sum" in r["sites"] or plan.num_buckets < 3:
-                        fail(f"{label}: bucket sites {r['sites']}, want one all-reduce a bucket {want}")
-                base = "21b gpipe momentum"
+                    got = [r["sites"].get(f"{site}.bucket{i}") for i in range(plan.num_buckets)]
+                    if got != want or site in r["sites"] or plan.num_buckets < 3:
+                        fail(f"{label}: bucket sites {r['sites']}, want one {kind} a bucket {want}")
+                # the unbucketed leg of the same recipe: bitwise at zero 0,
+                # within the class at zero 2 (its anchor sums each tick's
+                # microbatch over the replicas, the bucketed tail each
+                # replica's microbatches first)
+                base = "21d zero2 x4" if zero else "21b gpipe momentum"
                 for pid in members:
                     a = np.load(work / f"{mh_slug(label)}.p{pid}.npz")
                     b = np.load(work / f"{mh_slug(base)}.p{pid}.npz")
-                    if any(not np.array_equal(a[k], b[k]) for k in a.files):
-                        fail(f"{label}: process {pid} is not bitwise the unbucketed leg")
+                    same = all(np.array_equal(a[k], b[k]) for k in a.files)
+                    near = all(np.allclose(a[k], b[k], rtol=SEQ_RTOL, atol=SEQ_ATOL) for k in a.files)
+                    if not (same if not zero else near):
+                        fail(f"{label}: process {pid} is not {'bitwise' if not zero else 'within the class of'} "
+                             f"the unbucketed leg")
             staged = sum(r["comm"]["staged_bytes"] for r in legs)
+            V = kw.get("virtual", 1)
+            shape = (f"DP={kw['dp']} x PP={kw['pp']}" + (f" x TP={kw['tp']}" if kw.get("tp", 1) > 1 else "")
+                     + (f" x V={V}" if V > 1 else "") + (f", zero {kw['zero']}" if kw.get("zero") else "")
+                     + (f", {kw['model']}" if kw.get("model") else ""))
             note(
-                f"{label} ({card}; {world} processes, DP={kw['dp']} x PP={kw['pp']}"
-                f"{f' x V={V}' if V > 1 else ''}): {'bitwise' if bitwise else 'within 3e-4/3e-6 of'} "
-                f"the twin, losses {legs[0]['losses'][:3]}{'...' if len(legs[0]['losses']) > 3 else ''}; "
-                f"B5/B7 a process {[r['launches'].get('linear_flag_fwd', 0) for r in legs]} (twin "
-                f"{twin['launches'].get('linear_flag_fwd', 0)}); censuses clean; replica checks "
-                f"{legs[0]['checks']}; staged {staged} bytes in "
+                f"{label} ({card}; {world} processes, {shape}): {'bitwise' if bitwise else 'within 3e-4/3e-6 of'} "
+                f"the twin (max |diff| {worst:.3e}), losses {legs[0]['losses'][:3]}{'...' if len(legs[0]['losses']) > 3 else ''}"
+                + (f", accuracies {legs[0]['accs']}" if kw.get("eval") else "")
+                + (f", digests of {len(legs[0]['digests'])} steps" if kw.get("digests") else "")
+                + f"; B5/B7 a process {[r['launches'].get('linear_flag_fwd', 0) for r in legs]}/"
+                f"{[r['launches'].get('linear_flag_bwd', 0) for r in legs]} (twin "
+                f"{twin['launches'].get('linear_flag_fwd', 0)}/{twin['launches'].get('linear_flag_bwd', 0)}); "
+                f"censuses clean; replica checks {legs[0]['checks']}; staged {staged} bytes in "
                 f"{sum(r['comm']['staged_copies'] for r in legs)} pinned copies, "
                 f"{sum(r['comm']['collectives'] for r in legs)} collectives"
                 + (f"; desync detected on every process: {legs[0]['desync']}" if kw.get("negative") else "")
@@ -5191,9 +5344,13 @@ def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
                     f"collectives, mean of steps 2-{len(tw) + 1}): {'; '.join(per)}; the twin's wall "
                     f"{sum(s['wall_s'] for s in tw) / len(tw) * 1e3:.3f} ms")
 
-        note(wall_split("21a", MH_LEGS[0][1]))
+        note(wall_split("21a", MH_LABELS["21a"][0]))
+        for label in ("21d zero3", "21e dp2 tp2", "21e dp2 pp2 tp2", "21h mlp-deep zero2",
+                      "21h mlp-deep zero3"):
+            if label in twins:
+                note(wall_split(label, range(MH_WORLD)))
         cap = spans.capture(str(work / "trace"), cuda=device == "cuda")
-        timed = mh_drive(torch, VirtualMesh(4, 1, device), MH_LEGS[-2][2], X, Y, capture=cap)
+        timed = mh_drive(torch, VirtualMesh(4, 1, device), MH_LABELS["21c dp4"][1], X, Y, capture=cap)
         busy = trace_stats.dispatch_busy(cap.path)
         n_steps = len(timed["steps"])
         note(
@@ -5220,12 +5377,38 @@ def phase_multihost(torch, cuda_ops, data_dir, card, device="cuda"):
                 f"{[round(p / fc['total_bytes'], 4) for p in peaks]}; the twin's 4 ranks in one "
                 f"process {twins[label]['peak_above_resident_bytes'] / 2**20:.4f} MiB above"
             )
+        # mlp-deep's zero-2 and zero-3 peaks a process (one rank each)
+        for label in [x for x in ("21h mlp-deep zero2", "21h mlp-deep zero3") if x in twins]:
+            kw = MH_LABELS[label][1]
+            spec, _ = _mh_spec_mesh(kw)
+            fc = A.zero_peak_forecast(spec, kw["dp"], kw["pp"], state_parts=1)["stages"][str(kw["zero"])]
+            rs = [outs[p]["legs"][label] for p in range(MH_WORLD)]
+            z = [np.load(work / f"{mh_slug(label)}.p{p}.npz") for p in range(MH_WORLD)]
+            resident = [sum(zz[k].nbytes for k in zz.files) for zz in z]
+            if any(r["peak_above_resident_bytes"] is None for r in rs):
+                note(f"{label} peak: not measured (no device allocator on {device})")
+                continue
+            peaks = [r["peak_above_resident_bytes"] + b for r, b in zip(rs, resident)]
+            note(
+                f"{label} peak a process ({card}): resident params + state + the step's peak above "
+                f"what was allocated {[round(p / 2**20, 4) for p in peaks]} MiB (resident "
+                f"{[round(b / 2**20, 4) for b in resident]}, above "
+                f"{[round(r['peak_above_resident_bytes'] / 2**20, 4) for r in rs]}) beside "
+                f"zero_peak_forecast (stage {kw['zero']}, momentum) x 1 local rank "
+                f"{fc['total_bytes'] / 2**20:.4f} MiB (params {fc['params_bytes'] / 2**20:.4f}, grads "
+                f"{fc['grads_bytes'] / 2**20:.4f}, state {fc['state_bytes'] / 2**20:.4f}, transient "
+                f"{fc['transient_bytes'] / 2**20:.4f}): measured / forecast "
+                f"{[round(p / fc['total_bytes'], 4) for p in peaks]}; the twin's 4 ranks in one process "
+                f"{twins[label]['peak_above_resident_bytes'] / 2**20:.4f} MiB above"
+            )
         imports = [round(o["import_s"], 2) for o in outs]
         note(f"21 fleet: {MH_WORLD} children on {card} over gloo, import torch + package {imports} s, "
              f"the fleet's wall {fleet_s:.2f} s from the spawn")
-    say(f"phase 21 multihost: ok: 21a, 21b bitwise where the sum order is kept, the rest within the "
-        f"class, replicas hash-equal, the desync detected, B5/B7 launches a process exact, censuses "
-        f"clean; {time.perf_counter() - t_phase:.2f} s")
+    say(f"phase 21 multihost: ok: 21a-21h bitwise where the sum order is kept (zero 2 and 3, tp "
+        f"inside a process, digests, the run's eval), the rest (tp across processes too) within the "
+        f"class, replicas "
+        f"hash-equal, the desync detected, B5/B7 and B6/B8 launches a process exact, censuses clean; "
+        f"{time.perf_counter() - t_phase:.2f} s")
     return launches
 
 

@@ -6,10 +6,11 @@
 ``WORLD`` of these, started together, join one gloo process group on
 ``localhost:PORT`` (``multihost.initialize``; DEVICE ``cuda``, the
 default, puts every process on ``cuda:0``, ``cpu`` runs the same on the
-CPU) and run each leg of ``chip_smoke.MH_LEGS`` on a process mesh over
-the processes the leg names (``chip_smoke.mh_drive``, the same function
-that runs the lockstep twin in the parent), on the batches ``WORK/x.npy``
-and ``WORK/y.npy``. Each leg's rows of the params and optimizer state go
+CPU) and run each leg of ``chip_smoke.mh_legs(DEVICE)`` on a process mesh
+over the processes the leg names (``chip_smoke.mh_drive``, the same
+function that runs the lockstep twin in the parent), on the batches
+``WORK/x.npy`` and ``WORK/y.npy`` (the in-run eval on ``WORK/vx.npy`` and
+``WORK/vy.npy``). Each leg's share of the params and optimizer state goes
 to ``WORK/<leg>.p<PID>.npz``; the last line of the standard output is one
 JSON object of every leg's losses, launches, census, replica checks and
 step walls. Imports the port (and ``chip_smoke.py``'s standard-library
@@ -40,11 +41,13 @@ def main():
     multihost.initialize(f"localhost:{port}", num_processes=world, process_id=pid, backend="gloo",
                          device=device, timeout_s=C.MH_COLLECTIVE_TIMEOUT_S)
     X, Y = np.load(work / "x.npy"), np.load(work / "y.npy")
+    val = np.load(work / "vx.npy"), np.load(work / "vy.npy")
     out = {"pid": pid, "import_s": import_s, "legs": {}}
-    for label, processes, kw, _ in C.MH_LEGS:
-        mesh = multihost.make_process_mesh(kw["dp"], kw["pp"], device=device, processes=processes)
+    for label, processes, kw, _ in C.mh_legs(device):
+        mesh = multihost.make_process_mesh(kw["dp"], kw["pp"], kw.get("tp", 1), device=device,
+                                           processes=processes)
         if mesh is not None:
-            res = C.mh_drive(torch, mesh, kw, X, Y)
+            res = C.mh_drive(torch, mesh, kw, X, Y, val=val)
             np.savez(work / f"{C.mh_slug(label)}.p{pid}.npz", **res.pop("arrays"))
             out["legs"][label] = res
         dist.barrier()  # a leg on part of the fleet: the others wait here

@@ -10,7 +10,8 @@ split, with the same checks and lines: four child processes
 held to the lockstep twin run in this process. The quick way to check a
 change to ``parallel/multihost.py`` or the executor's movers on the card.
 ``--device cpu`` runs the phase's logic on the CPU (the kernels' plain
-versions; no GPU needed). Exits non-zero when a check fails or, without
+versions, and without mlp-deep's legs, a card-size model; no GPU
+needed). Exits non-zero when a check fails or, without
 ``--device cpu``, no GPU is present.
 """
 

@@ -2,8 +2,9 @@
 
 - ``lowering``  the JAX package's schedule -> clock-tick compiler, copied:
                 numpy tables indexed [tick, stage];
-- ``mesh``      the virtual ``(dp, pp)`` mesh and the one device it lives on,
-                and ``ProcessMesh``, the same grid laid over processes;
+- ``mesh``      the virtual ``(dp, pp[, tp])`` mesh and the one device it
+                lives on, and ``ProcessMesh``, the same grid laid over
+                processes;
 - ``executor``  the lockstep tick interpreter over zero-padded stacked stage
                 parameters: every virtual rank runs its table cell, payloads
                 move between neighbouring ranks' mailboxes, and the dp

@@ -33,17 +33,38 @@ everything but the physical placement:
 runtime (``parallel/mpmd.py``) reuses the stage functions and ``dp_sum``
 per stage, each stage on its own CUDA stream of the one device. On a
 ``ProcessMesh`` (``parallel/multihost.py``) each process runs only its own
-ranks over only its stages' rows, and a mover whose ends sit in two
+ranks over only its stages' rows and its tp ranks' bands (a Megatron pass
+multiplies only the held bands), and a mover whose ends sit in two
 processes becomes a ``torch.distributed`` collective of the mesh's
 ``ProcessComm`` (below ``_shard_sum``): a tick's cross-process relays in
 one ``batch_isend_irecv``, the dp sum an ``all_reduce`` (one a bucket with
-``grad_bucket_bytes``), ZeRO-1's sum a ``reduce_scatter_tensor`` and its
-gather an ``all_gather_into_tensor``, the loss and the inference head's
-predictions a ``broadcast`` from the head stage's process, and every
-global norm an ``all_reduce`` of per-process squares. Each process sums
-its own replicas in replica order first, so at dp = 2 without a norm the
-result is bitwise the one-process run. Zero 2/3 and digests are refused
-there (ROADMAP item 7b).
+``grad_bucket_bytes``), ZeRO-1's and bucketed ZeRO-2's sum a
+``reduce_scatter_tensor`` (one a bucket) and their gather an
+``all_gather_into_tensor``, ZeRO-2's and ZeRO-3's per-tick sum one
+``reduce_scatter_tensor`` a slot and ZeRO-3's per-tick parameter gather
+one ``all_gather_into_tensor`` a stage, over the dp group; each Megatron
+sum an ``all_reduce`` over the tp group; the loss and the inference head's
+predictions a ``broadcast`` from the head stage's process; every global
+norm an ``all_reduce`` of per-process squares; the digest grids an
+``all_reduce`` of zero grids filled at each process's rows; the fused
+run's eval an ``all_reduce`` of the correct predictions' count. Each
+process sums its own replicas (and tp ranks) in order first, so at dp = 2
+without a norm, and with tp inside a process, the result is bitwise the
+one-process run; where tp crosses processes a product batched over the
+held ranks has another shape than the one-process run's batch over every
+rank and may reduce otherwise, so it is held to the cross-layout class.
+
+No collective waits on a process that is not yet issuing it: every
+process walks the same tick tables, and between two ticks' relays (the
+one exchange every process reaches at a tick's end) a process issues
+collectives only over its dp and tp groups, whose members run the same
+cells in the same order — a dp group holds the same stages and tp ranks,
+a tp group the same dp rows and stages — so they issue the same
+collectives in the same order: a cell's Megatron sums in stage-pass order
+per replica, then the tick's per-slot scatters (its gathers before the
+cell). Every collective is bounded by the group's timeout
+(``multihost.DEFAULT_TIMEOUT_S``), so a mismatch fails instead of
+hanging.
 
 The host knows every slot's ``active`` and ``relu`` flag (``flags`` are
 host numpy), so each tick's work is decided on the host: a noop cell costs
@@ -102,14 +123,16 @@ of a ``(d, s)`` position — even slots column-parallel (rank t holds the row
 band ``W[t*o/tp:(t+1)*o/tp, :]``), odd slots row-parallel (the column band
 ``W[:, t*i/tp:(t+1)*i/tp]``), every bias its ``out/tp`` band — with slot dims
 rounded up to tp multiples (``slot_shapes(spec, tp)``). The stacked slabs
-stay the full global layout, and a rank's params and gradients are views
-of them, so ``dp_sum``, the optimizer tail and the checkpoints see the same
+stay the full global layout (on a process mesh each process holds its tp
+ranks' bands of them), and a rank's params and gradients are views of
+them, so ``dp_sum``, the optimizer tail and the checkpoints see the same
 layout at any tp; the ZeRO layouts hold ``pp * tp`` rows of rank-local
 shards, as the JAX package's. The ``_stage_*_tp`` functions compute every
 tp rank of a position together, slot by slot (one batched product over the
 rank views per slot), and each of the JAX executor's ``psum`` over ``tp``
-is a sum over the ranks in rank order (``_rank_sum``); the sums that
-reassemble a sharded value add exact zeros. At tp = 1 none of them runs.
+is a sum over the ranks in rank order (``_rank_sum``; across processes
+then an all-reduce over the tp group); the sums that reassemble a sharded
+value add exact zeros. At tp = 1 none of them runs.
 
 The data movers between virtual ranks (``relay``, ``dp_sum``, the ZeRO
 sums, scatters and gathers, ``_rank_sum`` and the inference head's
@@ -353,17 +376,103 @@ def put_stacked(stacked_np, device):
     }
 
 
+def tp_band_axis(kind, l):
+    """The axis of a stacked ``(S, ...)`` leaf that tp splits into rank
+    bands: the rows of a column-parallel (even) slot's W and every bias's
+    outputs (1), the columns of a row-parallel (odd) slot's W (2)."""
+    return 2 if kind == "W" and l % 2 else 1
+
+
+def _band_index(mesh, q, shape, kind, l, V):
+    """Process ``q``'s index (this one's by default) into a full stacked
+    leaf of ``shape`` on a ``ProcessMesh``: its stages' ``V`` rows each
+    and, at tp > 1, its tp ranks' band of the leaf's band axis."""
+    _, s, t = mesh.ranks(q)
+    idx = [slice(s.start * V, s.stop * V)] + [slice(None)] * (len(shape) - 1)
+    if mesh.tp > 1:
+        ax = tp_band_axis(kind, l)
+        w = shape[ax] // mesh.tp
+        idx[ax] = slice(t.start * w, t.stop * w)
+    return tuple(idx)
+
+
+def _full_leaf_shape(share_shape, kind, l, mesh, S):
+    """The full stacked leaf's shape (``S`` rows) of a process's share
+    (every process holds as many tp ranks)."""
+    shape = [S] + list(share_shape[1:])
+    if mesh.tp > 1:
+        ax = tp_band_axis(kind, l)
+        shape[ax] = share_shape[ax] * mesh.tp // len(mesh.local_tp)
+    return tuple(shape)
+
+
+def local_leaf(a, kind, l, spec: ModelSpec, mesh):
+    """This process's share of one full host stacked leaf on a
+    ``ProcessMesh``: its stages' rows and, at tp > 1, its tp ranks' band
+    (``local_stacked``)."""
+    a = np.asarray(a)
+    V = spec.n_stages // mesh.pp
+    return np.ascontiguousarray(a[_band_index(mesh, None, a.shape, kind, l, V)])
+
+
+def local_chunks(full, mesh, q=None):
+    """Process ``q``'s share (this one's by default) of a ``(pp*tp,
+    dp*chunk)`` ZeRO tensor (the flat or block-cyclic params, gradient or
+    state) on a ``ProcessMesh``: its device rows and its dp ranks'
+    columns. The whole tensor on any other mesh."""
+    if not isinstance(mesh, ProcessMesh):
+        return full
+    r, d = mesh.device_rows_of(q), mesh.ranks(q)[0]
+    csz = full.shape[1] // mesh.dp
+    return full[r.start:r.stop, d.start * csz:d.stop * csz]
+
+
+def stacked_from_shares(shares, mesh, num_chunks=1, spec=None):
+    """The inverse of ``local_stacked`` and ``local_chunks``: the full host
+    stacked ``{W, b}`` tree from every process's share of it (host numpy,
+    in process order) — each a ``{W, b}`` tree of its rows and bands, or
+    at ZeRO 3 its ``{"P": ...}`` chunks, which are placed in the
+    ``(pp*tp, dp*csz3)`` block-cyclic rows and unflattened (``spec``)."""
+    if "P" in shares[0]:
+        if spec is None:
+            raise ValueError("unflattening ZeRO-3 shards needs the model spec")
+        _, csz3 = zero_block_len(spec, mesh)
+        full = np.zeros((mesh.pp * mesh.tp, mesh.dp * csz3), np.float32)
+        for q, share in enumerate(shares):
+            local_chunks(full, mesh, q)[...] = share["P"]
+        return zero_block_unflatten_rows(full, spec, mesh)
+    full = {}
+    for k, l, a in _tree_leaves(shares[0]):
+        shape = _full_leaf_shape(a.shape, k, l, mesh, mesh.pp * num_chunks)
+        dst = np.zeros(shape, np.float32)
+        for q, share in enumerate(shares):
+            dst[_band_index(mesh, q, shape, k, l, num_chunks)] = share[k][l]
+        full.setdefault(k, []).append(dst)
+    return {k: tuple(v) for k, v in full.items()}
+
+
+def local_stacked(stacked_np, spec: ModelSpec, mesh):
+    """This process's share of a full host stacked ``{W, b}`` tree on a
+    ``ProcessMesh``: its stages' rows and, at tp > 1, its tp ranks' bands
+    of them (the rows of a column slot's W, the columns of a row slot's,
+    the outputs of every bias: what a JAX device holds under
+    ``stacked_param_specs``). The whole tree on any other mesh."""
+    if not isinstance(mesh, ProcessMesh):
+        return stacked_np
+    out = {"W": [], "b": []}
+    for k, l, a in _tree_leaves(stacked_np):
+        out[k].append(local_leaf(a, k, l, spec, mesh))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def init_stacked(spec: ModelSpec, mesh, order=None):
     """The deterministic init, stacked in ``order`` at the mesh's tp:
     ``(stacked tensors on the mesh's device, host flags)``. On a
-    ``ProcessMesh`` the tensors are this process's stages' rows only (every
-    process builds the same init); the flags stay whole."""
+    ``ProcessMesh`` the tensors are this process's share
+    (``local_stacked``; every process builds the same init); the flags
+    stay whole."""
     stacked, flags = stack_params(init_model(spec), spec, order=order, tp=mesh_tp(mesh))
-    if isinstance(mesh, ProcessMesh):
-        V = spec.n_stages // mesh.pp
-        s = mesh.local_stages
-        stacked = {k: tuple(a[s.start * V:s.stop * V] for a in v) for k, v in stacked.items()}
-    return put_stacked(stacked, mesh.device), flags
+    return put_stacked(local_stacked(stacked, spec, mesh), mesh.device), flags
 
 
 # ---------------------------------------------------------------------------
@@ -511,11 +620,12 @@ def _zero_state(opt, mesh, width, rows_of=None):
         if rows_of is not None:
             raise ValueError(
                 "a ZeRO state from the logical form on a process mesh: slice "
-                "this process's stages' rows and dp ranks' columns of the full "
+                "this process's device rows and dp ranks' columns of the full "
                 "state instead"
             )
-        # this process's chunks: its stages' rows, its dp ranks' columns
-        n_rows = len(mesh.local_stages)
+        # this process's chunks: its (stage, tp) device rows, its dp ranks'
+        # columns
+        n_rows = len(mesh.device_rows)
         width = len(mesh.local_dp) * (width // mesh.dp)
     state = {}
     for key in parts:
@@ -533,7 +643,7 @@ def zero1_init_state(opt, spec: ModelSpec, mesh):
     """The initial ZeRO-1 optimizer state: one ``(pp*tp, dp*chunk)`` zeros
     tensor per 'params' state part, a 0-d tensor per 'scalar' part; ``()``
     for a stateless optimizer. On a ``ProcessMesh``, this process's chunks
-    only: ``(local stages, local dp ranks * chunk)``."""
+    only: ``(its device rows, its dp ranks * chunk)``."""
     _, csz = zero1_flat_len(spec, mesh)
     return _zero_state(opt, mesh, mesh.dp * csz)
 
@@ -712,7 +822,8 @@ def zero_block_unflatten_rows(arr, spec, mesh):
 
 def zero_block_init_state(opt, spec: ModelSpec, mesh):
     """The initial ZeRO-2/3 optimizer state: ``zero1_init_state`` with the
-    block-cyclic ``dp*csz3`` columns."""
+    block-cyclic ``dp*csz3`` columns (on a ``ProcessMesh`` this process's
+    device rows and dp ranks' columns)."""
     _, csz3 = zero_block_len(spec, mesh)
     return _zero_state(opt, mesh, mesh.dp * csz3)
 
@@ -743,9 +854,11 @@ def zero_block_state_from_logical(logical, opt, spec: ModelSpec, mesh, order=Non
 
 def zero_params_at_rest(stacked_np, spec, mesh):
     """The ZeRO-3 params at rest on the mesh's device: ``{"P": (pp*tp,
-    dp*csz3)}`` from a host stacked ``{W, b}`` tree."""
-    rows = zero_block_flatten_rows(stacked_np, spec, mesh)
-    return {"P": torch.from_numpy(rows).to(mesh.device)}
+    dp*csz3)}`` from a full host stacked ``{W, b}`` tree; on a
+    ``ProcessMesh`` this process's shard, its device rows and its dp ranks'
+    columns."""
+    rows = local_chunks(zero_block_flatten_rows(stacked_np, spec, mesh), mesh)
+    return {"P": torch.from_numpy(np.ascontiguousarray(rows)).to(mesh.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -875,49 +988,66 @@ def _undeal_into(rows, slots, tree, P, dp, tp=1):
         view.copy_(_undeal_slot(rows, s, P * tp, dp).reshape(view.shape))
 
 
-def _gather_chunk(pv, slots, s, ck, L, tp=1):
+def _gather_chunk(pv, slots, s, ck, L, tp=1, comm=None):
     """ZeRO-3's per-tick gather: pp rank ``s``'s chunk ``ck`` slot rows
-    rebuilt from every dp rank's shard (``pv``: the ``(pp*tp, dp, csz3)``
-    view), once for all replicas, at tp > 1 every tp rank's shard placed
-    in the chunk's global rows; returns ``(Ws, bs)`` (one site per tick
-    branch on the census, a rank's gathered chunk its bytes)."""
+    rebuilt from every dp rank's shard (``pv``: the ``(rows, dl, csz3)``
+    view of the shards held here, ``s`` the stage's index among the held
+    stages, ``tp`` the held tp ranks a stage), once for all replicas, at
+    tp > 1 every held tp rank's shard placed in the chunk's rows (on a
+    process mesh the held ranks' bands). With ``comm`` (a process mesh
+    whose dp group spans processes) the held dp ranks' segments of every
+    slot go out in one ``all_gather`` over the dp group. Returns ``(Ws,
+    bs)`` (one site per tick branch on the census, a rank's gathered chunk
+    its bytes)."""
     if A.active is not None:
         A.active.note(
             "all_gather", A.active.here("zero3_gather"),
             4 * sum(sl.sz for sl in slots),
         )
+    segs = [pv[s * tp:(s + 1) * tp, :, sl.off + ck * sl.k:sl.off + (ck + 1) * sl.k]
+            for sl in slots]
+    if comm is not None and comm.size("dp") > 1:
+        held = torch.cat(segs, dim=2)  # (tp, dl, sum k)
+        full = comm.all_gather(held, "dp").permute(1, 0, 2, 3).reshape(tp, -1, held.shape[2])
+        offs = np.cumsum([0] + [sl.k for sl in slots]).tolist()
+        segs = [full[:, :, o:o + sl.k] for o, sl in zip(offs, slots)]
     out = []
-    for sl in slots:
-        a = sl.off + ck * sl.k
+    for sl, seg in zip(slots, segs):
         if tp == 1:
-            full = pv[s, :, a : a + sl.k].reshape(-1)
-            out.append(full[: sl.sz].view(sl.shape))
+            out.append(seg.reshape(-1)[: sl.sz].view(sl.shape))
             continue
-        shards = pv[s * tp : (s + 1) * tp, :, a : a + sl.k].reshape(tp, -1)[:, : sl.sz]
-        row = pv.new_empty((1,) + _global_shape(sl, tp))
+        shards = seg.reshape(tp, -1)[:, : sl.sz]
+        row = seg.new_empty((1,) + _global_shape(sl, tp))
         view = _rank_view(row, sl.kind, sl.layer, 1, tp)
         view.copy_(shards.reshape(view.shape))
         out.append(row[0])
     return out[:L], out[L:]
 
 
-def _scatter_tick(gzv, slots, L, s, ck, dp, pending, tp=1):
+def _scatter_tick(gzv, slots, L, s, ck, dp, pending, tp=1, comm=None):
     """The per-tick reduce-scatter of ZeRO-2 (anchor) and ZeRO-3: each
-    slot's gradient of this tick, already summed over the replicas in
+    slot's gradient of this tick, already summed over the held replicas in
     replica order (``pending``: slot -> (dW, db), at tp > 1 each stacked
-    over the tp ranks), every device row's shard padded to dp*k and added
-    into its dp ranks' segments of the shard carry (``gzv``: the
-    ``(pp*tp, dp, csz3)`` view). One site per slot and tick branch on the
-    census, a rank's shard segment its bytes."""
+    over the held tp ranks), every device row's shard padded to dp*k and
+    added into its dp ranks' segments of the shard carry (``gzv``: the
+    ``(rows, dl, csz3)`` view of the carry held here, ``s`` the stage's
+    index among the held stages). With ``comm`` (a process mesh whose dp
+    group spans processes) each slot's sum is one ``reduce_scatter`` over
+    the dp group, this process keeping its dp ranks' segments. One site
+    per slot and tick branch on the census, a rank's shard segment its
+    bytes."""
     c = A.active
+    G = 1 if comm is None else comm.size("dp")
     for l, grads in pending.items():
         for si, g in zip((l, L + l), grads):
             sl = slots[si]
             if c is not None:
                 c.note("reduce_scatter", c.here(f"zero_scatter.{si}"), 4 * sl.k)
             a = sl.off + ck * sl.k
-            seg = gzv[s * tp : (s + 1) * tp, :, a : a + sl.k]
-            seg.add_(_fit(g.reshape(tp, -1), dp * sl.k).view(tp, dp, sl.k))
+            g = _fit(g.reshape(tp, -1), dp * sl.k)
+            if G > 1:
+                g = comm.reduce_scatter(g.view(tp, G, -1).transpose(0, 1), "dp")
+            gzv[s * tp:(s + 1) * tp, :, a:a + sl.k].add_(g.view(tp, -1, sl.k))
 
 
 # ---------------------------------------------------------------------------
@@ -1059,19 +1189,24 @@ def _stage_bwd_weight(active, xs, g_effs, sink):
 # same bits on every rank) is one ``(rows, w)`` tensor, and a rank's weights
 # are views of the chunk's global slot rows (``_tp_w``/``_tp_b``). Each slot
 # runs one batched product over the rank views; each ``psum`` over 'tp' is
-# ``_rank_sum``. Exactness, as in the JAX package: the sums that reassemble
-# a sharded value (an inactive slot's passthrough, the closing gather, the
-# scattered row bias) add exact zeros, while the row-parallel forward and
-# the column-parallel dx split a contraction over the ranks and so
-# reassociate it — the cross-layout class against tp = 1, bitwise only
-# across same-layout knobs. The split and combined backward make the same
-# calls (``_stage_bwd_tp`` is the literal composition of its halves).
+# ``_rank_sum``. The ranks a pass computes are a ``TpRanks``: every rank on
+# a virtual mesh, and on a process mesh whose tp group spans processes
+# only this process's block, whose bands it holds — its products batch over
+# those ranks alone, and a sum adds them then all-reduces over the tp group.
+# Exactness, as in the JAX package: the sums that reassemble a sharded value
+# (an inactive slot's passthrough, the closing gather, the scattered row
+# bias) add exact zeros, while the row-parallel forward and the
+# column-parallel dx split a contraction over the ranks and so reassociate
+# it — the cross-layout class against tp = 1, bitwise only across
+# same-layout knobs. The split and combined backward make the same calls
+# (``_stage_bwd_tp`` is the literal composition of its halves).
 
 
 def _tp_w(W, l, tp):
-    """Slot ``l``'s rank views of a global W row ``(o, i)``: ``(tp, o/tp,
-    i)`` row bands at a column-parallel (even) slot, ``(tp, o, i/tp)``
-    column bands at a row-parallel (odd) one."""
+    """Slot ``l``'s rank views of a W row whose bands are ``tp`` ranks'
+    (the global row, or a process's held bands): ``(tp, o/tp, i)`` row
+    bands at a column-parallel (even) slot, ``(tp, o, i/tp)`` column bands
+    at a row-parallel (odd) one."""
     o, i = W.shape
     if l % 2 == 0:
         return W.view(tp, o // tp, i)
@@ -1079,41 +1214,66 @@ def _tp_w(W, l, tp):
 
 
 def _tp_b(b, tp):
-    """The rank bands ``(tp, o/tp)`` of a global bias row ``(o,)``."""
+    """The rank bands ``(tp, o/tp)`` of a bias row ``(o,)`` of ``tp``
+    ranks' bands."""
     return b.view(tp, -1)
 
 
-def _tp_shard(a, tp):
-    """Every rank's width-``w/tp`` slice of a full-width ``(rows, w)``
-    value, stacked ``(tp, rows, w/tp)`` (exact: column selection)."""
+class TpRanks(NamedTuple):
+    """The tp ranks a Megatron stage pass computes: ``tp`` the mesh's
+    degree, ``ranks`` the ranks held here (every rank on a virtual mesh; on
+    a ``ProcessMesh`` this process's block), ``comm`` the ``ProcessComm``
+    whose tp group holds the others (None when every rank is here)."""
+
+    tp: int
+    ranks: range
+    comm: object = None
+
+    @property
+    def n(self):
+        return len(self.ranks)
+
+
+def _tp_shard(a, tr):
+    """The held ranks' width-``w/tp`` slices of a full-width ``(rows, w)``
+    value, stacked ``(n, rows, w/tp)`` (exact: column selection)."""
     rows, w = a.shape
-    return a.reshape(rows, tp, w // tp).transpose(0, 1)
+    sh = a.reshape(rows, tr.tp, w // tr.tp).transpose(0, 1)
+    return sh if tr.n == tr.tp else sh[tr.ranks.start:tr.ranks.stop]
 
 
-def _tp_scatter(a_sh, full_w):
-    """Each rank's shard at its column offset in a zero full-width value:
-    ``(tp, rows, w)`` -> ``(tp, rows, full_w)``; the rank sum of it is the
-    all-gather (each column written by one rank, the others add 0.0)."""
-    tp, rows, w = a_sh.shape
-    if full_w != tp * w:
-        raise ValueError(f"tp scatter of {tp} x {w} columns into {full_w}")
-    z = a_sh.new_zeros((tp, rows, tp, w))
-    z.diagonal(dim1=0, dim2=2).copy_(a_sh.permute(1, 2, 0))
-    return z.view(tp, rows, full_w)
+def _tp_scatter(a_sh, full_w, tr):
+    """Each held rank's shard at its column offset in a zero full-width
+    value: ``(n, rows, w)`` -> ``(n, rows, full_w)``; the rank sum of it
+    is the all-gather (each column written by one rank, the others add
+    0.0)."""
+    n, rows, w = a_sh.shape
+    if full_w != tr.tp * w:
+        raise ValueError(f"tp scatter of {tr.tp} x {w} columns into {full_w}")
+    z = a_sh.new_zeros((n, rows, tr.tp, w))
+    held = z[:, :, tr.ranks.start:tr.ranks.stop]
+    held.diagonal(dim1=0, dim2=2).copy_(a_sh.permute(1, 2, 0))
+    return z.view(n, rows, full_w)
 
 
-def _rank_sum(parts, site):
-    """The psum over 'tp' on the virtual mesh: the ranks' ``(tp, ...)``
-    values added in rank order, ((p_0 + p_1) + p_2) + ... ``site``: its
-    place in the stage pass, for the census (one rank's value its bytes)."""
+def _rank_sum(parts, site, tr):
+    """The psum over 'tp': the held ranks' ``(n, ...)`` values added in
+    rank order, ((p_0 + p_1) + p_2) + ..., then, when the group spans
+    processes (``tr.comm``), one ``all_reduce`` over the tp group.
+    ``site``: its place in the stage pass, for the census (one rank's
+    value its bytes)."""
     c = A.active
     if c is not None:
         c.note("all_reduce", c.here(site), A.nbytes(parts) // parts.shape[0])
-    return functools.reduce(torch.add, parts.unbind(0))
+    out = functools.reduce(torch.add, parts.unbind(0))
+    if tr.comm is not None:
+        out = tr.comm.all_reduce(out, "tp")
+    return out
 
 
-def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
-    """The Megatron forward of one stage (``executor._stage_fwd_tp``).
+def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tr):
+    """The Megatron forward of one stage (``executor._stage_fwd_tp``) over
+    the ranks ``tr`` holds (``Ws``/``bs``: their bands of the slot rows).
     Returns ``(out, xs, masks)``: the stage output at full width, and per
     active slot its input as the wgrad contracts it (full at column slots,
     the rank stack at row slots) and its mask as the dgrad masks it (the
@@ -1123,6 +1283,7 @@ def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
     its sum; a trailing column slot (odd slot count) closes with the
     full-width gather. Gelu family: the residual adds sit at row slots,
     after the sum."""
+    n = tr.n
     L = len(dims)
     xs, masks = [None] * L, [None] * L
     x_prev = None
@@ -1131,17 +1292,18 @@ def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
             x_l = _fit(x, i)
             x_prev = x_l
             if not active[l]:
-                x = _tp_shard(_fit(x_l, o), tp)
+                x = _tp_shard(_fit(x_l, o), tr)
                 continue
-            z = torch.matmul(x_l, _tp_w(Ws[l], l, tp).transpose(1, 2))
-            z = z + _tp_b(bs[l], tp).unsqueeze(1)
+            z = torch.matmul(x_l, _tp_w(Ws[l], l, n).transpose(1, 2))
+            z = z + _tp_b(bs[l], n).unsqueeze(1)
             xs[l] = x_l
         else:  # row-parallel: the rank stack in, one rank sum, full out
             if not active[l]:
-                x = _rank_sum(_fit(_tp_scatter(x, i), o), f"tp.fwd.{l}")
+                x = _rank_sum(_fit(_tp_scatter(x, i, tr), o), f"tp.fwd.{l}", tr)
                 continue
-            part = torch.matmul(x, _tp_w(Ws[l], l, tp).transpose(1, 2))
-            z = _rank_sum(part + _tp_scatter(_tp_b(bs[l], tp).unsqueeze(1), o), f"tp.fwd.{l}")
+            part = torch.matmul(x, _tp_w(Ws[l], l, n).transpose(1, 2))
+            bias = _tp_scatter(_tp_b(bs[l], n).unsqueeze(1), o, tr)
+            z = _rank_sum(part + bias, f"tp.fwd.{l}", tr)
             xs[l] = x
         if act == "gelu":
             masks[l] = ops.gelu_grad_mult(z) if relu[l] else None
@@ -1154,51 +1316,53 @@ def _stage_fwd_tp(Ws, bs, active, relu, residual, dims, x, act, tp):
         x = y
     if L % 2 == 1:
         # the trailing column slot left the output as rank bands
-        x = _rank_sum(_tp_scatter(x, dims[-1][0]), f"tp.fwd.{L}")
+        x = _rank_sum(_tp_scatter(x, dims[-1][0], tr), f"tp.fwd.{L}", tr)
     return x, xs, masks
 
 
-def _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tp):
+def _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tr):
     """The dgrad chain of the Megatron backward
     (``executor._stage_bwd_input_tp``): the split B-input, and the first
     half of the combined backward. Returns ``(dx, g_effs)``, the full input
     gradient and each active slot's effective output-grad in its mask's
     representation. Column slots sum their rank partials of dx; gelu's
     residual grads land there, after the sum."""
+    n = tr.n
     L = len(dims)
     g_effs = [None] * L
     g_prev = None
     if L % 2 == 1:
         # the trailing column slot consumes each rank's band of the grad
-        g = _tp_shard(_fit(g, dims[-1][0]), tp)
+        g = _tp_shard(_fit(g, dims[-1][0]), tr)
     for l in reversed(range(L)):
         o, i = dims[l]
         if l % 2 == 0:  # column-parallel: rank-stack g, summed full dx
             if active[l]:
                 g_effs[l] = _g_eff(g, masks[l], relu[l])
-                part = torch.matmul(g_effs[l], _tp_w(Ws[l], l, tp))
+                part = torch.matmul(g_effs[l], _tp_w(Ws[l], l, n))
             else:
-                part = _fit(_tp_scatter(g, o), i)
-            g = _rank_sum(part, f"tp.bwd.{l}")
+                part = _fit(_tp_scatter(g, o, tr), i)
+            g = _rank_sum(part, f"tp.bwd.{l}", tr)
             if l + 1 < L and residual[l + 1]:
                 g = g + _fit(g_prev, i)
         else:  # row-parallel: full g, each rank's dx band
             g_l = _fit(g, o)
             if active[l]:
                 g_effs[l] = _g_eff(g_l, masks[l], relu[l])
-                g = torch.matmul(g_effs[l], _tp_w(Ws[l], l, tp))
+                g = torch.matmul(g_effs[l], _tp_w(Ws[l], l, n))
             else:
-                g = _tp_shard(_fit(g_l, i), tp)
+                g = _tp_shard(_fit(g_l, i), tr)
             g_prev = g_l
     return g, g_effs
 
 
-def _stage_bwd_weight_tp(active, xs, g_effs, tp, sink):
+def _stage_bwd_weight_tp(active, xs, g_effs, tr, sink):
     """The wgrad half of the Megatron backward
     (``executor._stage_bwd_weight_tp``): every product contracts the
     microbatch rows, so it is rank-local. Hands each active slot's ``(l,
-    dW, db)`` to ``sink`` as rank stacks, ``(tp,) + w_dims[l]`` and ``(tp,
-    o/tp)``; a row slot's db is each rank's band of the full row sum."""
+    dW, db)`` to ``sink`` as the held ranks' stacks, ``(n,) + w_dims[l]``
+    and ``(n, o/tp)``; a row slot's db is each rank's band of the full row
+    sum."""
     for l, on in enumerate(active):
         if not on:
             continue
@@ -1207,15 +1371,15 @@ def _stage_bwd_weight_tp(active, xs, g_effs, tp, sink):
             db = g_effs[l].sum(dim=1)
         else:
             dw = torch.matmul(g_effs[l].T, xs[l])
-            db = _tp_shard(g_effs[l].sum(dim=0).unsqueeze(0), tp)[:, 0]
+            db = _tp_shard(g_effs[l].sum(dim=0).unsqueeze(0), tr)[:, 0]
         sink(l, dw, db)
 
 
-def _stage_bwd_tp(Ws, active, relu, residual, dims, xs, masks, g, tp, sink):
+def _stage_bwd_tp(Ws, active, relu, residual, dims, xs, masks, g, tr, sink):
     """The combined Megatron backward: the literal composition of the two
     halves, so the split and combined schedules make the same calls."""
-    dx, g_effs = _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tp)
-    _stage_bwd_weight_tp(active, xs, g_effs, tp, sink)
+    dx, g_effs = _stage_bwd_input_tp(Ws, active, relu, residual, dims, masks, g, tr)
+    _stage_bwd_weight_tp(active, xs, g_effs, tr, sink)
     return dx
 
 
@@ -1301,12 +1465,14 @@ def _relay_across(mesh, sends, incoming, mail, shape):
     payload, direction)]`` from this process's ranks (delivered in memory
     when ``(d, n)`` is its own, else sent), ``incoming`` the tick's ``[(d,
     s, n, slot, direction)]`` from other processes' ranks into its own, all
-    in one ``batch_isend_irecv`` (``ProcessComm.exchange``). ``mail``:
-    direction -> mailboxes; ``shape``: a payload's."""
-    P = mesh.pp
+    in one ``batch_isend_irecv`` (``ProcessComm.exchange``). At tp > 1 a
+    relay runs between the same tp ranks of two stages (every tp rank holds
+    the stage output whole). ``mail``: direction -> mailboxes; ``shape``:
+    a payload's."""
+    P, t0 = mesh.pp, mesh.local_tp.start
     out = []
     for d, s, n, slot, payload, direction in sends:
-        q = mesh.owner(d, n)
+        q = mesh.owner(d, n, t0)
         if q == mesh.process:
             relay(mail[direction][d][n], slot, payload, direction)
             continue
@@ -1321,7 +1487,7 @@ def _relay_across(mesh, sends, incoming, mail, shape):
         # the JAX executor's ppermute does
         if A.active is not None:
             A.active.note("collective_permute", f"relay.{direction}", 4 * shape[0] * shape[1])
-        recvs.append((mesh.owner(d, s), _relay_tag(d, s, direction, P), shape))
+        recvs.append((mesh.owner(d, s, t0), _relay_tag(d, s, direction, P), shape))
     got = mesh.comm.exchange(out, recvs)
     for (d, s, n, slot, direction), payload in zip(incoming, got):
         mail[direction][d][n][slot] = payload
@@ -1396,27 +1562,57 @@ def _check_program(mesh, spec, prog, kernel_backend):
         )
 
 
-def _digest_grids(new_stacked, grads):
+def _digest_grids(new_stacked, grads, mesh=None, V=1):
     """The step's digest dict on the stacked layout
     (``executor.make_pipeline_step``'s ``with_digests`` contract): ``(S,
     L)`` grids, stacked row x slot, of the post-update checksums
     (``trainer.row_crcs``; padding is +0.0, whose word is 0, so a row's
     checksum is its logical block's) and L2 norms, and the post-sync
-    PRE-clip gradient norms. Left on the device."""
+    PRE-clip gradient norms. On a ``ProcessMesh`` of more than one process
+    (``V`` chunks a stage; the JAX executor's ``_digest_scatter``) each
+    leaf this process holds is first placed in a zero leaf of the full
+    stacked shape, so every grid is the one-process grid's reduction over
+    the same shape, and the grids are summed by one ``all_reduce`` over
+    the pp group and one over the tp group: the exact zeros keep a whole
+    row's bits, and a row split into tp bands sums its bands' checksums
+    (int64, wrapped mod 2^32 as the row's own) and squares. Left on the
+    device."""
+    across = isinstance(mesh, ProcessMesh) and mesh.world > 1
+
+    def full(tree):
+        if not across:
+            return tree
+        out = {"W": [], "b": []}
+        for k, l, a in _tree_leaves(tree):
+            shape = _full_leaf_shape(a.shape, k, l, mesh, mesh.pp * V)
+            dst = a.new_zeros(shape)
+            dst[_band_index(mesh, None, shape, k, l, V)] = a
+            out[k].append(dst)
+        return out
+
     def grid(fn, leaves):
         return torch.stack([fn(a) for a in leaves], dim=1)
 
     def sq(a):
         return torch.sum((a * a).reshape(a.shape[0], -1), dim=1)
 
-    return {
+    new_stacked, grads = full(new_stacked), full(grads)
+    parts = {
         "crc_w": grid(row_crcs, new_stacked["W"]),
         "crc_b": grid(row_crcs, new_stacked["b"]),
-        "pnorm_w": torch.sqrt(grid(sq, new_stacked["W"])),
-        "pnorm_b": torch.sqrt(grid(sq, new_stacked["b"])),
-        "gnorm_w": torch.sqrt(grid(sq, grads["W"])),
-        "gnorm_b": torch.sqrt(grid(sq, grads["b"])),
+        "pnorm_w": grid(sq, new_stacked["W"]),
+        "pnorm_b": grid(sq, new_stacked["b"]),
+        "gnorm_w": grid(sq, grads["W"]),
+        "gnorm_b": grid(sq, grads["b"]),
     }
+    if across:
+        comm = mesh.comm
+        for key, part in parts.items():
+            if A.active is not None and comm.size("pp") * comm.size("tp") > 1:
+                A.active.note("all_reduce", "digests", A.nbytes(part))
+            part = comm.all_reduce(comm.all_reduce(part, "pp"), "tp")
+            parts[key] = part & 0xFFFFFFFF if key.startswith("crc") else part
+    return {k: v if k.startswith("crc") else torch.sqrt(v) for k, v in parts.items()}
 
 
 def _resolve_zero(zero, zero1):
@@ -1515,11 +1711,13 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     All stay on the device.
 
     On a ``ProcessMesh`` of more than one process (``parallel/
-    multihost.py``; zero 0 or 1): ``stacked``/``opt_state`` are this
-    process's rows and chunks (``init_stacked``, ``zero1_init_state``),
+    multihost.py``): ``stacked``/``opt_state`` are this process's rows,
+    bands and chunks (``init_stacked``, ``zero1_init_state``,
+    ``zero_block_init_state``; at zero 3 its shard, ``zero_params_at_rest``),
     ``x``/``y`` its dp rows (``multihost.shard_batch_for_process``), and
-    ``loss`` and the norms the mesh's, the same on every process; an
-    inference step returns this process's dp rows of the predictions."""
+    ``loss``, the norms and the digest grids the mesh's, the same on every
+    process; an inference step returns this process's dp rows of the
+    predictions."""
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"unknown kernel_backend {kernel_backend!r}")
     zero = int(zero)
@@ -1557,32 +1755,26 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     if with_step_stats:
         with_grad_norm = True  # step stats carry the grad norm per step
     pm = mesh if isinstance(mesh, ProcessMesh) else None
-    if pm is not None:
-        if zero >= 2:
-            raise ValueError(
-                f"zero={zero} on a process mesh: its per-tick scatters and "
-                "gathers would each be a collective a tick (ROADMAP item 7b); "
-                "run zero 0 or 1 across processes"
-            )
-        if with_digests:
-            raise ValueError(
-                "with_digests on a process mesh: the digest grids span every "
-                "stage's rows (ROADMAP item 7b); record digests on one process"
-            )
-        if pm.world == 1:
-            pm = None  # one process owns every rank: the in-memory movers
+    if pm is not None and pm.world == 1:
+        pm = None  # one process owns every rank: the in-memory movers
     P, dp, V = mesh.pp, mesh.dp, prog.num_chunks
-    R = P * tp_n  # device rows of the ZeRO layouts, (pp, tp) pp-major
-    # this process's dp rows and stages (every rank on a virtual mesh)
+    # this process's dp rows, stages and tp ranks (every rank on a virtual
+    # mesh)
     local_d = range(dp) if pm is None else pm.local_dp
     local_s = range(P) if pm is None else pm.local_stages
-    d0, s0, dl, pl = local_d.start, local_s.start, len(local_d), len(local_s)
+    local_t = range(tp_n) if pm is None else pm.local_tp
+    d0, s0, t0 = local_d.start, local_s.start, local_t.start
+    dl, pl, ntp = len(local_d), len(local_s), len(local_t)
+    Rl = pl * ntp  # the ZeRO layouts' device rows held here, (pp, tp) pp-major
+    comm = None if pm is None else pm.comm
+    tpr = TpRanks(tp_n, local_t, comm)
     if zero >= 2 and with_digests:
         raise ValueError(
             "with_digests reads the zero1 flat-chunk segment map; the "
             "block-cyclic shard layout of zero>=2 has no flat chunk — "
             "run digests at --zero 1 or below"
         )
+    zb_slots = None  # the block-cyclic layout's slots (zero >= 2)
     if zero >= 1:
         if not training:
             if zero1:
@@ -1622,10 +1814,12 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
     }
     head_masks = {}  # device copies of the head-mask rows, keyed by content
     if pm is not None:
-        # the relays from other processes' ranks into this one's, per tick,
-        # and the head stage (its process tallies the loss)
+        # the relays from other processes' ranks into this one's, per tick
+        # (between the same tp ranks of two stages), and the head stage (its
+        # processes tally the loss)
         incoming = [
-            [x for x in xs if pm.owner(x[0], x[2]) == pm.process != pm.owner(x[0], x[1])]
+            [x for x in xs
+             if pm.owner(x[0], x[2], t0) == pm.process != pm.owner(x[0], x[1], t0)]
             for xs in _tick_transfers(tab, prog.num_ticks, P, dp)
         ]
         (head_s,) = {s for row in tab["ih"] for s, h in enumerate(row) if h == 1}
@@ -1633,7 +1827,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         if grad_bucket_bytes:
             from shallowspeed_tpu_torch.parallel import gradsync
 
-            bucket_plan = gradsync.plan_buckets(spec, dp, P, grad_bucket_bytes, zero=zero)
+            bucket_plan = gradsync.plan_buckets(spec, dp, P, grad_bucket_bytes, zero=zero,
+                                                tp=tp_n)
 
     def head_mask_rows(flags, device):
         hm = np.asarray(flags["head_mask"], np.bool_)
@@ -1652,10 +1847,10 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         residual = np.asarray(flags["residual"]).tolist()
         hm = head_mask_rows(flags, dev)
         if zero == 3:
-            pv = stacked["P"].view(R, dp, csz)
+            pv = stacked["P"].view(Rl, dl, csz)
 
             def chunk_weights(s, ck):
-                return _gather_chunk(pv, zb_slots, s, ck, L, tp_n)
+                return _gather_chunk(pv, zb_slots, s - s0, ck, L, ntp, comm)
         else:
             Ws = [[w[r] for w in stacked["W"]] for r in range(pl * V)]
             bs = [[b[r] for b in stacked["b"]] for r in range(pl * V)]
@@ -1673,8 +1868,8 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             gstash = [[[None] * (Kg + 1) for _ in range(P)] for _ in range(dp)]
             xin = [[[None] * (Kx + 1) for _ in range(P)] for _ in range(dp)]
             if shard_grads:
-                gz = torch.zeros((R, dp * csz), dtype=torch.float32, device=dev)
-                gzv = gz.view(R, dp, csz)
+                gz = torch.zeros((Rl, dl * csz), dtype=torch.float32, device=dev)
+                gzv = gz.view(Rl, dl, csz)
             else:
                 acc = [
                     {k: tuple(torch.zeros_like(a) for a in stacked[k]) for k in ("W", "b")}
@@ -1692,17 +1887,17 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             scatter."""
             if shard_grads:
                 def sink(l, dw, db):
-                    db = db.reshape(tp_n, -1)
+                    db = db.reshape(ntp, -1)
                     if l in pending:
                         dw, db = pending[l][0] + dw, pending[l][1] + db
                     pending[l] = (dw, db)
             else:
-                gW = [_tp_w(w[r - s0 * V], l, tp_n) for l, w in enumerate(acc[d - d0]["W"])]
-                gb = [_tp_b(b[r - s0 * V], tp_n) for b in acc[d - d0]["b"]]
+                gW = [_tp_w(w[r - s0 * V], l, ntp) for l, w in enumerate(acc[d - d0]["W"])]
+                gb = [_tp_b(b[r - s0 * V], ntp) for b in acc[d - d0]["b"]]
 
                 def sink(l, dw, db):
                     gW[l].add_(dw)
-                    gb[l].add_(db.reshape(tp_n, -1))
+                    gb[l].add_(db.reshape(ntp, -1))
             return sink
 
         def head_or_mail(d, s, t, r, z, mb_r):
@@ -1737,7 +1932,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     contract)."""
                     if tp_n > 1:
                         return _stage_fwd_tp(
-                            W_r, b_r, active[r], relu[r], residual[r], dims, x_in, act, tp_n,
+                            W_r, b_r, active[r], relu[r], residual[r], dims, x_in, act, tpr,
                         )
                     return _stage_fwd(
                         W_r, b_r, active[r], relu[r], residual[r], dims, x_in,
@@ -1782,7 +1977,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                             if tp_n > 1:
                                 dx, g_effs = _stage_bwd_input_tp(
                                     W_r, active[r], relu[r], residual[r], dims, masks_r,
-                                    g_in, tp_n,
+                                    g_in, tpr,
                                 )
                             else:
                                 dx, g_effs = _stage_bwd_input(
@@ -1797,7 +1992,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                             if tp_n > 1:
                                 dx = _stage_bwd_tp(
                                     W_r, active[r], relu[r], residual[r], dims, xs_r,
-                                    masks_r, g_in, tp_n, grad_sink(d, r, pending),
+                                    masks_r, g_in, tpr, grad_sink(d, r, pending),
                                 )
                             else:
                                 dx = _stage_bwd(
@@ -1812,7 +2007,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                         sink = grad_sink(d, r, pending)
                         if tp_n > 1:
                             _stage_bwd_weight_tp(
-                                active[r], stash[d][s][sr][0], gstash[d][s][gr], tp_n, sink,
+                                active[r], stash[d][s][sr][0], gstash[d][s][gr], tpr, sink,
                             )
                         else:
                             _stage_bwd_weight(
@@ -1822,7 +2017,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     else:
                         raise ValueError(f"tick {t} stage {s}: op code {op[s]} not ported")
                 if pending:
-                    _scatter_tick(gzv, zb_slots, L, s, ck, dp, pending, tp_n)
+                    _scatter_tick(gzv, zb_slots, L, s - s0, ck, dp, pending, ntp, comm)
             if A.active is not None:
                 A.active.branch = None
             if pm is None:
@@ -1861,7 +2056,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             pch = _flat_rows(stacked, P, dp * csz, tp_n)
         else:
             pch = _deal(stacked, zb_slots, P, dp, tp_n)
-        opt_state = _apply_sharded(opt, pch, gsh, opt_state, R, dp)
+        opt_state = _apply_sharded(opt, pch, gsh, opt_state, Rl, dp)
         if zero1:
             _unflat_rows_into(pch, stacked, tp_n)
         elif zero == 2:
@@ -1869,46 +2064,65 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
         return stacked, opt_state, gnorm
 
     def _sharded_tail_across(stacked, opt_state, gsh):
-        """ZeRO-1's tail on a process mesh: ``gsh`` holds this process's
-        ranks' chunks ``(local stages, dl*chunk)``; the norm's squares are
-        summed over every process of the mesh, each rank's chunk updated
-        with its state shard, and the chunks all-gathered over the dp group
-        back into the stacked rows."""
+        """ZeRO-1/2/3's tail on a process mesh: ``gsh`` holds this
+        process's ranks' chunks ``(device rows, dl*chunk)``; the norm's
+        squares are summed over every process of the mesh (the processes'
+        chunks partition the gradient), each rank's chunk updated with its
+        state shard, and at zero 1 and 2 the chunks all-gathered over the
+        dp group back into the stacked rows (the flat layout, or the
+        block-cyclic one undealt). At zero 3 the params stay at rest as
+        this process's shard, updated in place."""
         gnorm = None
         if with_grad_norm or clip_norm is not None:
-            sq = _sq_across(torch.sum(gsh * gsh), pm.comm, "mesh", "grad_norm")
+            sq = _sq_across(torch.sum(gsh * gsh), comm, "mesh", "grad_norm")
             if with_grad_norm:
                 gnorm = torch.sqrt(sq)
             if clip_norm is not None:
                 gsh = gsh * clip_scale(sq, clip_norm)
-        pch = _flat_rows(stacked, pl, dp * csz, tp_n).view(pl, dp, csz)[:, d0:d0 + dl]
-        pch = pch.reshape(pl, dl * csz)
-        opt_state = _apply_sharded(opt, pch, gsh, opt_state, pl * tp_n, dl)
-        rows = pm.comm.all_gather(pch, "dp").transpose(0, 1).reshape(pl, dp * csz)
-        _unflat_rows_into(rows, stacked, tp_n)
+        if zero == 3:
+            pch = stacked["P"]
+        else:
+            rows = (_flat_rows(stacked, pl, dp * csz, ntp) if zero1
+                    else _deal(stacked, zb_slots, pl, dp, ntp))
+            pch = rows.view(Rl, dp, csz)[:, d0:d0 + dl].reshape(Rl, dl * csz)
+        opt_state = _apply_sharded(opt, pch, gsh, opt_state, Rl, dl)
+        if zero == 3:
+            return stacked, opt_state, gnorm
+        rows = comm.all_gather(pch, "dp").transpose(0, 1).reshape(Rl, dp * csz)
+        if zero1:
+            _unflat_rows_into(rows, stacked, ntp)
+        else:
+            _undeal_into(rows, zb_slots, stacked, pl, dp, ntp)
         return stacked, opt_state, gnorm
 
     def mesh_loss(loss):
         """The loss on a process mesh: the head stage's processes sum their
-        tallies over dp, and each hands its sum to its pp group."""
+        tallies over dp (every tp rank's process holds the same tally), and
+        each hands its sum to its pp group."""
         if head_s in local_s:
-            if A.active is not None and pm.comm.size("dp") > 1:
+            if A.active is not None and comm.size("dp") > 1:
                 A.active.note("all_reduce", "loss", A.nbytes(loss))
-            loss = pm.comm.all_reduce(loss, "dp")
-        return pm.comm.broadcast(loss, pm.owner(d0, head_s), "pp")
+            loss = comm.all_reduce(loss, "dp")
+        return comm.broadcast(loss, pm.owner(d0, head_s, t0), "pp")
 
     def dp_sum_across(acc):
         """Zero 0's sync on a process mesh: this process's replicas summed
         in replica order, then one all-reduce over the dp group, or one a
         planned bucket (``gradsync.psum_bucketed``)."""
         if bucket_plan is None:
-            return _all_reduce_tree(dp_sum(acc, ranks=pl * tp_n), pm.comm)
-        return gradsync.psum_bucketed(_add_trees(acc), bucket_plan, pm.comm)
+            return _all_reduce_tree(dp_sum(acc, ranks=Rl), comm)
+        return gradsync.psum_bucketed(_add_trees(acc), bucket_plan, comm)
+
+    def sq_across_model(sq, site):
+        """A process's squares summed over one replica's model on a
+        process mesh: its pp group, then its tp group (the bands)."""
+        return _sq_across(_sq_across(sq, comm, "pp", site), comm, "tp", site)
 
     def tree_norm_sq(tree):
-        """The squares of a stacked tree over every stage on a process mesh
-        (this process's rows, summed over its pp group)."""
-        return _sq_across(tree_sq_sum(tree), pm.comm, "pp", "norm")
+        """The squares of a stacked tree over every stage and tp band on a
+        process mesh (this process's rows and bands, summed over its pp and
+        tp groups)."""
+        return sq_across_model(tree_sq_sum(tree), "norm")
 
     if training:
 
@@ -1924,6 +2138,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             if zero == 0 and pm is not None:
                 grads = dp_sum_across(acc)
                 del acc
+                raw = grads
                 sq = tree_norm_sq(grads) if (with_grad_norm or clip_norm is not None) else None
                 gnorm = torch.sqrt(sq) if with_grad_norm else None
                 if clip_norm is not None:
@@ -1931,7 +2146,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
                     grads = tree_map(lambda g: g * scale, grads)
                 stacked, opt_state = opt.apply(stacked, grads, opt_state)
             elif zero == 0:
-                grads = dp_sum(acc, ranks=R)
+                grads = dp_sum(acc, ranks=Rl)
                 del acc
                 raw = grads
                 gnorm = global_norm(grads) if with_grad_norm else None
@@ -1941,25 +2156,30 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             else:
                 if shard_grads:
                     gsh = acc
-                elif zero1:
-                    # each replica's slabs flattened per pp row, then summed
-                    # in replica order
-                    gvecs = [_flat_rows(acc.pop(0), pl, dp * csz, tp_n) for _ in range(dl)]
-                    if pm is None:
-                        gsh = _shard_sum(gvecs, dp)
-                    elif bucket_plan is not None:
-                        gsh = gradsync.psum_scatter_bucketed(gvecs, bucket_plan, pm.comm)
-                    else:
-                        gsh = _shard_sum_across(gvecs, pm.comm, dp)
-                    del gvecs
-                    if with_digests:
-                        raw = _unflat_rows(gsh, stacked, tp_n)
                 else:
-                    # bucketed zero 2: the slabs dealt into the block-cyclic
-                    # layout, summed in replica order
-                    deals = [_deal(acc.pop(0), zb_slots, P, dp, tp_n) for _ in range(dp)]
-                    gsh = _shard_sum(deals, dp)
-                    del deals
+                    # each replica's slabs flattened per device row (zero
+                    # 1) or dealt into the block-cyclic layout (bucketed
+                    # zero 2), then summed in replica order
+                    if zero1:
+                        parts = [_flat_rows(acc.pop(0), pl, dp * csz, ntp) for _ in range(dl)]
+                    else:
+                        parts = [_deal(acc.pop(0), zb_slots, pl, dp, ntp) for _ in range(dl)]
+                    if pm is None:
+                        gsh = _shard_sum(parts, dp)
+                    elif bucket_plan is not None:
+                        gsh = gradsync.psum_scatter_bucketed(parts, bucket_plan, comm, zb_slots)
+                    else:
+                        gsh = _shard_sum_across(parts, comm, dp)
+                    del parts
+                    if with_digests:
+                        full = gsh
+                        if pm is not None and comm.size("dp") > 1:
+                            # the post-sync gradient whole: its norms by row
+                            if A.active is not None:
+                                A.active.note("all_gather", "digest_gather",
+                                              A.nbytes(gsh) // Rl * comm.size("dp"))
+                            full = comm.all_gather(gsh, "dp").transpose(0, 1).reshape(Rl, -1)
+                        raw = _unflat_rows(full, stacked, ntp)
                 stacked, opt_state, gnorm = sharded_tail(stacked, opt_state, gsh)
                 del gsh
             outs = (stacked, opt_state, loss)
@@ -1968,13 +2188,16 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             if with_step_stats:
                 if zero == 3:
                     pch = stacked["P"]
-                    outs += (torch.sqrt(torch.sum(pch * pch)),)
+                    sq = torch.sum(pch * pch)
+                    if pm is not None:
+                        sq = _sq_across(sq, comm, "mesh", "norm")
+                    outs += (torch.sqrt(sq),)
                 elif pm is not None:
                     outs += (torch.sqrt(tree_norm_sq(stacked)),)
                 else:
                     outs += (global_norm(stacked),)
             if with_digests:
-                outs += (_digest_grids(stacked, raw),)
+                outs += (_digest_grids(stacked, raw, pm, V),)
             return outs
 
         return step
@@ -1992,7 +2215,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
             A.active.note("all_reduce", "preds", A.nbytes(out) // dl)
         if pm is not None:
             # this process's dp rows, from the head stage's process
-            out = pm.comm.broadcast(out, pm.owner(d0, head_s), "pp")
+            out = comm.broadcast(out, pm.owner(d0, head_s, t0), "pp")
         return out
 
     return infer
@@ -2061,21 +2284,23 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
     interleaved layout, of one microbatch over the padded validation
     rows): ``run(stacked, flags, opt_state, X, Y, vx_padded,
     vy_labels, n_epochs) -> (stacked, opt_state, losses, accs)``, each epoch
-    followed by the whole split's argmax accuracy. ``with_grad_norm``
-    appends ``{"grad_norm": (n_epochs,)}``, each epoch's mean pre-clip
-    global gradient norm. ZeRO stages 0-2 and the bucketed sync as
-    ``make_pipeline_epoch``; stage 3 is refused, as in the JAX package."""
+    followed by the whole split's argmax accuracy, the count of correct
+    predictions over the split's size. ``with_grad_norm`` appends
+    ``{"grad_norm": (n_epochs,)}``, each epoch's mean pre-clip global
+    gradient norm. ZeRO stages 0-2 and the bucketed sync as
+    ``make_pipeline_epoch``; stage 3 is refused, as in the JAX package.
+
+    On a ``ProcessMesh`` of more than one process, ``vx_padded`` is this
+    process's dp rows of the padded split (``multihost.
+    shard_batch_for_process``) and ``vy_labels`` the whole split's labels:
+    each process counts the correct predictions of its dp rows that fall
+    inside the split, and one ``all_reduce`` of the count over its dp group
+    makes the mesh's count (exact in fp32), the same on every process."""
     if zero == 3:
         raise ValueError(
             "the fused multi-epoch run cannot shard params at rest: its "
             "eval step consumes the full stacked layout every epoch — "
             "use --zero 3 without --fused-run (per-epoch dispatch)"
-        )
-    if eval_prog is not None and isinstance(mesh, ProcessMesh) and mesh.world > 1:
-        raise ValueError(
-            "the fused run's eval on a process mesh: each process holds its "
-            "own dp rows of the predictions (ROADMAP item 7b); run the eval "
-            "step apart"
         )
     epoch = make_pipeline_epoch(
         mesh, spec, prog, mubatch_size, opt, clip_norm=clip_norm,
@@ -2088,6 +2313,24 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
             mesh, spec, eval_prog, eval_mubatch_size, kernel_backend=kernel_backend
         )
     out_dim = spec.out_dim
+    pm = mesh if isinstance(mesh, ProcessMesh) and mesh.world > 1 else None
+
+    def accuracy(stacked, flags, vx, vy):
+        """The split's accuracy after an epoch: the correct predictions
+        counted, over the split's size."""
+        preds = eval_step(stacked, flags, vx)[:, :out_dim]
+        a = 0
+        if pm is not None:
+            # this process's dp rows: its block of the padded split
+            a = pm.local_dp.start * (vx.shape[0] // len(pm.local_dp))
+        m = max(0, min(vy.shape[0] - a, preds.shape[0]))
+        hits = torch.argmax(preds[:m], dim=1) == vy[a:a + m]
+        count = torch.sum(hits.to(torch.float32))
+        if pm is not None:
+            if A.active is not None and pm.comm.size("dp") > 1:
+                A.active.note("all_reduce", "eval_count", A.nbytes(count))
+            count = pm.comm.all_reduce(count, "dp")
+        return count / vy.shape[0]
 
     def run(stacked, flags, opt_state, X, Y, *rest):
         if eval_step is not None:
@@ -2102,9 +2345,7 @@ def make_pipeline_run(mesh, spec, prog, mubatch_size, opt, clip_norm=None,
             if with_grad_norm:
                 gns.append(out[3]["grad_norm"])
             if eval_step is not None:
-                preds = eval_step(stacked, flags, vx_padded)[: vy_labels.shape[0], :out_dim]
-                hits = torch.argmax(preds, dim=1) == vy_labels
-                accs.append(torch.mean(hits.to(torch.float32)))
+                accs.append(accuracy(stacked, flags, vx_padded, vy_labels))
         out = (stacked, opt_state, _stack(losses, X.device))
         if eval_step is not None:
             out += (_stack(accs, X.device),)

@@ -12,8 +12,8 @@ session's ``grad_sync_plan`` record and choose the executor's ZeRO-2 tail.
 The emitters, ``psum_bucketed`` and ``psum_scatter_bucketed`` (the JAX
 module's ``:270``, ``:293``), run on a process mesh (``parallel/
 multihost.py``), where the dp replicas sit in different processes: one
-``all_reduce`` (zero 0) or ``reduce_scatter_tensor`` (zero 1) over the dp
-group a planned bucket, in the plan's backward order, each noted on the
+``all_reduce`` (zero 0) or ``reduce_scatter_tensor`` (zero 1 and 2) over
+the dp group a planned bucket, in the plan's backward order, each noted on the
 program audit's census as its own site. On the virtual mesh every dp
 replica's gradient lies on the one device, so a bucket has no
 communication to overlap: there the executor runs the unbucketed
@@ -305,18 +305,25 @@ def psum_bucketed(tree, plan, comm):
     return tree
 
 
-def psum_scatter_bucketed(parts, plan, comm):
-    """Zero 1's bucketed reduce-scatter on a process mesh: ``parts``, this
-    process's replicas' ``(rows, dp*chunk)`` flat gradient rows, summed in
-    replica order, then one ``reduce_scatter_tensor`` over the dp group a
-    column range ``(a, b)`` of ``plan`` (a ``mode="zero1"`` plan), in its
-    order: every dp rank's ``[a, b)`` columns of its chunk. Returns this
-    process's ``(rows, dl*chunk)`` chunk columns."""
+def psum_scatter_bucketed(parts, plan, comm, slots=None):
+    """Zero 1's and bucketed zero 2's reduce-scatter on a process mesh:
+    ``parts``, this process's replicas' ``(rows, dp*chunk)`` gradient rows
+    (the padded flat layout, or the block-cyclic deal), summed in replica
+    order, then one ``reduce_scatter_tensor`` over the dp group a column
+    range of the chunk, in the plan's order: a ``mode="zero1"`` plan's
+    ``(a, b)``, or a ``mode="zero2"`` plan's ``(slot, a, b)`` over
+    ``slots`` (``executor.zero_block_slots``), slot ``slot``'s columns
+    ``[off + a, off + b)``. Every dp rank's range of its chunk goes out
+    together. Returns this process's ``(rows, dl*chunk)`` chunk columns."""
     local = functools.reduce(torch.add, parts)
-    rows, csz = local.shape[0], plan.buckets[-1][1]
+    rows, csz = local.shape[0], local.shape[1] // plan.dp
+    if plan.mode == "zero2":
+        ranges = [(slots[si].off + a, slots[si].off + b) for si, a, b in plan.buckets]
+    else:
+        ranges = list(plan.buckets)
     view = local.view(rows, comm.size("dp"), -1, csz)  # (rows, G, dl, chunk)
     out = torch.empty((rows, view.shape[2], csz), dtype=local.dtype, device=local.device)
-    for i, (a, b) in enumerate(plan.buckets):
+    for i, (a, b) in enumerate(ranges):
         if A.active is not None:
             A.active.note("reduce_scatter", f"zero_sum.bucket{i}", 4 * (b - a))
         out[:, :, a:b] = comm.reduce_scatter(view[:, :, :, a:b].permute(1, 0, 2, 3), "dp")

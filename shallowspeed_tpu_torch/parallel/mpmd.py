@@ -47,7 +47,8 @@ On the CPU the stream contexts are null contexts: the order of issue is the
 only order, which is the lockstep executor's order. ``runtime="mpmd"`` in
 ``api.TrainingSession`` runs this module. ``parallel/multihost.py`` (several
 processes) is a different runtime, the lockstep executor on a process
-mesh; a process mesh given to a runner here is refused (ROADMAP item 7b).
+mesh (every ZeRO stage and tp); a process mesh given to a runner here is
+refused (ROADMAP item 7b).
 
 ``MpmdInferenceRunner`` streams request slots through per-stage forwards on
 the same streams: ``submit`` issues a slot's whole chain without blocking
@@ -275,6 +276,7 @@ class _StagePrograms:
             )
         self.prog = prog
         self.tp = mesh_tp(mesh)
+        self.tpr = E.TpRanks(self.tp, range(self.tp))  # every rank, in process
         self.dp = mesh.dp
         self.V = prog.num_chunks
         self.opt = opt
@@ -299,7 +301,7 @@ class _StagePrograms:
         Ws, bs = [w[v] for w in params["W"]], [b[v] for b in params["b"]]
         a, r, res = flags["active"][v], flags["relu"][v], flags["residual"][v]
         if self.tp > 1:
-            return E._stage_fwd_tp(Ws, bs, a, r, res, self.dims, x, self.act, self.tp)
+            return E._stage_fwd_tp(Ws, bs, a, r, res, self.dims, x, self.act, self.tpr)
         return E._stage_fwd(Ws, bs, a, r, res, self.dims, x, "xla", self.act)
 
     def _sink(self, acc, v):
@@ -438,14 +440,18 @@ class _StagePrograms:
                     g_in = g_relay[d]
                 if split_input:
                     if tp > 1:
-                        dx, g_effs = E._stage_bwd_input_tp(Ws, a, r, res, dims, masks[d], g_in, tp)
+                        dx, g_effs = E._stage_bwd_input_tp(
+                            Ws, a, r, res, dims, masks[d], g_in, self.tpr
+                        )
                     else:
                         dx, g_effs = E._stage_bwd_input(Ws, a, r, res, dims, masks[d], g_in)
                     g_effs_d.append(g_effs)
                 else:
                     sink = self._sink(grads[d], v)
                     if tp > 1:
-                        dx = E._stage_bwd_tp(Ws, a, r, res, dims, xs[d], masks[d], g_in, tp, sink)
+                        dx = E._stage_bwd_tp(
+                            Ws, a, r, res, dims, xs[d], masks[d], g_in, self.tpr, sink
+                        )
                     else:
                         dx = E._stage_bwd(Ws, a, r, res, dims, xs[d], masks[d], g_in, "xla", sink)
                 if send:
@@ -467,7 +473,7 @@ class _StagePrograms:
             for d in range(dp):
                 sink = self._sink(grads[d], v)
                 if tp > 1:
-                    E._stage_bwd_weight_tp(active, xs[d], g_effs[d], tp, sink)
+                    E._stage_bwd_weight_tp(active, xs[d], g_effs[d], self.tpr, sink)
                 else:
                     E._stage_bwd_weight(active, xs[d], g_effs[d], sink)
             return grads

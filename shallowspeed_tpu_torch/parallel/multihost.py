@@ -7,17 +7,23 @@ a SHA1 check proves the replicas hold the same weights. The JAX package
 does that with ``jax.distributed.initialize`` and a mesh over every
 process's devices, driven by the same executor. Here
 ``torch.distributed`` forms the process group, ``make_process_mesh`` lays
-the executor's ``(dp, pp)`` ranks over the processes
-(``parallel/mesh.ProcessMesh``: the JAX order, each process owning
-``dp*pp / world`` consecutive ranks and only their stages' rows of the
-stacked params), and the lockstep executor runs each process's own ranks,
-with every data mover whose ends sit in two processes a real collective
-through ``ProcessComm``: relays ``send``/``recv`` (a tick's in one
-``batch_isend_irecv``), the dp sum ``all_reduce``, ZeRO-1's sum
-``reduce_scatter_tensor`` and its gather ``all_gather_into_tensor``, the
-loss and the inference head's predictions a ``broadcast`` from the head
-stage's process, the global norm an ``all_reduce`` of per-process
-squares.
+the executor's ``(dp, pp[, tp])`` ranks over the processes
+(``parallel/mesh.ProcessMesh``: the JAX order, tp innermost, each process
+owning ``dp*pp*tp / world`` consecutive ranks and only their stages' rows
+of the stacked params, at tp > 1 only their tp ranks' bands), and the
+lockstep executor runs each process's own ranks, with every data mover
+whose ends sit in two processes a real collective through
+``ProcessComm``: relays ``send``/``recv`` (a tick's in one
+``batch_isend_irecv``), the dp sum ``all_reduce``, ZeRO-1's and bucketed
+ZeRO-2's sum ``reduce_scatter_tensor`` and their gather
+``all_gather_into_tensor``, ZeRO-2's and ZeRO-3's per-tick
+``reduce_scatter_tensor`` and ZeRO-3's per-tick parameter
+``all_gather_into_tensor`` over the dp group, the Megatron sums an
+``all_reduce`` over the tp group, the loss and the inference head's
+predictions a ``broadcast`` from the head stage's process, the global
+norm an ``all_reduce`` of per-process squares, the digest grids an
+``all_reduce`` of zero grids each process filled at its rows, and the
+fused run's eval an ``all_reduce`` of the correct predictions' count.
 
 Backends: ``"nccl"`` (the default on ``cuda``) puts one rank on one GPU
 and is refused, in plain words, when processes would share a card;
@@ -37,8 +43,9 @@ Typical launch (the same script in every process)::
     step = executor.make_pipeline_step(mesh, spec, prog, mb, opt)
 
 Refused on a process mesh (ROADMAP item 7b), each with a ``ValueError``
-before any collective: ZeRO 2 and 3, ``tp > 1``, the MPMD runtime,
-``TrainingSession`` and the CLIs, digests and the fused run's eval.
+before any collective: the MPMD runtime, and ``TrainingSession`` and the
+CLIs. The JAX executor's own refusals hold there as on one process
+(``kernel_backend="pallas"`` at zero 3 and at tp > 1).
 """
 
 import dataclasses
@@ -191,8 +198,8 @@ def _group(ranks):
     return _GROUPS[ranks]
 
 
-def make_process_mesh(dp, pp, device=None, processes=None):
-    """The ``(dp, pp)`` process mesh over ``processes`` (``torch.distributed``
+def make_process_mesh(dp, pp, tp=1, device=None, processes=None):
+    """The ``(dp, pp[, tp])`` process mesh over ``processes`` (``torch.distributed``
     ranks; None = every process), with its groups and transport attached.
     Every process of the group calls it with the same arguments (the groups
     are made collectively); a process outside ``processes`` gets None.
@@ -203,7 +210,7 @@ def make_process_mesh(dp, pp, device=None, processes=None):
     procs = tuple(range(world)) if processes is None else tuple(int(p) for p in processes)
     me = process_index()
     layout = ProcessMesh(dp, pp, len(procs), procs.index(me) if me in procs else 0,
-                         device, processes=procs)
+                         device, tp=tp, processes=procs)
     groups = {
         (kind, g): _group(procs[q] for q in g) for kind, g in layout.groups()
     }
@@ -216,8 +223,9 @@ def make_process_mesh(dp, pp, device=None, processes=None):
 
 class ProcessComm:
     """The collectives of one process on a ``ProcessMesh``: over its dp
-    group (the processes holding its stages), its pp group (holding its dp
-    rows) and the whole mesh; a group of one process moves nothing. On a
+    group (the processes holding its stages and tp ranks), its pp group
+    (holding its dp rows and tp ranks), its tp group (holding its dp rows
+    and stages) and the whole mesh; a group of one process moves nothing. On a
     ``cuda`` device under gloo every payload goes through a pinned host
     buffer and back (``staging``). ``stats``: staged bytes and copies, the
     staging copies' and the collectives' host seconds, collectives issued,
@@ -231,6 +239,7 @@ class ProcessComm:
             "mesh": groups.get(("mesh", tuple(range(layout.world)))),
             "dp": groups.get(("dp", layout.dp_peers())),
             "pp": groups.get(("pp", layout.pp_peers())),
+            "tp": groups.get(("tp", layout.tp_peers())),
         }
         self.staging = self.device.type == "cuda" and backend == "gloo"
         self.reset_stats()
@@ -241,7 +250,7 @@ class ProcessComm:
 
     def size(self, axis):
         """The number of processes on ``axis`` (``"dp"``, ``"pp"``,
-        ``"mesh"``)."""
+        ``"tp"``, ``"mesh"``)."""
         g = self.groups[axis]
         return 1 if g is None else dist.get_world_size(g)
 
@@ -412,17 +421,15 @@ def stage_rows(mesh, num_chunks=1):
     return range(s.start * num_chunks, s.stop * num_chunks)
 
 
-def gather_stacked(stacked, mesh, num_chunks=1):
+def gather_stacked(stacked, mesh, num_chunks=1, spec=None):
     """The full stacked ``{W, b}`` tree (host numpy) on every process,
-    assembled from each process's rows (one ``all_gather_object``): what
-    ``model_hash`` reads."""
-    mine = (stage_rows(mesh, num_chunks).start,
-            {k: [a.detach().cpu().numpy() for a in stacked[k]] for k in ("W", "b")})
-    parts = mesh.comm.all_gather_object(mine) if mesh.comm is not None else [mine]
-    S = mesh.pp * num_chunks
-    full = {k: [np.zeros((S,) + a.shape[1:], np.float32) for a in mine[1][k]] for k in ("W", "b")}
-    for start, leaves in parts:
-        for k in ("W", "b"):
-            for dst, a in zip(full[k], leaves[k]):
-                dst[start:start + a.shape[0]] = a
-    return {k: tuple(v) for k, v in full.items()}
+    rebuilt from every process's share (one ``all_gather_object``; the
+    executor's ``stacked_from_shares``): its rows and, at tp > 1, its tp
+    ranks' bands, or ZeRO-3's params at rest (``{"P": ...}``, its shard),
+    which needs the model's ``spec``. What ``model_hash`` reads."""
+    from shallowspeed_tpu_torch.parallel.executor import stacked_from_shares
+
+    mine = {k: [a.detach().cpu().numpy() for a in v] if k != "P" else v.detach().cpu().numpy()
+            for k, v in stacked.items()}
+    shares = mesh.comm.all_gather_object(mine) if mesh.comm is not None else [mine]
+    return stacked_from_shares(shares, mesh, num_chunks, spec)

@@ -104,33 +104,43 @@ def _stacks(tree):
             yield from _stacks(tree[k])
 
 
-def assert_dp_replicas_in_sync_global(tree, spec, mesh) -> None:
+def assert_dp_replicas_in_sync_global(tree, spec, mesh, sharded=False) -> None:
     """The multi-process replica-sync check (the JAX package's
     ``utils.assert_dp_replicas_in_sync_global``, and the reference's gather
     of the replicas' hashes over the dp communicator). ``tree``: this
     process's share of state every dp replica must hold alike — the stacked
     params, or an optimizer state of their layout (zero 0) — as nests whose
-    tensors lead with this process's stacked rows, and 0-d scalars (Adam's
-    step). Each process SHA1s each of its leaves' rows; the hashes are
-    gathered with ``all_gather_object`` over the mesh, and the rows that
-    hold the same logical ``(leaf, stacked row)`` on different dp replicas
-    are compared (a scalar is one row every process holds). A mismatch
-    raises ``ValueError`` on every process. On one process (a
-    ``VirtualMesh``, or a process mesh of world 1) it is
-    ``assert_dp_replicas_in_sync`` on each stacked ``{W, b}`` of ``tree``."""
+    tensors lead with this process's stacked rows (at tp > 1 its tp
+    ranks' bands of them), and 0-d scalars (Adam's step). Each process
+    SHA1s each of its leaves' rows; the hashes are gathered with
+    ``all_gather_object`` over the mesh, and only the copies that hold the
+    same logical shard are compared, as the JAX check compares the devices
+    holding the same shard index: the same ``(leaf, stacked row, tp
+    band)`` on different dp replicas (a scalar is one shard every process
+    holds). A ZeRO shard — ``sharded=True`` (a zero >= 1 optimizer state)
+    or the ZeRO-3 params at rest (``{"P": ...}``) — is one dp rank's
+    columns, held by no other process: its 2-D leaves are compared with
+    nothing, only its scalars. A mismatch raises ``ValueError`` on every
+    process. On one process (a ``VirtualMesh``, or a process mesh of world
+    1) it is ``assert_dp_replicas_in_sync`` on each stacked ``{W, b}`` of
+    ``tree``."""
     from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh
 
     if not isinstance(mesh, ProcessMesh) or mesh.world == 1:
         for stacked in _stacks(tree):
             assert_dp_replicas_in_sync(stacked, spec)
         return
+    sharded = sharded or (isinstance(tree, dict) and set(tree) == {"P"})
     V = spec.n_stages // mesh.pp
     first, n_rows = mesh.local_stages.start * V, len(mesh.local_stages) * V
+    band = mesh.local_tp.start
     mine = {}
     for li, (path, leaf) in enumerate(_leaves(tree)):
         host = np.ascontiguousarray(leaf.detach().cpu().numpy())
         if host.ndim == 0:
             mine[(li, None)] = sha1(host.tobytes()).hexdigest()
+            continue
+        if sharded:
             continue
         if host.shape[0] != n_rows:
             raise ValueError(
@@ -138,14 +148,14 @@ def assert_dp_replicas_in_sync_global(tree, spec, mesh) -> None:
                 f"{n_rows} stacked rows of the process mesh"
             )
         for r in range(n_rows):
-            mine[(li, first + r)] = sha1(host[r].tobytes()).hexdigest()
+            mine[(li, first + r, band)] = sha1(host[r].tobytes()).hexdigest()
     seen = {}
     for theirs in mesh.comm.all_gather_object(mine):
         for key, h in theirs.items():
             seen.setdefault(key, set()).add(h)
     mismatches = sorted(
-        (key for key, hashes in seen.items() if len(hashes) > 1),
-        key=lambda k: (k[0], -1 if k[1] is None else k[1]),
+        (key[:2] if mesh.tp == 1 else key for key, hashes in seen.items() if len(hashes) > 1),
+        key=lambda k: (k[0], -1 if k[1] is None else k[1]) + tuple(k[2:]),
     )
     if mismatches:
         raise ValueError(

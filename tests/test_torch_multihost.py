@@ -7,27 +7,35 @@ the JAX package's ``tests/test_multihost.py`` surface.
   environment, retries an unreachable coordinator on the JAX schedule and
   raises; NCCL on a shared device is refused; the process layouts equal the
   JAX workers' and ``shard_batch_for_process``'s rows equal the rows
-  ``NamedSharding(mesh, P('dp'))`` gives each process's devices; a process
-  mesh of world 1 is bitwise the ``VirtualMesh``; every refusal of the
-  slice raises ``ValueError`` before any collective.
+  ``NamedSharding(mesh, P('dp'))`` gives each process's devices; at tp > 1
+  every allowed ``(dp, pp, tp, world)`` up to 8 ranks gives each process
+  the JAX device order's block, and tp = 1 keeps the ``(dp, pp)`` layout
+  and groups; a process mesh of world 1 is bitwise the ``VirtualMesh``;
+  what stays refused raises ``ValueError`` before any collective.
 - Spawned gloo fleets on the CPU (``tests/_torch_multihost_worker.py``, the
-  JAX workers' sizes): two processes (the dp sum of 1 and 2, GPipe, ZeRO-1
-  with a clip, interleaved, the fused 2-epoch run, the flag-kernel backend,
-  bucketed zero 0 and zero 1, inference, JSONL shards, ``p0print``, the
-  session's refusal) and four (the 2x2 mesh with both axes crossing, two
-  momentum steps with the global replica check after each and a detected
-  desync; DP=4; DP=2 x PP=4 ZeRO-1 with two ranks a process). Every
-  process's rows are held to the port's lockstep twin on a
-  ``VirtualMesh`` — bitwise where the order of every sum is kept (dp = 2
-  without a clip, inference), within the executor's cross-layout class
-  ``rtol=3e-4, atol=3e-6`` where a norm is assembled from per-process
-  partials or dp > 2 — and to the JAX executor's ``make_pipeline_step`` on
-  the same mesh shape within the cross-engine class ``rtol=2e-4,
-  atol=2e-6``; every process's census is clean against
-  ``expected_comms``.
+  JAX workers' sizes, every leg of its ``LEGS``): two processes (the dp
+  sum of 1 and 2, GPipe, ZeRO-1 with a clip, interleaved, the flag-kernel
+  backend, bucketed zero 0, 1 and 2, zero 2 and 3, tp of 2 and 4 across
+  processes, digests, the fused 2-epoch run with and without its eval,
+  inference, JSONL shards, ``p0print``, the session's refusal) and four
+  (the 2x2 mesh with both axes crossing, DP=4, DP=2 x PP=4 ZeRO-1, the
+  lattice, zero 2 and 3 on the 2x2 mesh, DP=2 x TP=2 with tp crossing at
+  zero 0 and 3, DP=2 x PP=2 x TP=2 with tp inside a process, DP=4 zero 2
+  with a clip, ZeRO-1 digests, tp of 4 a rank a process; a diverged stage
+  row and a diverged tp band detected). Every process's rows, bands and
+  shards are held to the port's lockstep twin on a ``VirtualMesh`` —
+  bitwise where the order of every sum is kept (dp = 2 and tp = 2 inside
+  a process without a norm from partials, inference), within the
+  executor's cross-layout class ``rtol=3e-4, atol=3e-6`` where a norm is
+  assembled from per-process partials, dp > 2 sums over processes, or tp
+  crosses processes (each multiplies its own ranks' bands only) — and to the
+  JAX executor's ``make_pipeline_step`` on the same mesh shape within the
+  cross-engine class ``rtol=2e-4, atol=2e-6``; replicas hash-equal after
+  every step; every process's census is clean against ``expected_comms``.
 """
 
 import functools
+import importlib.util
 import json
 import socket
 import subprocess
@@ -58,28 +66,28 @@ from shallowspeed_tpu_torch.parallel.lowering import lower_schedule as tlower
 from shallowspeed_tpu_torch.parallel.mesh import ProcessMesh, VirtualMesh
 
 WORKER = Path(__file__).parent / "_torch_multihost_worker.py"
-SIZES, SIZES_I, B, M = (12, 10, 9, 8), (12, 11, 10, 9, 9, 8, 8, 8), 16, 2
 RTOL, ATOL = 2e-4, 2e-6  # cross-engine (tests/test_torch_oracle.py)
 LAYOUT_RTOL, LAYOUT_ATOL = 3e-4, 3e-6  # cross-layout (tests/test_executor.py)
 
-# the worker's legs: (world, layout); "bitwise" where every sum keeps the
-# lockstep twin's order (dp = 2, no norm from per-process partials)
-LEGS = {
-    "gpipe": (2, dict(dp=2, pp=2), True),
-    "zero1_clip": (2, dict(dp=2, pp=2, opt="momentum", zero=1, clip_norm=1.0), False),
-    "interleaved": (2, dict(dp=2, pp=2, sizes=SIZES_I, sched="InterleavedSchedule", virtual=2), True),
-    "pallas": (2, dict(dp=2, pp=2, kernel_backend="pallas"), True),
-    "bucketed": (2, dict(dp=2, pp=2, grad_bucket_bytes=160), True),
-    "zero1_bucketed": (2, dict(dp=2, pp=2, zero=1, grad_bucket_bytes=64), True),
-    "mesh2x2": (4, dict(dp=2, pp=2, opt="momentum", steps=2), True),
-    "dp4": (4, dict(dp=4, pp=1, clip_norm=0.5), False),
-    "dp2pp4_zero1": (4, dict(dp=2, pp=4, sizes=SIZES_I, opt="momentum", zero=1, clip_norm=1.0), False),
-    "pipedream_split": (4, dict(dp=2, pp=2, sched="PipeDreamFlushSchedule", backward_split=True), True),
-    "recompute": (4, dict(dp=2, pp=2, recompute=True), True),
-    "naive_adam_clip": (4, dict(dp=2, pp=2, sched="NaiveParallelSchedule", opt="adam", steps=2,
-                                clip_norm=0.5), False),
-    "zero1_adam": (4, dict(dp=2, pp=2, opt="adam", zero=1, steps=2), True),
-}
+
+def _load_worker():
+    spec = importlib.util.spec_from_file_location("_torch_multihost_worker", WORKER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # its top imports the standard library only
+    return mod
+
+
+_W = _load_worker()
+SIZES, SIZES_I, B, M = _W.SIZES, _W.SIZES_I, _W.B, _W.M
+# the worker's legs: (world, layout, bitwise) — "bitwise" where every sum
+# keeps the lockstep twin's order (dp = 2, tp = 2 inside a process, no norm
+# from per-process partials) and every product has the twin's shape: where
+# tp crosses processes a process multiplies its held ranks' bands only, a
+# product batched over fewer ranks than the twin's, which may reduce
+# otherwise
+NOT_BITWISE = {"zero1_clip", "dp4", "dp2pp4_zero1", "naive_adam_clip", "tp4", "dp4_zero2_clip",
+               "tp4_digests", "tp2", "dp2tp2", "dp2tp2_zero3"}
+LEGS = {leg: (world, lay, leg not in NOT_BITWISE) for leg, (world, lay) in _W.LEGS.items()}
 PROG_KW = ("backward_split", "recompute")
 
 
@@ -184,6 +192,68 @@ def test_process_layout_and_batch_rows_equal_jax(case):
         assert all(pm.block(p)[0] == pm.block(q)[0] for p in pm.pp_peers(q))
 
 
+def _layouts(max_ranks=8):
+    """Every ``(dp, pp, tp, world)`` with ``dp*pp*tp <= max_ranks`` and
+    ``world`` dividing the ranks."""
+    for dp in range(1, max_ranks + 1):
+        for pp in range(1, max_ranks // dp + 1):
+            for tp in range(1, max_ranks // (dp * pp) + 1):
+                ranks = dp * pp * tp
+                for world in range(1, ranks + 1):
+                    if ranks % world == 0:
+                        yield dp, pp, tp, world
+
+
+def test_process_layout_at_tp_is_the_jax_device_order():
+    """At every allowed layout up to 8 ranks, process ``q`` owns exactly
+    the mesh positions of the JAX devices ``q*n .. (q+1)*n - 1`` (the
+    order-preserving ``make_mesh(dp, pp, tp=tp)``), its groups are the
+    processes sharing the other axes, and a refused layout is one whose
+    device blocks are not such a product; at tp = 1 the layout and groups
+    are the ``(dp, pp)`` ones unchanged."""
+    devs = jax.devices()
+    allowed = refused = 0
+    for dp, pp, tp, world in _layouts():
+        ranks = dp * pp * tp
+        n = ranks // world
+        coords = np.argwhere(np.ones((dp, pp, tp), bool))  # flat order = device order
+        jm = jmesh(dp, pp, devices=devs[:ranks], tp=tp)
+        # a device's (d, s, t); the tp = 1 mesh has no tp axis
+        pos = {dev.id: (tuple(int(c) for c in np.argwhere(jm.devices == dev)[0]) + (0,))[:3]
+               for dev in devs[:ranks]}
+        assert [pos[d.id] for d in devs[:ranks]] == [tuple(int(v) for v in c) for c in coords]
+        try:
+            layouts = [ProcessMesh(dp, pp, world, q, "cpu", tp=tp) for q in range(world)]
+        except ValueError as e:
+            refused += 1
+            assert "ranks a process over" in str(e) or "positions a process" in str(e)
+            continue
+        allowed += 1
+        for q, pm in enumerate(layouts):
+            want = sorted(pos[d.id] for d in devs[q * n:(q + 1) * n])
+            got = sorted((d, s, t) for d in pm.local_dp for s in pm.local_stages for t in pm.local_tp)
+            assert got == want, (dp, pp, tp, world, q)
+            assert all(pm.owner(*c) == q for c in got)
+            r = pm.device_rows
+            assert list(r) == sorted(s * tp + t for s in pm.local_stages for t in pm.local_tp)
+            for peers, same in ((pm.dp_peers(q), (1, 2)), (pm.pp_peers(q), (0, 2)),
+                                (pm.tp_peers(q), (0, 1))):
+                assert q in peers
+                assert list(peers) == [p for p in range(world)
+                                       if all(layouts[p].ranks()[i] == pm.ranks()[i] for i in same)]
+            if tp == 1:
+                # the (dp, pp) layout and groups, unchanged
+                assert pm.local_tp == range(1) and pm.shape == {"dp": dp, "pp": pp}
+                old = [("mesh", tuple(range(world)))]
+                for kind, i in (("dp", 1), ("pp", 0)):
+                    gs = {tuple(p for p in range(world) if pm.block(p)[i] == pm.block(x)[i])
+                          for x in range(world)}
+                    old += [(kind, g) for g in sorted(gs) if len(g) > 1]
+                assert pm.groups() == old
+                assert not pm.tp_peers(q)[1:]
+    assert allowed > 40 and refused > 5
+
+
 def _virtual_and_world_one(zero, clip_norm, opt_name, steps=2):
     X, Y = _data()
     spec = TM.make_model_spec(SIZES, 2, B)
@@ -220,26 +290,33 @@ def test_world_one_process_mesh_is_bitwise_the_virtual_mesh(zero, clip_norm, opt
 
 
 def test_refusals_on_a_process_mesh(monkeypatch):
+    """What stays refused across processes, before any collective: the MPMD
+    runtime and the session (ROADMAP item 7b), the JAX executor's own
+    refusals (the flag kernels at zero 3 and at tp > 1, digests at zero 2),
+    and the layouts that do not split."""
     pm = ProcessMesh(2, 2, 2, 0, "cpu")  # no groups attached: a collective would fail
     spec = TM.make_model_spec(SIZES, 2, B)
     prog = tlower(TS.GPipeSchedule, M, 2)
     opt = _opt("sgd")
-    for zero in (2, 3):
-        with pytest.raises(ValueError, match=f"zero={zero} on a process mesh.*7b"):
-            TE.make_pipeline_step(pm, spec, prog, 4, opt, zero=zero)
-    with pytest.raises(ValueError, match="tp=2 on a process mesh.*7b"):
-        ProcessMesh(2, 2, 2, 0, "cpu", tp=2)
-    with pytest.raises(ValueError, match="with_digests on a process mesh"):
-        TE.make_pipeline_step(pm, spec, prog, 4, opt, with_digests=True)
-    eprog = tlower(TS.InferenceSchedule, 1, 2, training=False)
-    with pytest.raises(ValueError, match="eval on a process mesh"):
-        TE.make_pipeline_run(pm, spec, prog, 4, opt, eval_prog=eprog, eval_mubatch_size=8)
+    with pytest.raises(ValueError, match="use kernel_backend='xla' with --zero 3"):
+        TE.make_pipeline_step(pm, spec, prog, 4, opt, zero=3, kernel_backend="pallas")
+    with pytest.raises(ValueError, match="use kernel_backend='xla' with --tp"):
+        TE.make_pipeline_step(ProcessMesh(2, 2, 4, 0, "cpu", tp=2), spec, prog, 4, opt,
+                              kernel_backend="pallas")
+    with pytest.raises(ValueError, match="run digests at --zero 1 or below"):
+        TE.make_pipeline_step(pm, spec, prog, 4, opt, zero=2, with_digests=True)
     with pytest.raises(ValueError, match="MPMD runtime.*7b"):
         mpmd.MpmdTrainRunner(pm, spec, prog, 4, opt)
     with pytest.raises(ValueError, match="do not split"):
         ProcessMesh(2, 2, 3, 0, "cpu")
     with pytest.raises(ValueError, match="block of stages"):
         ProcessMesh(3, 2, 2, 0, "cpu")
+    with pytest.raises(ValueError, match="tp=2 x .* do not split|do not split"):
+        ProcessMesh(1, 1, 4, 0, "cpu", tp=2)
+    with pytest.raises(ValueError, match="ranks a process over tp=2"):
+        ProcessMesh(3, 1, 2, 0, "cpu", tp=2)
+    with pytest.raises(ValueError, match="positions a process over pp=3"):
+        ProcessMesh(2, 3, 3, 0, "cpu", tp=2)
     monkeypatch.setattr(multihost, "process_count", lambda: 2)
     from shallowspeed_tpu_torch.api import TrainingSession
 
@@ -308,102 +385,148 @@ def _leg_spec(lay):
     return TM.make_model_spec(lay.get("sizes", SIZES), lay["pp"] * V, B), V
 
 
+def _state_init(E, opt, spec, mesh, zero, stacked):
+    if zero >= 2:
+        return E.zero_block_init_state(opt, spec, mesh)
+    return E.zero1_init_state(opt, spec, mesh) if zero else opt.init(stacked)
+
+
 @functools.lru_cache(maxsize=None)
 def _twin(leg):
     """The leg on the port's lockstep executor (VirtualMesh, the CPU):
-    (stacked numpy, state numpy leaves, losses)."""
+    (full stacked numpy — ``{"P"}`` at zero 3 — state numpy leaves, losses,
+    digests)."""
     world, lay, _ = LEGS[leg]
     X, Y = _data()
     spec, V = _leg_spec(lay)
-    mesh = VirtualMesh(lay["dp"], lay["pp"], "cpu")
+    tp = lay.get("tp", 1)
+    mesh = VirtualMesh(lay["dp"], lay["pp"], "cpu", tp=tp)
     prog = tlower(getattr(TS, lay.get("sched", "GPipeSchedule")), M, lay["pp"], virtual=V,
                   **{k: lay[k] for k in PROG_KW if k in lay})
     order = TE.interleave_order(spec.n_stages, lay["pp"]) if V > 1 else None
     opt = _opt(lay.get("opt"))
     zero = lay.get("zero", 0)
     stacked, flags = TE.init_stacked(spec, mesh, order=order)
-    state = TE.zero1_init_state(opt, spec, mesh) if zero else opt.init(stacked)
+    state = _state_init(TE, opt, spec, mesh, zero, stacked)
+    if zero == 3:
+        stacked = TE.zero_params_at_rest(
+            {k: tuple(a.numpy() for a in v) for k, v in stacked.items()}, spec, mesh)
     step = TE.make_pipeline_step(
         mesh, spec, prog, B // lay["dp"] // M, opt, zero=zero, clip_norm=lay.get("clip_norm"),
         kernel_backend=lay.get("kernel_backend", "xla"),
         grad_bucket_bytes=lay.get("grad_bucket_bytes", 0),
+        with_digests=lay.get("with_digests", False),
     )
-    losses = []
+    losses, digests = [], []
     for _ in range(lay.get("steps", 1)):
-        stacked, state, loss = step(stacked, flags, state, torch.from_numpy(X), torch.from_numpy(Y))
+        out = step(stacked, flags, state, torch.from_numpy(X), torch.from_numpy(Y))
+        stacked, state, loss = out[:3]
         losses.append(float(loss))
-    return ({k: [a.numpy() for a in v] for k, v in stacked.items()},
-            [a.numpy() for _, a in utils._leaves(state)], losses)
+        if lay.get("with_digests"):
+            digests.append({k: v.tolist() for k, v in out[-1].items()})
+    return ({k: [a.numpy() for a in v] if k != "P" else v.numpy() for k, v in stacked.items()},
+            [a.numpy() for _, a in utils._leaves(state)], losses, digests)
 
 
 @functools.lru_cache(maxsize=None)
 def _jax(leg):
     """The leg on the JAX executor's make_pipeline_step (XLA backend) on
-    the emulated mesh of the same shape: (stacked numpy, losses)."""
+    the emulated mesh of the same shape: (full stacked numpy, losses)."""
     world, lay, _ = LEGS[leg]
     X, Y = _data()
     V = lay.get("virtual", 1)
     spec = JM.make_model_spec(lay.get("sizes", SIZES), lay["pp"] * V, B)
-    mesh = jmesh(lay["dp"], lay["pp"])
+    mesh = jmesh(lay["dp"], lay["pp"], tp=lay.get("tp", 1))
     prog = jlower(getattr(JS, lay.get("sched", "GPipeSchedule")), M, lay["pp"], virtual=V,
                   **{k: lay[k] for k in PROG_KW if k in lay})
     order = JE.interleave_order(spec.n_stages, lay["pp"]) if V > 1 else None
     opt = jmake_optimizer(lay.get("opt") or "sgd", 0.05)
-    zero1 = lay.get("zero", 0) == 1
+    zero = lay.get("zero", 0)
     stacked, flags = JE.init_stacked(spec, mesh, order=order)
-    state = JE.zero1_init_state(opt, spec, mesh) if zero1 else opt.init(stacked)
-    step = JE.make_pipeline_step(mesh, spec, prog, B // lay["dp"] // M, opt, zero1=zero1,
-                                 clip_norm=lay.get("clip_norm"))
+    state = _state_init(JE, opt, spec, mesh, zero, stacked)
+    if zero == 3:
+        rows = JE.zero_block_flatten_rows(jax.device_get(stacked), spec, mesh)
+        stacked = {"P": jax.device_put(rows, JE.zero1_part_sharding(mesh))}
+    step = JE.make_pipeline_step(mesh, spec, prog, B // lay["dp"] // M, opt, zero=zero,
+                                 clip_norm=lay.get("clip_norm"),
+                                 grad_bucket_bytes=lay.get("grad_bucket_bytes", 0))
     losses = []
     for _ in range(lay.get("steps", 1)):
         stacked, state, loss = step(stacked, flags, state, jnp.asarray(X), jnp.asarray(Y))
         losses.append(float(loss))
-    return {k: [np.asarray(a) for a in v] for k, v in stacked.items()}, losses
+    if zero == 3:
+        host = JE.zero_block_unflatten_rows(np.asarray(jax.device_get(stacked["P"])), spec, mesh)
+    else:
+        host = jax.device_get(stacked)
+    return {k: [np.asarray(a) for a in v] for k, v in host.items()}, losses
 
 
-def _rows_of(leg, pid):
+def _pm(leg, pid):
     world, lay, _ = LEGS[leg]
-    V = lay.get("virtual", 1)
-    s = ProcessMesh(lay["dp"], lay["pp"], world, pid, "cpu").local_stages
-    return slice(s.start * V, s.stop * V)
+    return ProcessMesh(lay["dp"], lay["pp"], world, pid, "cpu", tp=lay.get("tp", 1))
 
 
-def _process_params(fleets, leg, pid):
-    world = LEGS[leg][0] if leg in LEGS else 2
+def _chunks_of(full, leg, pid):
+    """A process's chunks of a ``(pp*tp, dp*chunk)`` ZeRO tensor: its
+    device rows and its dp ranks' columns."""
+    return TE.local_chunks(full, _pm(leg, pid))
+
+
+def _share_of(full, leg, pid):
+    """A process's share of a full stacked tree (``{W, b}`` lists, or the
+    ZeRO-3 ``{"P"}`` rows): its stages' rows and tp bands, or its chunks."""
+    if "P" in full:
+        return {"P": _chunks_of(full["P"], leg, pid)}
+    spec, _ = _leg_spec(LEGS[leg][1])
+    return {k: list(v) for k, v in TE.local_stacked(full, spec, _pm(leg, pid)).items()}
+
+
+def _process_params(fleets, leg, pid, world=None):
+    world = world or (LEGS[leg][0] if leg in LEGS else 2)
     z = np.load(fleets[world]["dir"] / f"{leg}.p{pid}.npz")
+    if "P" in z.files:
+        return {"P": z["P"]}, z
     n = len([k for k in z.files if k.startswith("W")])
     return {k: [z[f"{k}{l}"] for l in range(n)] for k in ("W", "b")}, z
 
 
+def _pairs(got, want):
+    if "P" in got:
+        return [(got["P"], want["P"])]
+    return [(a, b) for k in ("W", "b") for a, b in zip(got[k], want[k])]
+
+
 def _close(got, want, rtol, atol):
-    for k in ("W", "b"):
-        for a, b in zip(got[k], want[k]):
-            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+    for a, b in _pairs(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
 
 
 def _equal(got, want):
-    return all(np.array_equal(a, b) for k in ("W", "b") for a, b in zip(got[k], want[k]))
+    return all(a.shape == b.shape and np.array_equal(a, b) for a, b in _pairs(got, want))
 
 
 @pytest.mark.parametrize("leg", list(LEGS))
 def test_every_process_holds_the_twins_rows(fleets, leg):
-    """Each process's rows against the lockstep twin's: bitwise where §2 of
-    the contract keeps every sum's order, else within the cross-layout
-    class; the losses likewise, equal on every process."""
+    """Each process's rows, tp bands or ZeRO-3 shard against the lockstep
+    twin's: bitwise where §2 of the contract keeps every sum's order, else
+    within the cross-layout class; the losses likewise, equal on every
+    process."""
     world, lay, bitwise = LEGS[leg]
-    twin, twin_state, twin_losses = _twin(leg)
+    twin, twin_state, twin_losses, _ = _twin(leg)
     res = fleets[world]["res"]
+    L = len(twin.get("W", ()))
     for pid in range(world):
         got, z = _process_params(fleets, leg, pid)
-        rows = _rows_of(leg, pid)
-        want = {k: [a[rows] for a in v] for k, v in twin.items()}
+        want = _share_of(twin, leg, pid)
         if bitwise:
             assert _equal(got, want), (leg, pid)
             assert res[pid][leg] == twin_losses
-            if twin_state and not lay.get("zero"):
-                # a zero-0 momentum state: the same rows of the twin's mirror
+            if len(twin_state) == 2 * L and not lay.get("zero"):
+                # a zero-0 momentum state: the same share of the twin's mirror
                 states = [z[k] for k in z.files if k.startswith("state")]
-                assert all(np.array_equal(a, b[rows]) for a, b in zip(states, twin_state))
+                mirror = {"W": twin_state[:L], "b": twin_state[L:]}
+                assert _equal({"W": states[:L], "b": states[L:]}, _share_of(mirror, leg, pid))
         else:
             _close(got, want, LAYOUT_RTOL, LAYOUT_ATOL)
             np.testing.assert_allclose(res[pid][leg], twin_losses, rtol=LAYOUT_RTOL)
@@ -414,35 +537,66 @@ def test_every_process_holds_the_twins_rows(fleets, leg):
 def test_every_process_within_the_cross_engine_class_of_jax(fleets, leg):
     world, lay, _ = LEGS[leg]
     want_all, losses = _jax(leg)
+    spec, _ = _leg_spec(lay)
+    if lay.get("zero") == 3:
+        mesh = VirtualMesh(lay["dp"], lay["pp"], "cpu", tp=lay.get("tp", 1))
+        want_all = {"P": TE.zero_block_flatten_rows(want_all, spec, mesh)}
     for pid in range(world):
         got, _ = _process_params(fleets, leg, pid)
-        rows = _rows_of(leg, pid)
-        _close(got, {k: [a[rows] for a in v] for k, v in want_all.items()}, RTOL, ATOL)
+        _close(got, _share_of(want_all, leg, pid), RTOL, ATOL)
         np.testing.assert_allclose(fleets[world]["res"][pid][leg], losses, rtol=RTOL)
 
 
 @pytest.mark.parametrize("leg", [l for l in LEGS if LEGS[l][1].get("zero")])
 def test_zero1_state_chunks_are_the_twins(fleets, leg):
-    """At zero 1 a process holds only its ranks' state chunks: its stages'
-    rows and its dp ranks' columns of the twin's ``(pp, dp*chunk)`` state."""
+    """At zero >= 1 a process holds only its ranks' state chunks: its
+    device rows and its dp ranks' columns of the twin's ``(pp*tp,
+    dp*chunk)`` state (the flat layout at zero 1, the block-cyclic one at 2
+    and 3)."""
     world, lay, bitwise = LEGS[leg]
-    _, twin_state, _ = _twin(leg)
-    spec, _ = _leg_spec(lay)
-    _, csz = TE.zero1_flat_len(spec, VirtualMesh(lay["dp"], lay["pp"], "cpu"))
+    _, twin_state, _, _ = _twin(leg)
     for pid in range(world):
         _, z = _process_params(fleets, leg, pid)
-        pm = ProcessMesh(lay["dp"], lay["pp"], world, pid, "cpu")
-        s, d = pm.local_stages, pm.local_dp
         got = [z[k] for k in z.files if k.startswith("state")]
         assert len(got) == len(twin_state)
         for a, full in zip(got, twin_state):
             # Adam's step is a 0-d scalar every process holds
-            want = full if full.ndim == 0 else full[s.start:s.stop, d.start * csz:d.stop * csz]
+            want = full if full.ndim == 0 else _chunks_of(full, leg, pid)
             assert a.shape == want.shape
             if bitwise:
                 assert np.array_equal(a, want)
             else:
                 np.testing.assert_allclose(a, want, rtol=LAYOUT_RTOL, atol=LAYOUT_ATOL)
+
+
+@pytest.mark.parametrize("leg", [l for l in LEGS if LEGS[l][1].get("with_digests")])
+def test_digest_grids_are_the_twins(fleets, leg):
+    """Every process returns the whole ``(S, L)`` digest grids, the same on
+    every process: the checksums exactly the twin's, the norms bitwise
+    where every sum keeps its order (a row whole in one process), within
+    the cross-layout class where a row's squares come from tp bands."""
+    world, lay, bitwise = LEGS[leg]
+    _, _, _, want = _twin(leg)
+    res = fleets[world]["res"]
+    for r in res:
+        got = r[f"{leg}_digests"]
+        assert got == res[0][f"{leg}_digests"] and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for k in g:
+                if bitwise:
+                    assert g[k] == w[k], (leg, k)
+                elif not k.startswith("crc"):
+                    np.testing.assert_allclose(g[k], w[k], rtol=LAYOUT_RTOL, atol=LAYOUT_ATOL)
+    if not bitwise:
+        # the params are the twin's within the class only: the last step's
+        # checksums are the ones of the rows the processes hold, each row
+        # summed from its bands' words (mod 2^32)
+        shares = [_process_params(fleets, leg, pid)[0] for pid in range(world)]
+        for key, kind in (("crc_w", "W"), ("crc_b", "b")):
+            for l in range(len(shares[0][kind])):
+                words = sum(int(np.sum(sh[kind][l].view(np.int32).astype(np.int64))) for sh in shares)
+                assert res[0][f"{leg}_digests"][-1][key][0][l] == words & 0xFFFFFFFF
 
 
 @pytest.mark.parametrize("leg", list(LEGS))
@@ -458,7 +612,7 @@ def test_two_process_dp_sum_of_one_and_two(fleets):
     assert [r["psum"] for r in fleets[2]["res"]] == [[[3.0] * 4]] * 2
 
 
-@pytest.mark.parametrize("leg,zero", [("bucketed", 0), ("zero1_bucketed", 1)])
+@pytest.mark.parametrize("leg,zero", [("bucketed", 0), ("zero1_bucketed", 1), ("zero2_bucketed", 2)])
 def test_bucketed_sync_issues_one_collective_a_bucket(fleets, leg, zero):
     _, lay, _ = LEGS[leg]
     spec, _ = _leg_spec(lay)
@@ -471,8 +625,31 @@ def test_bucketed_sync_issues_one_collective_a_bucket(fleets, leg, zero):
         got = [sites[f"{site}.bucket{i}"] for i in range(plan.num_buckets)]
         assert got == [[kind, b] for b in plan.bucket_census_bytes()]
         assert f"{site}.bucket{plan.num_buckets}" not in sites
-        # the loss's sum, the buckets, and at zero 1 the gather
-        assert r[f"{leg}_stats"]["collectives"] == 1 + plan.num_buckets + zero
+        # the loss's sum, the buckets, and at zero 1 and 2 the gather
+        assert r[f"{leg}_stats"]["collectives"] == 1 + plan.num_buckets + (zero > 0)
+
+
+def test_per_tick_zero_collectives_a_slot_and_a_stage(fleets):
+    """Anchor zero 2 and zero 3 across processes: one reduce-scatter a
+    slot (W and b) and backward tick of each held stage, and at zero 3 one
+    parameter all-gather a stage and tick that computes, over the dp
+    group; no whole-tree sum."""
+    for leg in ("zero2_pallas", "zero3"):
+        _, lay, _ = LEGS[leg]
+        spec, _ = _leg_spec(lay)
+        L = len(TE.slot_shapes(spec))
+        prog = tlower(TS.GPipeSchedule, M, 2)
+        ops = np.asarray(prog.op)
+        # every process holds both stages: its active slots a backward tick
+        flags = TE.stack_params(TM.init_model(spec), spec)[1]["active"]
+        bwd = sum(int(flags[s].sum()) for t, s in zip(*np.nonzero(ops == 2)))
+        fwd_bwd = int(np.sum((ops == 1) | (ops == 2)))
+        for r in fleets[2]["res"]:
+            sites = r[f"{leg}_sites"]
+            assert "dp_sum" not in sites and "zero_sum" not in sites
+            assert sum("zero_scatter" in k for k in sites) == 2 * L
+            want = 2 * bwd + 1 + (fwd_bwd if lay["zero"] == 3 else 1)
+            assert r[f"{leg}_stats"]["collectives"] == want, (leg, r[f"{leg}_stats"])
 
 
 def test_two_process_flag_backend_loss_equals_xla_and_the_run_falls(fleets):
@@ -494,6 +671,36 @@ def test_two_process_fused_run_is_the_twins(fleets):
         assert r["run"] == losses.tolist()
         got, _ = _process_params(fleets, "run", pid)
         assert _equal(got, {k: [a.numpy() for a in v] for k, v in stacked.items()})
+
+
+@pytest.mark.parametrize("world,leg", [(2, "run_eval"), (4, "run_eval4")])
+def test_fused_run_eval_is_the_twins(fleets, world, leg):
+    """The fused 2-epoch run with its in-run eval on a process mesh: each
+    process counts its dp rows' correct predictions inside the split, one
+    all-reduce over dp makes the count; losses, accuracies and the rows
+    bitwise the twin's (dp = 2), on two processes and on four (the head
+    stage's process hands its predictions to its pp group)."""
+    X, Y = _data()
+    vr = np.random.RandomState(1)
+    VX = np.zeros((_W.VAL_PADDED, SIZES[0]), np.float32)
+    VX[:_W.VAL_ROWS] = vr.randn(_W.VAL_ROWS, SIZES[0])
+    VY = vr.randint(0, SIZES[-1], _W.VAL_ROWS)
+    mesh = VirtualMesh(2, 2, "cpu")
+    spec = TM.make_model_spec(SIZES, 2, B)
+    stacked, flags = TE.init_stacked(spec, mesh)
+    run = TE.make_pipeline_run(mesh, spec, tlower(TS.GPipeSchedule, M, 2), B // 2 // M, _opt("sgd"),
+                               eval_prog=tlower(TS.InferenceSchedule, 1, 2, training=False),
+                               eval_mubatch_size=_W.VAL_PADDED // 2)
+    stacked, _, losses, accs = run(stacked, flags, (), torch.from_numpy(X)[None],
+                                   torch.from_numpy(Y)[None], torch.from_numpy(VX),
+                                   torch.from_numpy(VY), 2)
+    assert 0 < float(accs[-1]) < 1
+    want = {k: [a.numpy() for a in v] for k, v in stacked.items()}
+    for pid, r in enumerate(fleets[world]["res"]):
+        assert r[leg] == {"losses": losses.tolist(), "accs": accs.tolist()}
+        got, _ = _process_params(fleets, leg, pid, world)
+        pm = ProcessMesh(2, 2, world, pid, "cpu")
+        assert _equal(got, {k: list(v) for k, v in TE.local_stacked(want, spec, pm).items()})
 
 
 def test_inference_rows_are_the_twins(fleets):
@@ -552,16 +759,29 @@ def test_step_stats_norms_over_every_process(fleets, zero):
 
 
 def test_four_process_2x2_replicas_in_sync_and_desync_detected(fleets):
-    """Both axes cross processes; the global check passed after each of
-    two momentum steps on params and state (the worker exits non-zero
+    """Both axes cross processes; the global check passed after each step
+    of every leg on params and state (the worker exits non-zero
     otherwise), training progressed, and a copy diverged on process 3 was
-    detected on every process."""
+    detected on every process: a stage row of the 2x2 mesh, and a tp band
+    of DP=2 x TP=2 (compared only with the same band of the other dp
+    replica). ``gather_stacked`` rebuilds the full tree from rows, bands
+    and ZeRO-3 shards on every process."""
     res = fleets[4]["res"]
     assert all(r["mesh2x2"][1] < r["mesh2x2"][0] for r in res)
     for r in res:
-        assert r["desync_detected"].startswith("cross-process replica desync at (leaf, shard-index)")
-        assert "(0, 1)" in r["desync_detected"]  # W slot 0 of stage row 1, process 3's
+        for leg in ("mesh2x2", "dp2tp2"):
+            assert r[f"{leg}_desync"].startswith("cross-process replica desync at (leaf, shard-index)")
+            assert r[f"{leg}_gathered"]
+        assert "(0, 1)" in r["mesh2x2_desync"]  # W slot 0 of stage row 1, process 3's
+        assert "[(0, 0, 1)]" in r["dp2tp2_desync"]  # W slot 0, stage row 0, process 3's band 1
     # every relay crossed a process: each process sent and received
     assert all(r["mesh2x2_stats"]["sends"] == r["mesh2x2_stats"]["recvs"] > 0 for r in res)
     assert all(r["dp2pp4_zero1_stats"]["sends"] > 0 for r in res)
     assert all(r["dp4_stats"]["sends"] == 0 for r in res)
+    # tp across processes: one Megatron all-reduce a sum site and
+    # microbatch over the tp group, then the loss's and the gradient's sums
+    # over dp; no relay (pp = 1)
+    fwd, bwd = TE.tp_allreduce_sites(TM.make_model_spec(SIZES, 1, B), 2)
+    for r in res:
+        assert r["dp2tp2_stats"]["sends"] == 0
+        assert r["dp2tp2_stats"]["collectives"] == M * (len(fwd) + len(bwd)) + 2

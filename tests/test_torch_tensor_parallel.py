@@ -427,13 +427,14 @@ def test_tp2_stage_is_tp1_bit_for_bit_on_integers(case):
 
                 dx = TE._stage_bwd(W, act, relu, res, dims, xs, masks, g, "xla", sink)
             else:
-                out, xs, masks = TE._stage_fwd_tp(W, b, act, relu, res, dims, xin, "relu", tp)
+                tr = TE.TpRanks(tp, range(tp))
+                out, xs, masks = TE._stage_fwd_tp(W, b, act, relu, res, dims, xin, "relu", tr)
 
                 def sink(l, dw, db):
                     TE._tp_w(gW[l], l, tp).add_(dw)
                     TE._tp_b(gb[l], tp).add_(db)
 
-                dx = TE._stage_bwd_tp(W, act, relu, res, dims, xs, masks, g, tp, sink)
+                dx = TE._stage_bwd_tp(W, act, relu, res, dims, xs, masks, g, tr, sink)
             outs[tp] = out
             grads[tp] = (dx, gW, gb)
         w1 = outs[1].shape[-1]
