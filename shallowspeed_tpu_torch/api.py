@@ -151,7 +151,7 @@ from shallowspeed_tpu_torch.observability import program_audit as A
 from shallowspeed_tpu_torch.observability.flight import FlightRecorder
 from shallowspeed_tpu_torch.observability.health import HealthError, make_monitor
 from shallowspeed_tpu_torch.observability.slo import LiveTelemetry, default_training_rules
-from shallowspeed_tpu_torch.observability.spans import capture
+from shallowspeed_tpu_torch.observability.spans import capture, program_span, spanned
 from shallowspeed_tpu_torch.observability.tracing import Tracer
 from shallowspeed_tpu_torch.optimizer import is_stateless, make_optimizer
 from shallowspeed_tpu_torch.parallel import executor as E
@@ -236,6 +236,7 @@ class TrainingSession:
     ``device``: ``"cuda"`` (default) or ``"cpu"``; a missing GPU raises, it
     never falls back."""
 
+    @spanned("session.init")
     def __init__(
         self,
         sizes=FLAGSHIP_SIZES,
@@ -587,7 +588,8 @@ class TrainingSession:
         self._X = self._Y = None
         self._vx = self._vy = None  # the validation split, loaded lazily
         if data_dir is not None:
-            self._load_train(data_dir)
+            with program_span("session.load_data"):
+                self._load_train(data_dir)
 
         host_opt_state = None
         verified = None  # (meta, arrays) of the snapshot discovery verified
@@ -615,7 +617,8 @@ class TrainingSession:
             if data_dir is not None:
                 self._restore_cursor(meta)
         else:
-            host_params = Mo.init_model(self.spec)
+            with program_span("session.init_params"):
+                host_params = Mo.init_model(self.spec)
         stateful = host_opt_state is not None and not is_stateless(self._opt)
         self._run_fns = {}  # whole-run functions, keyed by with_eval
         # telemetry aux (the JAX session's rules and words): the pre-clip
@@ -1024,7 +1027,8 @@ class TrainingSession:
         t0 = time.perf_counter()
         with self._metrics.span("train_steps"):
             loss_t, aux = self._dispatch(k0, k1)
-            loss = float(loss_t)  # waits for the device
+            with program_span("session.loss_wait"):
+                loss = float(loss_t)  # waits for the device
         wall = time.perf_counter() - t0
         if self._digests and self._metrics.enabled:
             self._record_digests(epoch_index, g0, aux["digests"])
@@ -1172,6 +1176,7 @@ class TrainingSession:
             self._eval_stacked_cache = None
         self._opt_state = opt_state
 
+    @spanned("session.dispatch")
     def _dispatch(self, k0, k1):
         """The epoch function over batches ``[k0, k1)``; returns the mean
         loss (a 0-d tensor) and the telemetry aux dict (None when the

@@ -44,7 +44,10 @@ raise — there is no fallback from one to the other. Every launch adds one
 to ``LAUNCHES[<entry>]`` (the flag entries count under their own names,
 though they launch the ``linear_act_*`` kernels: ``KERNEL_OF`` maps each
 entry to its source), so a caller can show that its path went through the
-kernel.
+kernel. While the program trace records (``observability/spans.py``), a
+launch also adds one to its counter ``cuda_ops.launches`` and the host ns
+from the launching wrapper's entry to the C call's return to
+``cuda_ops.launch_ns``.
 
 The two linear kernels take a launch plan from the wrapper (``fwd_plan``,
 ``bwd_plan``): a row tile sized to M, and the reduction split into chunks
@@ -55,9 +58,11 @@ depend on the other rows of the launch (the sources state the order rule).
 
 import ctypes
 import functools
+import time
 
 import torch
 
+from shallowspeed_tpu_torch.observability import spans
 from shallowspeed_tpu_torch.optimizer import _decay_factor, clip_tree
 
 # each wrapper's launch-count entry -> the kernel (csrc/<name>.cu and its C
@@ -193,9 +198,12 @@ def _check_cuda_operands(kernel, device, **tensors):
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _launch(entry, *args):
+def _launch(entry, t0, *args):
     """Call the C entry point of ``KERNEL_OF[entry]`` on the current stream;
-    count the launch under ``entry``."""
+    count the launch under ``entry``. ``t0``: the wrapper's entry on
+    ``time.perf_counter_ns()`` while the program trace records (else 0);
+    then the launch is also counted in the trace's ``cuda_ops.launches``,
+    and the host ns from ``t0`` to here in ``cuda_ops.launch_ns``."""
     kernel = KERNEL_OF[entry]
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -204,6 +212,9 @@ def _launch(entry, *args):
     if err != 0:
         raise RuntimeError(f"{entry}: launch of {kernel} failed with CUDA error {err}")
     LAUNCHES[entry] += 1
+    if t0:
+        spans.add("cuda_ops.launches")
+        spans.add("cuda_ops.launch_ns", time.perf_counter_ns() - t0)
 
 
 @functools.cache
@@ -241,6 +252,7 @@ def linear_act_fwd(x, w, b, apply_relu=True, _entry="linear_act_fwd"):
     """``(y, mask)`` of ``z = x @ w.T + b`` — the kernel on CUDA tensors,
     the plain version on CPU tensors. x ``(M, K)``, w ``(N, K)``, b
     ``(N,)`` or ``(1, N)``; all float32 and contiguous on one device."""
+    t0 = time.perf_counter_ns() if spans.TRACE is not None else 0
     if not (x.is_cuda or w.is_cuda or b.is_cuda):
         return linear_act_fwd_reference(x, w, b, apply_relu)
     _check_cuda_operands(_entry, x.device, x=x, w=w, b=b)
@@ -260,7 +272,7 @@ def linear_act_fwd(x, w, b, apply_relu=True, _entry="linear_act_fwd"):
     if M == 0 or N == 0:
         return y, mask
     _launch(
-        _entry, x, w, b, y, mask, M, N, K, int(bool(apply_relu)),
+        _entry, t0, x, w, b, y, mask, M, N, K, int(bool(apply_relu)),
         *_fwd_ints(M, N, K),
     )
     return y, mask
@@ -312,6 +324,7 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True, _entry="linear_act_bwd"):
     float32, mask ``(M, N)`` bool (read only when ``apply_relu``; may then
     be None), x ``(M, K)``, w ``(N, K)``; contiguous on one device. Returns
     dx ``(M, K)``, dw ``(N, K)``, db ``(N,)``."""
+    t0 = time.perf_counter_ns() if spans.TRACE is not None else 0
     apply_relu = bool(apply_relu)
     if apply_relu and mask is None:
         raise ValueError(f"{_entry}: apply_relu needs the forward's mask")
@@ -346,7 +359,7 @@ def linear_act_bwd(g, mask, x, w, apply_relu=True, _entry="linear_act_bwd"):
     # without the relu the kernel never reads the mask; g stands in as a
     # valid device address
     _launch(
-        _entry,
+        _entry, t0,
         g, mask if apply_relu else g, x, w, dx, dw, db, M, N, K, int(apply_relu),
         *_bwd_ints(M, N, K),
     )
@@ -715,6 +728,7 @@ def fused_train_call(
     CUDA tensors launch the kernel (or raise: a stage of more than
     ``FUSED_MAX_LAYERS`` layers is refused before any launch); CPU tensors
     run ``fused_train_reference``."""
+    t0 = time.perf_counter_ns() if spans.TRACE is not None else 0
     opt = opt or {"kind": "sgd"}
     _check_geometry(opt, mirrors, scalars)
     if n_epochs is not None and not epoch_mode:
@@ -794,5 +808,5 @@ def fused_train_call(
     epochs = 1 if n_epochs is None else n_epochs
     loss = torch.empty((epochs,), dtype=torch.float32, device=dev)
     ws = torch.empty((ws_floats,), dtype=torch.float32, device=dev)
-    _launch("fused_train", X, Y, loss, ws, table, hyper, nb, epochs, *plan_ints)
+    _launch("fused_train", t0, X, Y, loss, ws, table, hyper, nb, epochs, *plan_ints)
     return stage_params, list(mirrors), list(scalars), loss if n_epochs else loss[0]

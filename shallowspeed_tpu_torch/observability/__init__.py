@@ -6,7 +6,10 @@ package's report, watch and divergence CLIs read the port's files).
                    ``MetricsRecorder`` and the JSONL sink ``JsonlMetrics``
                    (copied);
 - ``spans``        wall-clock spans under ``torch.profiler.record_function``
-                   (and an NVTX range on a CUDA session), and ``capture``,
+                   (and an NVTX range on a CUDA session); the program
+                   trace, an in-memory record of the port's own spans and
+                   counters on the profiler's clock while ``recording()``
+                   is open (a flag test while it is not); and ``capture``,
                    a ``torch.profiler`` trace into a directory;
 - ``trace_stats``  the Kineto trace analyzer: the device events' busy
                    union (``dispatch_busy``) and op breakdown

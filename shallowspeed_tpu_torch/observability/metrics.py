@@ -304,7 +304,7 @@ import os
 import threading
 import time
 
-from shallowspeed_tpu_torch.observability.spans import Span
+from shallowspeed_tpu_torch.observability.spans import _NULL, Span, program_span
 
 SCHEMA_VERSION = 13
 SCHEMA_NAME = "shallowspeed_tpu.metrics"
@@ -348,21 +348,6 @@ SCHEMA_KINDS = {
 }
 
 
-class _NullContext:
-    """Reusable allocation-free no-op context manager (module singleton)."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        return False
-
-
-_NULL_CONTEXT = _NullContext()
-
-
 class NullMetrics:
     """The no-op backend: the hot-path methods take fixed positional
     arguments (no ``**kwargs`` — an empty kwargs dict is still a dict
@@ -381,10 +366,11 @@ class NullMetrics:
         pass
 
     def timer(self, name):
-        return _NULL_CONTEXT
+        return _NULL
 
     def span(self, name):
-        return _NULL_CONTEXT
+        # a span of the program trace alone (the shared no-op while it is off)
+        return program_span(name)
 
     def event(self, name, **fields):
         pass

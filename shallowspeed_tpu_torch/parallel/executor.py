@@ -158,6 +158,7 @@ import torch.nn.functional as F
 from shallowspeed_tpu_torch import cuda_ops, ops
 from shallowspeed_tpu_torch.model import ModelSpec, init_model
 from shallowspeed_tpu_torch.observability import program_audit as A
+from shallowspeed_tpu_torch.observability.spans import spanned
 from shallowspeed_tpu_torch.optimizer import (
     clip_scale,
     clip_tree,
@@ -2126,6 +2127,7 @@ def make_pipeline_step(mesh, spec: ModelSpec, prog, mubatch_size, opt=None,
 
     if training:
 
+        @spanned("executor.step")
         def step(stacked, flags, opt_state, x, y):
             dev = _device_of(stacked)
             acc, losses = run_ticks(stacked, flags, split(x, D_in), split(y, D_out), dev)

@@ -37,6 +37,7 @@ from shallowspeed_tpu_torch.model import (
     model_forward,
     param_tree,
 )
+from shallowspeed_tpu_torch.observability.spans import spanned
 from shallowspeed_tpu_torch.optimizer import (
     SGD,
     Adam,
@@ -189,6 +190,7 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
             raise ValueError(_NO_STEP_AUX)
         sspec = _validate_megakernel(spec, opt, fuse_mubatches)
 
+        @spanned("trainer.step")
         def mega_step(params, opt_state, xb, yb):
             return _fused_kernel_call(
                 spec, sspec, opt, params, opt_state, xb, yb, clip_norm=clip_norm
@@ -209,6 +211,7 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
             outs += (_digest_aux(params, raw),)
         return outs
 
+    @spanned("trainer.step")
     def batch_step(params, opt_state, xb, yb):
         if fuse_mubatches:
             rows = xb.shape[1]
@@ -313,6 +316,7 @@ def _make_epoch_kernel_core(spec, opt, fuse_mubatches, clip_norm):
     same computation and loss order as a loop of ``megakernel`` steps."""
     sspec = _validate_megakernel(spec, opt, fuse_mubatches, name="epoch_kernel")
 
+    @spanned("trainer.epoch_kernel")
     def epoch_core(params, opt_state, X, Y):
         return _fused_kernel_call(
             spec, sspec, opt, params, opt_state, X, Y, clip_norm=clip_norm
