@@ -26,11 +26,18 @@ in phases:
    same row of the 1000-row launch, failing on the first M that differs;
 3b. the backward kernel vs its plain version at the training path's
    shapes — every flagship relu layer and mlp-deep's layers at 32 rows (a
-   microbatch) and 128 (fused microbatches), and a ragged shape with the
-   activation off and on: dx, dW and db within ``rtol=1e-5,
+   microbatch) and 128 (fused microbatches), mlp-deep's at 256 (the
+   benchmark's microbatch; the wide family) with the activation off and
+   on, a ragged shape with the activation off and on and three ragged wide
+   ones (200 x 784 -> 2000; 256 x 784 -> 2000, whose last dW tiles run
+   past N and whose mask ends a 512-byte block; 130 x 785 -> 519, whose
+   rows take 4-byte copies), each mask of whole 16-byte rows the last
+   bytes of an allocation of its own, so that a read past it leaves the
+   allocation: dx, dW and db within ``rtol=1e-5,
    atol=1e-5*ceil(L/784)`` for a reduction of length L, a NaN or Inf in
    ``g`` at a masked position poisoning exactly what it poisons in the
-   plain version, two launches bitwise equal; then the times as in phase 3
+   plain version (at 32 x 784 -> 128 and 256 x 2048 -> 2048), two
+   launches bitwise equal; then the times as in phase 3
    (the yardstick: ``torch.mm(ge, W)`` + ``torch.mm(ge.T, x)`` +
    ``ge.sum(0)``) and the bound max(bytes / 3.35 TB/s, 4*M*N*K / 67
    TFLOP/s), beside the launch plan (``cuda_ops.bwd_plan``: dx's row x
@@ -433,6 +440,7 @@ MLP_DEEP_SHAPES = ((784, 2048), (2048, 2048))  # (K, N) of its relu layers
 SLOT_ROWS = 8
 WIDE_ROWS = 128
 MUBATCH_ROWS = 32  # one microbatch of the flagship recipe (128 / 4)
+DEEP_MUBATCH_ROWS = 256  # one microbatch of the benchmark's mlp-deep cells (1024 / 4)
 TRAIN_BATCHES = 16  # batches per epoch of the synthetic training split
 VAL_ROWS = 1000  # rows of its validation split
 TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-6  # cross-engine class (tests/test_torch_oracle.py)
@@ -735,6 +743,17 @@ def _bwd_operands(torch, gen, rows, k, n):
     return g, mask, x, w
 
 
+def _at_allocation_end(torch, t):
+    """A copy of ``t`` as the last bytes of a 12 MiB block of its own: the
+    caching allocator gives a request above 10 MiB a segment of exactly its
+    size, so a read past ``t`` leaves the allocation (and can fault)."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(12 << 20, dtype=torch.uint8, device=t.device)
+    out = buf[buf.numel() - nbytes:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _check_bwd(torch, got, want, rows, n, label):
     """dx (sum over N), dW and db (sums over the rows) against the plain
     version; returns the largest finite error."""
@@ -765,7 +784,14 @@ def phase_bwd_kernels(torch, cuda_ops):
             shapes.append((rows, k, n, 1, "flagship"))
         for k, n in MLP_DEEP_SHAPES:
             shapes.append((rows, k, n, 1, "mlp-deep"))
-    shapes += [(37, 29, 23, 0, "ragged"), (37, 29, 23, 1, "ragged")]
+    # the wide family (128 x 128 tiles) at the mlp-deep cells' microbatch,
+    # with and without the relu, and a ragged wide shape
+    for k, n in MLP_DEEP_SHAPES:
+        for relu in (1, 0):
+            shapes.append((DEEP_MUBATCH_ROWS, k, n, relu, "mlp-deep"))
+    shapes += [(37, 29, 23, 0, "ragged"), (37, 29, 23, 1, "ragged"), (200, 784, 2000, 1, "ragged"),
+               (256, 784, 2000, 1, "ragged"),  # dW's last tiles past N, M * N % 512 == 0
+               (130, 785, 519, 1, "ragged")]  # the wide family's 4-byte copies
     max_err = 0.0
     mub = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     mub_bound_by = set()
@@ -775,6 +801,8 @@ def phase_bwd_kernels(torch, cuda_ops):
     )
     for rows, k, n, relu, tag in shapes:
         g, mask, x, w = _bwd_operands(torch, gen, rows, k, n)
+        if mask.numel() % 16 == 0:  # still 16-byte aligned at the end
+            mask = _at_allocation_end(torch, mask)
         label = f"bwd {rows}x{k}->{n} relu={relu}"
         got = cuda_ops.linear_act_bwd(g, mask, x, w, relu)
         again = cuda_ops.linear_act_bwd(g, mask, x, w, relu)
@@ -804,18 +832,21 @@ def phase_bwd_kernels(torch, cuda_ops):
             mub["library_ms"] += lib
             mub["bound_ms"] += bnd
             mub_bound_by.add(by)
-    # a poisoned gradient where the relu was off: g * mask is NaN there
-    g, mask, x, w = _bwd_operands(torch, gen, MUBATCH_ROWS, FLAGSHIP[0], FLAGSHIP[1])
-    mask[0, 3] = mask[5, 7] = False
-    g[0, 3], g[5, 7] = float("nan"), float("inf")
-    got = cuda_ops.linear_relu_bwd(g, mask, x, w)
-    torch.cuda.synchronize()
-    _check_bwd(
-        torch, got, cuda_ops.linear_act_bwd_reference(g, mask, x, w), MUBATCH_ROWS,
-        FLAGSHIP[1], "bwd NaN/Inf at masked positions",
-    )
-    if not (torch.isnan(got[0][[0, 5]]).all() and torch.isnan(got[2][[3, 7]]).all()):
-        fail("bwd: a NaN/Inf in g at a masked position did not poison dx and db")
+    # a poisoned gradient where the relu was off: g * mask is NaN there (a
+    # flagship microbatch, and the wide family at mlp-deep's)
+    for rows, k, n in ((MUBATCH_ROWS, FLAGSHIP[0], FLAGSHIP[1]),
+                       (DEEP_MUBATCH_ROWS, *MLP_DEEP_SHAPES[1])):
+        g, mask, x, w = _bwd_operands(torch, gen, rows, k, n)
+        mask[0, 3] = mask[5, 7] = False
+        g[0, 3], g[5, 7] = float("nan"), float("inf")
+        got = cuda_ops.linear_relu_bwd(g, mask, x, w)
+        torch.cuda.synchronize()
+        _check_bwd(
+            torch, got, cuda_ops.linear_act_bwd_reference(g, mask, x, w), rows, n,
+            f"bwd {rows}x{k}->{n} NaN/Inf at masked positions",
+        )
+        if not (torch.isnan(got[0][[0, 5]]).all() and torch.isnan(got[2][[3, 7]]).all()):
+            fail(f"bwd {rows}x{k}->{n}: a NaN/Inf in g at a masked position did not poison dx and db")
     say(
         f"phase 3b backward kernel: ok: {len(shapes)} shapes within tolerance, "
         f"NaN/Inf at masked positions propagate as in the plain version, "

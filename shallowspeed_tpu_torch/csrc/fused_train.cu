@@ -108,7 +108,7 @@ constexpr int DW_K = 64;      // ... and columns (K)
 constexpr int MC = 128;       // batch rows of one dW stage
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr int TILE = ROW_TILE * COL_TILE;
-constexpr int MAX_DEVICES = 64;
+using staging::MAX_DEVICES;
 // dynamic shared memory: a group-pass tile's A (ROW_TILE x LDK) and B
 // (COL_TILE x LDK, or KC x COL_TILE); the warp partials and the dW stages
 // reuse it

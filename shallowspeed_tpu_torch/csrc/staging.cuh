@@ -30,6 +30,7 @@ constexpr int LD = BK + 4;       // row stride (floats) of a reduction-contiguou
                                  // 8 distinct bank groups
 constexpr int PANEL = 64;        // width of a stage-major panel (see stage_panel)
 constexpr int MAX_CLUSTER = 8;   // the portable thread block cluster size
+constexpr int MAX_DEVICES = 64;  // devices a launcher's per-device set-up table holds
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -156,16 +157,18 @@ inline bool chunks_cover(int length, int chunks, int chunk_len) {
 }
 
 // Launch `kernel` over `grid` in clusters of `cluster` blocks along x
-// (grid.x a multiple of it), on `stream`; a cluster of one is a plain
+// (grid.x a multiple of it), `threads` threads and `smem` bytes of dynamic
+// shared memory a block, on `stream`; a cluster of one is a plain
 // launch (on sm_90 every block of one is its own cluster). Returns the launch's error, then
 // cudaGetLastError(): a refused launch (cluster size, resources) never runs.
 template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int cluster,
-                             cudaStream_t stream, Args... args) {
+cudaError_t launch_clustered_with(void (*kernel)(Params...), dim3 grid, int threads,
+                                  int cluster, size_t smem, cudaStream_t stream,
+                                  Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -176,6 +179,13 @@ cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int cluster,
   cfg.numAttrs = cluster > 1 ? 1 : 0;  // every block is a cluster of one without it
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The same with THREADS threads a block and static shared memory only.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int cluster,
+                             cudaStream_t stream, Args... args) {
+  return launch_clustered_with(kernel, grid, THREADS, cluster, 0, stream, args...);
 }
 
 }  // namespace staging

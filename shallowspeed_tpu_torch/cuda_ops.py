@@ -54,10 +54,15 @@ The two linear kernels take a launch plan from the wrapper (``fwd_plan``,
 over the blocks of a thread block cluster, added in rank order on chip.
 The forward's chunking is a function of K alone, so a row's bits do not
 depend on the other rows of the launch (the sources state the order rule).
+At M >= 128 with N, K >= 512 and N * K >= 768 * 512 the backward's plan
+is its wide family (``bwd_is_wide``: 128 x 128 tiles, N's chunks balanced
+against the dW tiles on the card), counted in the trace's
+``cuda_ops.bwd_wide_launches``.
 """
 
 import ctypes
 import functools
+import heapq
 import time
 
 import torch
@@ -91,6 +96,17 @@ ROW_TILES = (8, 16, 32, 64)  # a row tile sized to M (see row_tile)
 FWD_COL_TILE = {8: 32, 16: 32, 32: 32, 64: 64}  # linear_act_fwd.cu's tiles
 BWD_TILE = 64  # linear_act_bwd.cu: dx's column tile, dW's tile edge
 SM_COUNT = 132  # an H100 SXM's SMs: below this many dW tiles, M splits over a cluster
+# linear_act_bwd.cu's wide family: 128 x 128 tiles of both products, for
+# M >= BWD_WIDE_MIN_ROWS, N, K >= BWD_WIDE_MIN_WIDTH and N * K >=
+# BWD_WIDE_MIN_WEIGHTS, WIDE_BLOCKS_PER_SM blocks sharing an SM. The line is
+# where the family beat the 64-wide plans on an H100 at 128-256 rows: it
+# lost at 512 x 512 (by 10-41%) and, at 256 rows, at 512 x 640 and 512 x 704
+# (N x K), and won from 768 x 512 and 640 x 640 up
+BWD_WIDE_TILE = 128
+BWD_WIDE_MIN_ROWS = 128
+BWD_WIDE_MIN_WIDTH = 512
+BWD_WIDE_MIN_WEIGHTS = 768 * 512
+WIDE_BLOCKS_PER_SM = 1
 
 
 def _cdiv(a, b):
@@ -132,6 +148,42 @@ def fwd_plan(M, N, K):
                 blocks=grid[0] * grid[1])
 
 
+def bwd_is_wide(M, N, K):
+    """Whether ``linear_act_bwd`` at g ``(M, N)``, x ``(M, K)`` takes the
+    wide family: FLOP-bound shapes, enough rows and weights for 128 x 128
+    tiles to fill the card."""
+    return (M >= BWD_WIDE_MIN_ROWS and min(N, K) >= BWD_WIDE_MIN_WIDTH
+            and N * K >= BWD_WIDE_MIN_WEIGHTS)
+
+
+def _makespan(blocks, slots):
+    """Stages until the last of ``blocks`` (each its count of stages) ends,
+    each started in grid order on the first of ``slots`` to come free."""
+    free = [0] * slots
+    for stages in blocks:
+        heapq.heappush(free, heapq.heappop(free) + stages)
+    return max(free)
+
+
+def _wide_chunks(M, N, K):
+    """dx's ``(chunks, chunk_len)`` of N in the wide family: of N cut into
+    1 to 8 chunks on stage edges, the cut whose blocks (the dx blocks
+    first, then the dW blocks, each reducing all of M) end soonest on the
+    card's block slots; the fewer chunks on a tie, since each chunk adds a
+    partial tile to the cluster's sum."""
+    tiles_k = _cdiv(K, BWD_WIDE_TILE)
+    dw_blocks = [_cdiv(M, STAGE_DEPTH)] * (_cdiv(N, BWD_WIDE_TILE) * tiles_k)
+    best = None
+    for want in range(1, MAX_CLUSTER + 1):
+        chunk_len = _cdiv(_cdiv(N, want), STAGE_DEPTH) * STAGE_DEPTH
+        chunks = _cdiv(N, chunk_len)
+        dx_blocks = [chunk_len // STAGE_DEPTH] * (_cdiv(M, BWD_WIDE_TILE) * tiles_k * chunks)
+        span = _makespan(dx_blocks + dw_blocks, WIDE_BLOCKS_PER_SM * SM_COUNT)
+        if best is None or span < best[0]:
+            best = (span, chunks, chunk_len)
+    return best[1:]
+
+
 def bwd_plan(M, N, K):
     """``linear_act_bwd``'s launch plan for g ``(M, N)``, x ``(M, K)``, W
     ``(N, K)``, in clusters of ``chunks`` blocks: dx in (row tile x 64)
@@ -140,7 +192,20 @@ def bwd_plan(M, N, K):
     one K-tile so that db is written). Too few dW tiles to fill the card
     (and more than one stage of rows) split M over a cluster too, in
     ``chunks`` chunks of ``dw_chunk_len`` rows; else ``dw_chunk_len`` is 0
-    and a cluster's ranks take adjacent tiles, padded to whole clusters."""
+    and a cluster's ranks take adjacent tiles, padded to whole clusters.
+
+    Where ``bwd_is_wide``, the wide family instead: both products in 128 x
+    128 tiles (``row_tile`` = ``col_tile`` = 128), N in the chunks of
+    ``_wide_chunks``, dW's tiles whole (``dw_chunk_len`` 0)."""
+    if bwd_is_wide(M, N, K):
+        chunks, chunk_len = _wide_chunks(M, N, K)
+        tiles_k = _cdiv(K, BWD_WIDE_TILE)
+        dx_blocks = _cdiv(M, BWD_WIDE_TILE) * tiles_k * chunks
+        dw_tiles = _cdiv(N, BWD_WIDE_TILE) * tiles_k
+        blocks = dx_blocks + _cdiv(dw_tiles, chunks) * chunks
+        return dict(row_tile=BWD_WIDE_TILE, col_tile=BWD_WIDE_TILE, chunks=chunks,
+                    chunk_len=chunk_len, dw_chunk_len=0, dx_blocks=dx_blocks,
+                    dw_tiles=dw_tiles, grid=(blocks,), blocks=blocks)
     rt = row_tile(M)
     chunks, chunk_len = reduction_chunks(N)
     dx_blocks = _cdiv(M, rt) * _cdiv(K, BWD_TILE) * chunks
@@ -202,8 +267,10 @@ def _launch(entry, t0, *args):
     """Call the C entry point of ``KERNEL_OF[entry]`` on the current stream;
     count the launch under ``entry``. ``t0``: the wrapper's entry on
     ``time.perf_counter_ns()`` while the program trace records (else 0);
-    then the launch is also counted in the trace's ``cuda_ops.launches``,
-    and the host ns from ``t0`` to here in ``cuda_ops.launch_ns``."""
+    then the launch is also counted in the trace's ``cuda_ops.launches``
+    (and ``cuda_ops.bwd_wide_launches`` when it is a backward launch whose
+    plan is the wide family), and the host ns from ``t0`` to here in
+    ``cuda_ops.launch_ns``."""
     kernel = KERNEL_OF[entry]
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -214,6 +281,9 @@ def _launch(entry, t0, *args):
     LAUNCHES[entry] += 1
     if t0:
         spans.add("cuda_ops.launches")
+        # the backward's plan ints end its arguments, the row tile first
+        if kernel == "linear_act_bwd" and args[-5] == BWD_WIDE_TILE:
+            spans.add("cuda_ops.bwd_wide_launches")
         spans.add("cuda_ops.launch_ns", time.perf_counter_ns() - t0)
 
 

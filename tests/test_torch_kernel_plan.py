@@ -90,14 +90,23 @@ def test_few_rows_fill_the_card():
 def test_backward_plan_covers_dx_and_dw(m, k, n):
     """dx's chunks of N partition N; dW's tiles cover N x K (at least one
     K-tile, for db) and, when M is split over a cluster, its chunks cover M;
-    the grid is whole clusters of at most 8 blocks."""
+    the grid is whole clusters of at most 8 blocks. The wide family (128 x
+    128 tiles, at M >= 128 and N, K >= 512 with N * K >= 768 * 512) chooses
+    its own chunks of N."""
     p = cuda_ops.bwd_plan(m, n, k)
     chunks = p["chunks"]
-    assert (chunks, p["chunk_len"]) == cuda_ops.reduction_chunks(n)
+    if cuda_ops.bwd_is_wide(m, n, k):
+        tile = cuda_ops.BWD_WIDE_TILE
+        assert p["row_tile"] == tile and p["dw_chunk_len"] == 0
+        terms = [t for lo, hi in _chunks_of(n, chunks, p["chunk_len"]) for t in range(lo, hi)]
+        assert terms == list(range(n)) and p["chunk_len"] % cuda_ops.STAGE_DEPTH == 0
+    else:
+        tile = cuda_ops.BWD_TILE
+        assert (chunks, p["chunk_len"]) == cuda_ops.reduction_chunks(n)
     assert chunks <= cuda_ops.MAX_CLUSTER
-    assert p["col_tile"] == cuda_ops.BWD_TILE
-    assert p["dx_blocks"] == -(-m // p["row_tile"]) * -(-k // 64) * chunks
-    assert p["dw_tiles"] == -(-n // 64) * max(1, -(-k // 64))
+    assert p["col_tile"] == tile
+    assert p["dx_blocks"] == -(-m // p["row_tile"]) * -(-k // tile) * chunks
+    assert p["dw_tiles"] == -(-n // tile) * max(1, -(-k // tile))
     dw_len = p["dw_chunk_len"]
     if dw_len:
         assert chunks > 1 and p["dw_tiles"] < cuda_ops.SM_COUNT
