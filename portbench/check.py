@@ -1,7 +1,8 @@
 """The comparison that decides ``correct``.
 
 Both sides hand in their readings of the first steps a run trains: the
-state after the first step and after the third, and,
+state after the first step and after the third, as the leaves that the
+configuration's family lists (``families/``) in its order, and,
 where a call of the window trains more than one step, the mean loss of the
 first epoch. The numbers compared, each against the cell's limit:
 
@@ -27,11 +28,6 @@ import torch
 NEGLIGIBLE = 1e-3
 
 
-def leaves(params):
-    """The tensors of a list of ``(W, b)`` in order."""
-    return [t for wb in params for t in wb]
-
-
 def _max(values):
     """The largest of ``values``; infinity where one is NaN (``max`` would
     keep or drop a NaN by its place in the list)."""
@@ -48,23 +44,23 @@ def _worst_leaf(prog, ref, keep):
     return _max(abs(prog[i] - ref[i]) / max(ref[i], mid) for i in keep)
 
 
-def compare(p0, prog, ref, lr, device):
-    """The numbers compared, from the weights ``p0`` (a list of ``(W, b)``
-    on ``device``) and each side's readings (``p1``, ``p3``:
-    lists of ``(W, b)``, host or device; ``epoch_loss``: a float or None)."""
+def compare(z0, prog, ref, lr, device):
+    """The numbers compared, from the weights' leaves ``z0`` (tensors on
+    ``device``, in the family's order) and each side's readings (``p1``,
+    ``p3``: leaves in the same order, host or device; ``epoch_loss``: a
+    float or None)."""
 
     def on(t):
         return torch.as_tensor(t).to(device)
 
-    z0 = leaves(p0)
     out = {}
-    g_ref = _norms([(on(b), a) for a, b in zip(z0, leaves(ref["p1"]))], lr)
-    g_prog = _norms([(on(b), a) for a, b in zip(z0, leaves(prog["p1"]))], lr)
+    g_ref = _norms([(on(b), a) for a, b in zip(z0, ref["p1"])], lr)
+    g_prog = _norms([(on(b), a) for a, b in zip(z0, prog["p1"])], lr)
     mid = statistics.median(g_ref)
     keep = [i for i, g in enumerate(g_ref) if g >= NEGLIGIBLE * mid]
     out["grad"] = _worst_leaf(g_prog, g_ref, keep)
-    c_ref = _norms([(a, on(b)) for a, b in zip(z0, leaves(ref["p3"]))])
-    c_prog = _norms([(a, on(b)) for a, b in zip(z0, leaves(prog["p3"]))])
+    c_ref = _norms([(a, on(b)) for a, b in zip(z0, ref["p3"])])
+    c_prog = _norms([(a, on(b)) for a, b in zip(z0, prog["p3"])])
     out["change"] = _worst_leaf(c_prog, c_ref, keep)
     if ref.get("epoch_loss") is not None:
         out["epoch_loss"] = abs(prog["epoch_loss"] - ref["epoch_loss"]) / abs(ref["epoch_loss"])

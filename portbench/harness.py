@@ -2,8 +2,10 @@
 the check.
 
 ``Bench`` reads ``BENCHMARK.json`` and finds each cell's files by name
-(``configs/``, ``traffic/``, ``workloads/``) and each per-layer metric's
-file (``metrics/``) and reader (``readers/``). ``run`` drives the port:
+(``configs/``, ``traffic/``, ``workloads/``), its configuration's model
+family (``families/``) and each per-layer metric's file (``metrics/``) and
+reader (``readers/``). Everything that depends on the model's structure
+goes through the family. ``run`` drives the port:
 
 1. Set-up: the weights and the split from the seed (``work/inputs.py``),
    the split written under ``$TMPDIR`` for the session's ``data_dir``, a
@@ -21,13 +23,14 @@ file (``metrics/``) and reader (``readers/``). ``run`` drives the port:
 3. With ``trace``: ``trace_chunks`` more calls under ``torch.profiler``
    tracing the device alone, which the per-layer readers read, and as many
    tracing the host too, which name the breakdown's idle gaps.
-4. The port's session is freed, and the reference (``reference/mlp.py``)
-   trains the same steps from the seed's weights on the same split; the
-   numbers of ``check.py`` against the cell's limits decide ``correct``.
+4. The port's session is freed, and the family's reference
+   (``reference/``) trains the same steps from the seed's weights on the
+   same split; the numbers of ``check.py`` against the cell's limits decide
+   ``correct``.
 """
 
+import functools
 import gc
-import importlib
 import importlib.util
 import json
 import os
@@ -39,7 +42,7 @@ import tempfile
 import time
 from pathlib import Path
 
-from portbench import check
+from portbench import check, families
 from portbench.work import bounds, inputs, trace
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -73,6 +76,13 @@ def _load(path):
         return json.load(f)
 
 
+def _module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def p95(values):
     """The 95th percentile, as ``statistics.quantiles(n=20)`` places it."""
     return statistics.quantiles(values, n=20)[-1] if len(values) > 1 else values[0]
@@ -94,16 +104,21 @@ class Bench:
 
     def cell(self, name):
         """The cell ``name``: its entry with its config, traffic and cell
-        files read."""
+        files read, and its configuration's family module."""
         if name not in self.cells:
             raise KeyError(f"no workload {name!r}; BENCHMARK.json has {sorted(self.cells)}")
         entry = self.cells[name]
+        config = self.config(entry["config"])
         return {
             "entry": entry,
-            "config": _load(self.root / self.configs[entry["config"]]["file"]),
+            "config": config,
             "traffic": _load(self.path("traffic", f"{entry['traffic']}.json")),
             "cell": _load(self.path("workloads", f"{name}.json")),
+            "family": self.family(family_of(config)),
         }
+
+    def config(self, name):
+        return _load(self.root / self.configs[name]["file"])
 
     def reports(self, metric, cell):
         """Whether ``cell`` reports the metric ``metric`` (a BENCHMARK.json
@@ -124,11 +139,31 @@ class Bench:
 
     def reader(self, name):
         """The module ``readers/<name>.py``."""
-        path = self.path("readers", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(f"portbench.readers.{name}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return _module(f"portbench.readers.{name}", self.path("readers", f"{name}.py"))
+
+    def family(self, name):
+        """The module ``families/<name>.py``."""
+        return _module(f"portbench.families.{name}", self.path("families", f"{name}.py"))
+
+    def family_problems(self, config):
+        """What is wrong with the family of the configuration ``config``
+        (a name in ``BENCHMARK.json``), as strings (none: [])."""
+        try:
+            name = family_of(self.config(config))
+        except (OSError, ValueError) as e:
+            return [f"config {config}: {e!r}"]
+        if not NAME.match(name):
+            return [f"config {config}: bad family name {name!r}"]
+        if not self.path("families", f"{name}.py").is_file():
+            return [f"config {config}: no family file families/{name}.py"]
+        try:
+            mod = self.family(name)
+        except Exception as e:  # noqa: BLE001 — named as a problem, whatever the file raises
+            return [f"config {config}: family {name} does not load: {e!r}"]
+        return [
+            f"config {config}: family {name} lacks {f}()" for f in families.FUNCTIONS
+            if not callable(getattr(mod, f, None))
+        ]
 
     def validate(self):
         """Problems with the benchmark's files, as strings (none: [])."""
@@ -150,9 +185,18 @@ class Bench:
                 f"{m['name']} names unknown cell {w}" for w in m.get("workloads", ())
                 if w not in self.cells
             ]
-        for name in self.cells:
+        broken = set()
+        for name in self.configs:
+            problems = self.family_problems(name)
+            bad += problems
+            if problems:
+                broken.add(name)
+        for name, w in self.cells.items():
+            if w["config"] in broken:
+                continue
             try:
                 cell = self.cell(name)
+                cell["family"].check_traffic(cell["config"], cell["traffic"])
             except (OSError, KeyError, ValueError) as e:
                 bad.append(f"{name}: {e!r}")
                 continue
@@ -177,34 +221,12 @@ class Bench:
         return bad
 
 
-def _session_kwargs(cfg, traffic):
-    return dict(
-        sizes=tuple(cfg["sizes"]),
-        global_batch_size=traffic["global_batch_size"],
-        mubatches=traffic["mubatches"],
-        lr=cfg["lr"],
-        optimizer=cfg["optimizer"],
-        **traffic["session"],
-    )
+def family_of(config):
+    """The name of the model family of a configuration file's contents."""
+    return config.get("family", families.DEFAULT)
 
 
-def _host_weights(weights):
-    """The seed's weights as host arrays, named as ``load_weights`` takes
-    them (``w<i>``, ``b<i>``)."""
-    arrays = {}
-    for i, (w, b) in enumerate(weights):
-        arrays[f"w{i}"] = w.cpu().numpy()
-        arrays[f"b{i}"] = b.cpu().numpy()
-    return arrays
-
-
-def _pairs(params):
-    """A session's ``params()`` (stages of ``{"W", "b"}`` layers) as a list
-    of ``(W, b)``."""
-    return [(layer["W"], layer["b"]) for stage in params for layer in stage]
-
-
-def plant(session, fault, meta):
+def plant(session, fault, cell):
     """Break the program under the session, for the check's own tests:
     ``"half_batch"`` copies each batch's first half over its second, so
     every step takes the mean over half its rows; ``"stale_state"`` puts
@@ -215,13 +237,13 @@ def plant(session, fault, meta):
             half = flat.shape[1] // 2
             flat[:, half:] = flat[:, :half]
     elif fault == "stale_state":
-        dispatch = session._dispatch
+        dispatch, fam = session._dispatch, cell["family"]
 
         def stale(k0, k1):
-            before = _pairs(session.params())
+            before = fam.state(session)
             out = dispatch(k0, k1)
-            arrays = {f"{k}{i}": t for i, wb in enumerate(before) for k, t in zip("wb", wb)}
-            session.load_weights("stale-state.npz", verified=(meta, arrays))
+            verified = fam.checkpoint(cell["config"], cell["traffic"], before)
+            session.load_weights("stale-state.npz", verified=verified)
             return out
 
         session._dispatch = stale
@@ -229,19 +251,20 @@ def plant(session, fault, meta):
         raise ValueError(f"unknown fault {fault!r}")
 
 
-def first_steps(session, chunk_steps):
+def first_steps(session, chunk_steps, state):
     """Train the checked steps and read them: ``({"p1", "p3",
     "epoch_loss"}, seconds spent copying states to the host)``. Each
     checked step is one ``train_steps(1)``, and the state after the first
-    and after the last is read. Where the window's call trains more than one
-    step, the rest of the first epoch is trained in such calls, and the mean
-    loss the epoch's last call returns is read."""
+    and after the last is read (``state(session)``, the family's). Where the
+    window's call trains more than one step, the rest of the first epoch is
+    trained in such calls, and the mean loss the epoch's last call returns
+    is read."""
     copy_s, read = 0.0, {}
     for k in range(CHECK_STEPS):
         session.train_steps(1)
         if k in (0, CHECK_STEPS - 1):
             t0 = time.perf_counter()
-            read[f"p{k + 1}"] = _pairs(session.params())
+            read[f"p{k + 1}"] = state(session)
             copy_s += time.perf_counter() - t0
     epoch_loss = None
     if chunk_steps > 1:
@@ -250,11 +273,12 @@ def first_steps(session, chunk_steps):
     return dict(epoch_loss=epoch_loss, **read), copy_s
 
 
-def reference_steps(weights, split_dir, traffic, cfg, steps, device, tf32=False):
+def reference_steps(fam, weights, split_dir, traffic, cfg, steps, device, tf32=False):
     """The reference's readings of the first ``steps`` steps (its state
     after the first and after the checked steps, and its mean loss over them
-    when ``steps`` covers more than the checked steps), trained
-    from ``weights`` on the split the session read."""
+    when ``steps`` covers more than the checked steps), trained by the
+    family ``fam``'s reference from ``weights`` on the split the session
+    read."""
     import numpy as np
     import torch
 
@@ -263,7 +287,7 @@ def reference_steps(weights, split_dir, traffic, cfg, steps, device, tf32=False)
     B = traffic["global_batch_size"]
     x = np.load(split_dir / "x_train.npy", mmap_mode="r")
     y = np.load(split_dir / "y_train.npy", mmap_mode="r")
-    ref = mlp.Trainer(weights, cfg["lr"], B, traffic["mubatches"])
+    ref = fam.reference(weights, cfg, traffic)
     losses, read = [], {}
     with mlp.matmul_precision(tf32):
         for k in range(steps):
@@ -271,7 +295,7 @@ def reference_steps(weights, split_dir, traffic, cfg, steps, device, tf32=False)
             yb = torch.from_numpy(np.array(y[k * B : (k + 1) * B])).to(device)
             losses.append(ref.step(xb, yb))
             if k in (0, CHECK_STEPS - 1):
-                read[f"p{k + 1}"] = [(w.clone(), b.clone()) for w, b in ref.params]
+                read[f"p{k + 1}"] = [t.clone() for t in ref.leaves()]
     return dict(
         epoch_loss=sum(losses) / steps if steps > CHECK_STEPS else None,
         **read,
@@ -296,6 +320,10 @@ def _profiled(session, chunk_steps, n_chunks, host):
             for _ in range(n_chunks):
                 steps.append(session.train_steps(chunk_steps)[0])
         torch.cuda._sleep(MARK_CYCLES)
+        if session.device.type == "cuda":
+            # the second marker ends on the device before the profiler stops,
+            # so that the trace always holds it
+            torch.cuda.synchronize(session.device)
     return prof.events(), steps
 
 
@@ -341,25 +369,24 @@ def prepare(bench, name, seed, device, tmp, fault=None):
 
     phases = {"imports": process_age_s()}
     cell = bench.cell(name)
-    cfg, traffic = cell["config"], cell["traffic"]
-    weights, split = inputs.make_inputs(cfg["sizes"], traffic, seed, torch.device(device))
+    cfg, traffic, fam = cell["config"], cell["traffic"], cell["family"]
+    fam.check_traffic(cfg, traffic)
+    draw = functools.partial(fam.draw_weights, cfg)
+    weights, split = inputs.make_inputs(draw, traffic, seed, torch.device(device))
     inputs.write_split(tmp, split)
     del split
-    arrays = _host_weights(weights)
+    verified = fam.checkpoint(cfg, traffic, [t.cpu().numpy() for t in fam.leaves(weights)])
     del weights
     phases["inputs"] = process_age_s()
-    meta = {
-        "sizes": list(cfg["sizes"]),
-        "global_batch_size": traffic["global_batch_size"],
-        "act": cfg["activation"],
-    }
-    session = TrainingSession(data_dir=str(tmp), device=device, **_session_kwargs(cfg, traffic))
+    session = TrainingSession(
+        data_dir=str(tmp), device=device, **fam.session_kwargs(cfg, traffic)
+    )
     phases["session"] = process_age_s()
-    session.load_weights(tmp / "seed-weights.npz", verified=(meta, arrays))
-    del arrays
+    session.load_weights(tmp / "seed-weights.npz", verified=verified)
+    del verified
     phases["load_weights"] = process_age_s()
-    plant(session, fault, meta)
-    readings, copy_s = first_steps(session, traffic["chunk_steps"])
+    plant(session, fault, cell)
+    readings, copy_s = first_steps(session, traffic["chunk_steps"], fam.state)
     phases["checked_steps"] = process_age_s()
     return cell, session, readings, copy_s, phases
 
@@ -379,19 +406,20 @@ def reference_readings(cell, seed, tmp, device, tf32=False):
     epoch where a call of the window trains more than one step)."""
     import torch
 
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, fam = cell["config"], cell["traffic"], cell["family"]
     dev = torch.device(device)
-    p0 = inputs.weights_again(cfg["sizes"], seed, dev)
+    p0 = inputs.weights_again(functools.partial(fam.draw_weights, cfg), seed, dev)
     steps = CHECK_STEPS
     if traffic["chunk_steps"] > 1:
         steps = traffic["train_rows"] // traffic["global_batch_size"]
-    return p0, reference_steps(p0, tmp, traffic, cfg, steps, dev, tf32=tf32)
+    return p0, reference_steps(fam, p0, tmp, traffic, cfg, steps, dev, tf32=tf32)
 
 
 def numbers_of(cell, p0, prog, ref, device):
     import torch
 
-    return check.compare(p0, prog, ref, cell["config"]["lr"], torch.device(device))
+    z0 = cell["family"].leaves(p0)
+    return check.compare(z0, prog, ref, cell["config"]["lr"], torch.device(device))
 
 
 def run(bench, name, seed, seconds, trace_on, device="cuda", fault=None, log=sys.stderr):
@@ -441,6 +469,7 @@ def run(bench, name, seed, seconds, trace_on, device="cuda", fault=None, log=sys
             stretch = traced_stretch(session, chunk, cfile["trace_chunks"])
             ctx = {
                 "config": cfg, "traffic": traffic, "cell": cfile,
+                "family": cell["family"], "session": session,
                 "peaks": bounds.peaks_of(device_rec["kind"]),
                 "window": {"samples_per_s": samples_per_s, "seconds": window_s, "steps": steps},
                 "stretch": stretch,

@@ -26,10 +26,10 @@ the span that waits for them, each within ``SLACK_US``. A stretch D that
 fails this, or lost a marker, is run again, ``ATTEMPTS`` in all; if none
 agrees, the idle charges are None, so that a misplaced timeline cannot
 move them. What it collects is kept in ``ctx["program"]`` for the other
-files. A program without the trace (no ``spans.recording``), or a run
-without a live session, gives None for every file, and so does a number
-whose spans did not run; a number whose spans ran over no step, call or
-launch raises.
+files. The session is the run's, ``ctx["session"]``. A program without
+the trace (no ``spans.recording``), or a ``ctx`` without a session, gives
+None for every file, and so does a number whose spans did not run; a
+number whose spans ran over no step, call or launch raises.
 """
 
 import gc
@@ -59,31 +59,19 @@ def read(ctx, spec):
     return QUANTITIES[spec["quantity"]](prog, spec)
 
 
-def _session():
-    """The one live ``TrainingSession`` of this process, or None; raises
-    where more than one is live, as the cell's is then not known."""
-    api = sys.modules.get("shallowspeed_tpu_torch.api")
-    if api is None:
-        return None
-    gc.collect()
-    live = [o for o in gc.get_objects() if type(o) is api.TrainingSession]
-    if len(live) > 1:
-        raise RuntimeError(f"{len(live)} live TrainingSessions: the cell's is not known")
-    return live[0] if live else None
-
-
 def collect(ctx, log=sys.stderr):
-    """Run stretches C and D on the live session; None when the program has
-    no trace or no session is live."""
+    """Run stretches C and D on the run's session; None when the program
+    has no trace or ``ctx`` holds no session."""
     try:
         from shallowspeed_tpu_torch.observability import spans
     except ImportError:
         return None
     if not hasattr(spans, "recording"):
         return None
-    session = _session()
+    session = ctx.get("session")
     if session is None:
         return None
+    gc.collect()  # the traced stretches' garbage goes before stretch C, not during it
 
     chunk, n = ctx["traffic"]["chunk_steps"], ctx["cell"]["trace_chunks"]
     me = threading.get_ident()

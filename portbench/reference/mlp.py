@@ -54,10 +54,14 @@ class Trainer:
         self.params = [(w.clone(), b.clone()) for w, b in weights]
         self.lr, self.B, self.M = lr, batch_size, mubatches
 
+    def leaves(self):
+        """``W0, b0, W1, b1, ...``: the tensors of ``params`` in order."""
+        return [t for wb in self.params for t in wb]
+
     def step(self, x, y):
         """One SGD step on the batch ``(x, y)``; returns its loss under the
         params before the update."""
-        leaves = [t.requires_grad_(True) for wb in self.params for t in wb]
+        leaves = [t.requires_grad_(True) for t in self.leaves()]
         loss = batch_loss(self.params, x, y, self.M, self.B)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():

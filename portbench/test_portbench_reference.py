@@ -2,6 +2,7 @@
 each cell's kind at a small size, and the reference's independence."""
 
 import ast
+import functools
 import math
 from pathlib import Path
 
@@ -27,7 +28,8 @@ KINDS = {
 def test_one_step_matches_the_ports_cpu_path(kind, tmp_path):
     from shallowspeed_tpu_torch import TrainingSession
 
-    weights, split = inputs.make_inputs(SIZES, TRAFFIC, 9, "cpu")
+    draw = functools.partial(inputs.draw_weights, SIZES)
+    weights, split = inputs.make_inputs(draw, TRAFFIC, 9, "cpu")
     inputs.write_split(tmp_path, split)
     arrays = {}
     for i, (w, b) in enumerate(weights):

@@ -173,7 +173,7 @@ def test_the_reader_on_a_cells_session_on_the_cpu(tiny_root, cell, tmp_path, mon
     bench = harness.Bench(tiny_root)
     c, session, _, _, _ = harness.prepare(bench, cell, 2**31 + 9, "cpu", tmp_path)
     ctx = {"config": c["config"], "traffic": c["traffic"], "cell": c["cell"],
-           "window": {"seconds": 1.0, "steps": 10}}
+           "session": session, "window": {"seconds": 1.0, "steps": 10}}
     reader = _reader()
     got = {}
     for m in bench.per_layer_of(cell):

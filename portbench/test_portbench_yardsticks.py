@@ -1,11 +1,13 @@
 """The frozen yardsticks: work counts pinned to the bounds PERF.md prints,
 the inputs' law, the trace arithmetic and the readers."""
 
+import functools
 import math
 
 import pytest
 import torch
 
+from portbench.families import mlp as mlp_family
 from portbench.readers import idle, mfu, ops_per_step, roofline
 from portbench.work import bounds, inputs, trace
 
@@ -56,6 +58,7 @@ EPOCH = {"fuse_mubatches": True, "epoch_kernel": True}
 def _ctx(sizes, session, steps=10, b=1024, m=4):
     return {
         "config": {"sizes": sizes, "optimizer": "sgd", "activation": "relu"},
+        "family": mlp_family,
         "traffic": {"global_batch_size": b, "mubatches": m, "session": session},
         "peaks": bounds.H100_SXM,
         "stretch": {"steps": steps, "chunk_steps": [steps], "gpu": [], "seconds": 1.0,
@@ -96,9 +99,10 @@ def test_fused_work_is_one_launch_a_chunk():
 
 
 def test_inputs_follow_the_seed_and_keep_their_sizes():
-    w1, s1 = inputs.make_inputs(FLAGSHIP, TRAFFIC, 2**40 + 7, "cpu")
-    w2, s2 = inputs.make_inputs(FLAGSHIP, TRAFFIC, 2**40 + 7, "cpu")
-    w3, s3 = inputs.make_inputs(FLAGSHIP, TRAFFIC, 3, "cpu")
+    draw = functools.partial(inputs.draw_weights, FLAGSHIP)
+    w1, s1 = inputs.make_inputs(draw, TRAFFIC, 2**40 + 7, "cpu")
+    w2, s2 = inputs.make_inputs(draw, TRAFFIC, 2**40 + 7, "cpu")
+    w3, s3 = inputs.make_inputs(draw, TRAFFIC, 3, "cpu")
     for a, b in zip(s1, s2):
         assert torch.equal(a, b)
     assert [t.shape for t in s1] == [t.shape for t in s3]
@@ -106,13 +110,13 @@ def test_inputs_follow_the_seed_and_keep_their_sizes():
     x, y = s1[0], s1[1]
     assert x.shape == (300, 784) and float(x.min()) >= 0.0 and float(x.max()) <= 1.0
     assert torch.equal(y.sum(dim=1), torch.ones(300))
-    again = inputs.weights_again(FLAGSHIP, 2**40 + 7, "cpu")
+    again = inputs.weights_again(draw, 2**40 + 7, "cpu")
     for (wa, ba), (wb, bb) in zip(w1, again):
         assert torch.equal(wa, wb) and torch.equal(ba, bb)
     w0 = w1[0][0]
     assert w0.shape == (128, 784) and float(w0.std()) == pytest.approx(1 / math.sqrt(784), rel=0.02)
     with pytest.raises(ValueError):
-        inputs.make_inputs((100, 10), TRAFFIC, 1, "cpu")
+        mlp_family.check_traffic({"sizes": (100, 10)}, TRAFFIC)
 
 
 def test_union_of_busy_intervals():

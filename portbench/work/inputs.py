@@ -1,7 +1,8 @@
 """The inputs of a run, made from its seed: the weights and the split.
 
 Both come from one ``torch.Generator`` on the run's device, seeded with the
-run's seed, in a few large calls: first every weight as one flat draw, then
+run's seed, in a few large calls: first the weights, by the configuration's
+family (the MLP's ``draw_weights``: every weight as one flat draw), then
 the split. The same seed on the same device gives the same tensors, so the
 weights can be drawn again for the reference after the program is freed.
 
@@ -51,16 +52,13 @@ def draw_rows(traffic, n, g, device, centers):
     return x, y
 
 
-def make_inputs(sizes, traffic, seed, device):
+def make_inputs(draw, traffic, seed, device):
     """The run's weights and split from ``seed``: ``(weights, (x_train,
-    y_train, x_val, y_val))``, every tensor on ``device``."""
-    if sizes[0] != traffic["dim"] or sizes[-1] != traffic["classes"]:
-        raise ValueError(
-            f"model {tuple(sizes)} does not take {traffic['dim']} features "
-            f"to {traffic['classes']} classes"
-        )
+    y_train, x_val, y_val))``, every tensor on ``device``. ``draw(g,
+    device)`` draws the model's weights from the generator first (a
+    family's ``draw_weights`` with its configuration bound)."""
     g = generator(seed, device)
-    weights = draw_weights(sizes, g, device)
+    weights = draw(g, device)
     centers = traffic["center_std"] * torch.randn(
         (traffic["classes"], traffic["dim"]), generator=g, device=device
     )
@@ -69,9 +67,9 @@ def make_inputs(sizes, traffic, seed, device):
     return weights, train + val
 
 
-def weights_again(sizes, seed, device):
+def weights_again(draw, seed, device):
     """The run's weights drawn a second time from ``seed``."""
-    return draw_weights(sizes, generator(seed, device), device)
+    return draw(generator(seed, device), device)
 
 
 def write_split(path, split):
