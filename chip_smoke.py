@@ -69,6 +69,25 @@ in phases:
    allowed differences; samples/s of the steady (second) epoch;
 7. wide training: two mlp-deep steps (22 x 4 launches each) against the
    CPU path, with the same least move;
+7b. the batch step's CUDA graph (``trainer.StepGraph``): from the same
+   weights and batches, 8 steps through the eager batch step and 8 through
+   the graphed one (the first eager, the second captured and replayed, the
+   rest replayed), mlp-deep at 256-row microbatches (B=1024, M=4) with
+   SGD, ``fuse_mubatches`` off and on, and with momentum and a clip: every
+   leaf's sha256 and the summed losses bitwise equal, ``cuda_ops.LAUNCHES``
+   equal per entry (a replay adds its capture's tally, so this count is
+   not a measurement), the layer kernels the device ran in steps 3-8
+   (replays alone; ``torch.profiler``, by kernel name) equal to the eager
+   side's, both as profiled and as its wrappers counted them, the program
+   trace's ``trainer.graph_captures`` 1 and ``trainer.graph_replays`` 7;
+   then two flagship sessions on phase 6's split, one with the graph kept
+   off, 4 ``train_steps(1)``, a ``load_weights`` of the init checkpoint, 4
+   more: model hashes and launches equal, 2 captures and 6 replays (the
+   swap recaptures); the wall of 8 graphed and 8 eager mlp-deep steps
+   (profiled) and the card's most reserved bytes on each side. The
+   mlp-deep legs run in a child process (``step_graph_legs``): with their
+   profiler sessions in this process, 13e's second capture recorded no
+   device event;
 8a. the fused train kernel (``csrc/fused_train.cu``, TPU kernels B9-B11)
    against its plain version on the card: one flagship step (B=128, head
    groups of 32) for SGD, momentum, Adam, Adam with a binding clip and SGD
@@ -430,6 +449,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor-core) peak
 HBM_BYTES_PER_S = 3.35e12
@@ -1168,6 +1188,193 @@ def phase_wide_training(torch, cuda_ops, TrainingSession, data_dir):
         f"launches ({relu_layers} x 4 per step), card vs CPU params max |diff| "
         f"{worst:.3e}, largest move {most:.2f} x its allowed difference, wall "
         f"{wall * 1e3:.1f} ms"
+    )
+
+
+STEP_GRAPH_STEPS = 8
+# (label, optimizer, lr, fuse_mubatches, clip_norm) of 7b's mlp-deep legs
+STEP_GRAPH_LEGS = (
+    ("sgd", "sgd", 0.006, False, None),
+    ("sgd fused", "sgd", 0.006, True, None),
+    ("momentum+clip", "momentum", 0.006, False, 0.5),
+)
+
+
+def _graph_drive(torch, cuda_ops, spans, step, params, state, X, Y):
+    """``step`` over the batches ``X``/``Y`` from ``params``/``state``, the
+    losses summed as the epoch sums them; the calls after the second (on the
+    graphed side the replays alone, no capture) under ``torch.profiler``,
+    tracing the device. Returns (sha256 of every param and state leaf, the
+    loss sum's bits, launches per entry over all calls, over the profiled
+    calls the launches per kernel and the device's kernels per kernel by
+    name, the program trace's counters, wall s with the profiler on, the
+    card's most reserved bytes)."""
+    import hashlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shallowspeed_tpu_torch.model import param_tree
+    from shallowspeed_tpu_torch.optimizer import tree_leaves
+
+    def per_kernel(launches):
+        out = dict.fromkeys(cuda_ops.KERNEL_OF.values(), 0)
+        for entry, n in launches.items():
+            out[cuda_ops.KERNEL_OF[entry]] += n
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_ops.LAUNCHES)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=X.device)
+    with spans.recording() as tr:
+        t0 = time.perf_counter()
+        for xb, yb in zip(X[:2], Y[:2]):
+            params, state, loss = step(params, state, xb, yb)
+            loss_sum = loss_sum + loss
+        mid = dict(cuda_ops.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for xb, yb in zip(X[2:], Y[2:]):
+                params, state, loss = step(params, state, xb, yb)
+                loss_sum = loss_sum + loss
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: cuda_ops.LAUNCHES[k] - n for k, n in before.items()}
+    profiled = per_kernel({k: cuda_ops.LAUNCHES[k] - n for k, n in mid.items()})
+    device = dict.fromkeys(profiled, 0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            for kernel in device:
+                device[kernel] += kernel in ev.name
+    shas = [
+        hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+        for t in tree_leaves(param_tree(params)) + tree_leaves(state)
+    ]
+    return (shas, loss_sum.cpu().numpy().tobytes(), launches, (profiled, device),
+            tr.counters, wall, torch.cuda.max_memory_reserved())
+
+
+def step_graph_legs():
+    """7b's mlp-deep legs, each line said; run in a child process of
+    ``phase_step_graph``."""
+    import torch
+
+    from shallowspeed_tpu_torch import convert, cuda_ops, trainer
+    from shallowspeed_tpu_torch import model as model_mod
+    from shallowspeed_tpu_torch.observability import spans
+    from shallowspeed_tpu_torch.optimizer import make_optimizer
+
+    n, rows = STEP_GRAPH_STEPS, DEEP_MUBATCH_ROWS
+    sizes, _ = model_mod.resolve_model("mlp-deep")
+    spec = model_mod.make_model_spec(sizes, 1, 4 * rows)
+    host = model_mod.init_model(spec)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.rand((n, 4, rows, sizes[0]), generator=gen, device="cuda")
+    labels = torch.randint(0, sizes[-1], (n, 4, rows), generator=gen, device="cuda")
+    Y = torch.nn.functional.one_hot(labels, sizes[-1]).to(torch.float32)
+    # the profiler's first start in a process takes seconds: not in a leg's wall
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    lines = []
+    for label, name, lr, fuse, clip in STEP_GRAPH_LEGS:
+        opt = make_optimizer(name, lr)
+        step = trainer._make_batch_step(spec, opt, fuse_mubatches=fuse, clip_norm=clip)
+        got = {}
+        for side, fn in (("eager", step.graph.step), ("graphed", step)):
+            params = convert.params_from_numpy(host, "cuda")
+            state = opt.init(model_mod.param_tree(params))
+            got[side] = _graph_drive(torch, cuda_ops, spans, fn, params, state, X, Y)
+            del params, state
+        (e_sha, e_loss, e_n, e_prof, e_c, e_wall, e_mem), (
+            g_sha, g_loss, g_n, g_prof, g_c, g_wall, g_mem
+        ) = got["eager"], got["graphed"]
+        if g_sha != e_sha or g_loss != e_loss:
+            bad = sum(a != b for a, b in zip(g_sha, e_sha))
+            fail(f"7b {label}: graphed steps differ from eager ones in {bad} of "
+                 f"{len(e_sha)} leaves (losses equal: {g_loss == e_loss})")
+        if g_n != e_n:
+            fail(f"7b {label}: launches {g_n} graphed, {e_n} eager")
+        # the replays' kernels as the device ran them, against the eager
+        # wrappers' count over the same calls (and the profiler's of those)
+        if not (g_prof[1] == e_prof[0] == e_prof[1]):
+            fail(f"7b {label}: over steps 3-{n} the device ran {g_prof[1]} kernels graphed, "
+                 f"{e_prof[1]} eager; the eager wrappers launched {e_prof[0]}")
+        caps, reps = g_c.get("trainer.graph_captures"), g_c.get("trainer.graph_replays")
+        if (caps, reps) != (1, n - 1) or "trainer.graph_captures" in e_c:
+            fail(f"7b {label}: {caps} captures and {reps} replays, want 1 and {n - 1}")
+        lines.append(
+            f"  7b mlp-deep {label}: {len(e_sha)} leaves bitwise, launches {e_n['linear_act_fwd']} "
+            f"fwd / {e_n['linear_act_bwd']} bwd both sides; the device ran "
+            f"{g_prof[1]['linear_act_fwd']} fwd / {g_prof[1]['linear_act_bwd']} bwd kernels "
+            f"in steps 3-{n} graphed as eager; {n} steps {g_wall * 1e3:.1f} ms graphed "
+            f"({caps} capture, {reps} replays) vs {e_wall * 1e3:.1f} ms eager, profiled; "
+            f"most reserved {g_mem / 2**20:.0f} MiB graphed, {e_mem / 2**20:.0f} MiB eager"
+        )
+        del step
+    for line in lines:
+        say(line)
+
+
+def phase_step_graph(torch, cuda_ops, TrainingSession, data_dir):
+    """7b: the batch step's CUDA graph against the eager step, bitwise."""
+    from shallowspeed_tpu_torch import trainer
+    from shallowspeed_tpu_torch.observability import spans
+
+    t_phase = time.perf_counter()
+    n = STEP_GRAPH_STEPS
+    # the legs' profiler sessions run in a process of their own: with them in
+    # this one, phase 13e's second capture recorded no device event on the card
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.step_graph_legs()"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+    )
+    if child.returncode != 0:
+        fail(f"7b mlp-deep legs exited {child.returncode}: {child.stderr[-3000:]}")
+    lines = [line for line in child.stdout.splitlines() if line.startswith("  7b ")]
+    if len(lines) != len(STEP_GRAPH_LEGS):
+        fail(f"7b mlp-deep legs said {lines}, want {len(STEP_GRAPH_LEGS)} lines")
+
+    # the flagship session: the graph off in one of the two, a load_weights
+    # of the init checkpoint after 4 steps
+    ckpt = Path(data_dir) / "step-graph-init.npz"
+    got = {}
+    for side in ("eager", "graphed"):
+        with contextlib.ExitStack() as stack:
+            if side == "eager":
+                stack.enter_context(mock.patch.object(
+                    trainer.StepGraph, "_on_card", staticmethod(lambda xb: False)
+                ))
+            session = TrainingSession(device="cuda", data_dir=data_dir)
+            if side == "eager":
+                session.save(ckpt)
+            torch.cuda.synchronize()
+            before = dict(cuda_ops.LAUNCHES)
+            with spans.recording() as tr:
+                for k in range(n):
+                    if k == n // 2:
+                        session.load_weights(ckpt)
+                    session.train_steps(1)
+            launches = {k: cuda_ops.LAUNCHES[k] - c for k, c in before.items()}
+            got[side] = (session.model_hash(), launches, tr.counters)
+            del session
+    (e_hash, e_n, e_c), (g_hash, g_n, g_c) = got["eager"], got["graphed"]
+    caps, reps = g_c.get("trainer.graph_captures"), g_c.get("trainer.graph_replays")
+    if g_hash != e_hash or g_n != e_n:
+        fail(f"7b session: hash {g_hash} graphed, {e_hash} eager; launches {g_n} vs {e_n}")
+    if (caps, reps) != (2, n - 2) or "trainer.graph_captures" in e_c:
+        fail(f"7b session: {caps} captures and {reps} replays, want 2 and {n - 2}")
+    lines.append(
+        f"  7b flagship session: hash {g_hash[:12]} both sides, launches {e_n['linear_act_bwd']} "
+        f"bwd both, {caps} captures and {reps} replays (load_weights after {n // 2} steps)"
+    )
+    for line in lines:
+        say(line)
+    say(
+        f"phase 7b step graph: ok: {len(STEP_GRAPH_LEGS)} mlp-deep legs and a flagship "
+        f"session bitwise the eager step, launches equal per entry; "
+        f"{time.perf_counter() - t_phase:.1f} s"
     )
 
 
@@ -5470,6 +5677,7 @@ def main():
         write_split(Path(tmp), TRAIN_BATCHES * 128, VAL_ROWS)
         training = phase_training(torch, cuda_ops, TrainingSession, tmp)
         phase_wide_training(torch, cuda_ops, TrainingSession, tmp)
+        phase_step_graph(torch, cuda_ops, TrainingSession, tmp)
         fused = phase_fused_kernels(torch, cuda_ops, tmp)
         fused_launches = phase_fused_training(torch, cuda_ops, TrainingSession, tmp)
         flag_sums, flag_errs, checked = phase_flag_kernels(torch, cuda_ops)

@@ -47,7 +47,10 @@ entry to its source), so a caller can show that its path went through the
 kernel. While the program trace records (``observability/spans.py``), a
 launch also adds one to its counter ``cuda_ops.launches`` and the host ns
 from the launching wrapper's entry to the C call's return to
-``cuda_ops.launch_ns``.
+``cuda_ops.launch_ns``. Inside ``capture_launches()`` a thread's launches
+count into the block's own tally instead of ``LAUNCHES``: a CUDA graph's
+capture runs the wrappers but launches nothing, and its replays count what
+the capture tallied.
 
 The two linear kernels take a launch plan from the wrapper (``fwd_plan``,
 ``bwd_plan``): a row tile sized to M, and the reduction split into chunks
@@ -60,9 +63,11 @@ against the dW tiles on the card), counted in the trace's
 ``cuda_ops.bwd_wide_launches``.
 """
 
+import contextlib
 import ctypes
 import functools
 import heapq
+import threading
 import time
 
 import torch
@@ -80,6 +85,7 @@ KERNEL_OF = {
     "linear_flag_bwd": "linear_act_bwd",
 }
 LAUNCHES = dict.fromkeys(KERNEL_OF, 0)
+_capturing = threading.local()  # .counts: this thread's capture tally, else None
 
 # each kernel's C entry point: (pointer arguments, int arguments), then the
 # stream; tests/test_torch_kernels.py holds this to the sources' signatures
@@ -247,6 +253,26 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+@contextlib.contextmanager
+def capture_launches():
+    """Count this thread's launches inside the block into the dict it
+    yields (per entry) instead of ``LAUNCHES``; other threads' still count
+    in ``LAUNCHES``."""
+    counts = dict.fromkeys(KERNEL_OF, 0)
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
+
+
+def _count(entry):
+    """One launch of ``entry``: into this thread's capture tally, if one is
+    open, else ``LAUNCHES``."""
+    counts = getattr(_capturing, "counts", None)
+    (LAUNCHES if counts is None else counts)[entry] += 1
+
+
 def _check_cuda_operands(kernel, device, **tensors):
     """Raise unless every tensor is a contiguous CUDA tensor on ``device``,
     float32 (bool for ``mask``)."""
@@ -278,7 +304,7 @@ def _launch(entry, t0, *args):
         err = _fn(kernel)(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: launch of {kernel} failed with CUDA error {err}")
-    LAUNCHES[entry] += 1
+    _count(entry)
     if t0:
         spans.add("cuda_ops.launches")
         # the backward's plan ints end its arguments, the row tile first

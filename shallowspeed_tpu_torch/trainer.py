@@ -26,7 +26,16 @@ epoch, ``make_train_run(run_kernel=True, with_eval=False)`` one per run.
 On the CPU the same calls run the kernel's plain version, which composes
 the fused path's own torch ops, so there the kernel paths give the fused
 path's bits. Nothing falls back from a kernel path to the loop.
+
+On the card the loop's batch step without aux outputs runs as a CUDA graph
+(``StepGraph``): the first call with a new ``step_graph_key`` runs eagerly,
+its next repeat captures the step once and replays it, and every later
+repeat replays it. The replay launches the eager step's kernels and ops in
+its order on its operands, so it gives the eager step's bits.
 """
+
+import logging
+import threading
 
 import torch
 
@@ -37,6 +46,7 @@ from shallowspeed_tpu_torch.model import (
     model_forward,
     param_tree,
 )
+from shallowspeed_tpu_torch.observability import spans
 from shallowspeed_tpu_torch.observability.spans import spanned
 from shallowspeed_tpu_torch.optimizer import (
     SGD,
@@ -55,6 +65,166 @@ _NO_STEP_AUX = (
 
 # the digest aux's vectors, in the JAX package's key order
 DIGEST_KEYS = ("crc_w", "crc_b", "pnorm_w", "pnorm_b", "gnorm_w", "gnorm_b")
+
+log = logging.getLogger(__name__)
+
+# CUDA allows one stream capture at a time in a process
+_CAPTURE_LOCK = threading.Lock()
+
+
+def step_graph_key(params, opt_state, xb, yb):
+    """What a captured batch step depends on beyond its closure: the
+    ``data_ptr``, shape and dtype of every leaf of ``params`` and
+    ``opt_state``, the shapes and dtypes of ``xb`` and ``yb``, their device
+    and the current stream (None off the card). A replay reads and writes
+    the addresses the capture saw, so it is the eager step exactly when the
+    key is the capture's. (A step with aux outputs never engages, so its
+    flags are not part of the key.)"""
+    leaves = tree_leaves(param_tree(params)) + tree_leaves(opt_state)
+    return (
+        tuple((t.data_ptr(), t.shape, t.dtype) for t in leaves),
+        tuple(xb.shape), xb.dtype, tuple(yb.shape), yb.dtype, xb.device,
+        _current_stream(xb),
+    )
+
+
+def _current_stream(t):
+    """The handle of the current stream on ``t``'s device; None off the card."""
+    return torch.cuda.current_stream(t.device).cuda_stream if t.is_cuda else None
+
+
+class StepGraph:
+    """``step(params, opt_state, xb, yb) -> (params, opt_state, loss)``
+    replayed from one CUDA graph while its ``step_graph_key`` repeats.
+
+    On CUDA tensors, outside another capture, for a step without ``aux``
+    outputs (the grad norm, the digests: their per-step tensors are kept
+    across steps, which a replay would overwrite): a call whose key is new
+    runs ``step`` eagerly, drops the graph held, and holds the key if the call
+    left every leaf where it found it (``held``; an optimizer that rebinds a
+    leaf, as Adam does ``t``, is never held). The next call with the held
+    key copies ``xb``/``yb`` into static buffers, captures ``step`` on a
+    side stream into a graph with a private memory pool (capture executes
+    nothing) and replays it; every later call with that key does the two
+    copies and one replay. The returned loss is then the graph's static
+    tensor, which the next replay overwrites: read it before the next call.
+    A failed capture leaves the state as it was (capture ran nothing); the
+    key then runs eagerly for good, and the failure is logged once.
+
+    What changes the key, so that its call runs eagerly and the next repeat
+    captures again: a ``load_weights``, a resume, a fault that rebinds a
+    leaf, the audit's probe on cloned state, another batch shape (an epoch's
+    last short chunk). The megakernel, epoch-kernel, run-kernel and pipeline
+    paths never build this step.
+
+    Launch accounting: the capture's wrappers count into its own tally
+    (``cuda_ops.capture_launches``), and each replay adds that tally to
+    ``cuda_ops.LAUNCHES`` and one to the program trace's counter
+    ``trainer.graph_replays``; a capture adds one to
+    ``trainer.graph_captures``. ``cuda_ops.launches``/``launch_ns`` count
+    wrapper calls that ran on the host, so a replay adds to neither. Off
+    the card every call is ``step(...)`` itself."""
+
+    def __init__(self, step, aux=()):
+        self.step = step
+        self.aux = tuple(aux)  # the step's aux flags: any set, and it never engages
+        self.held = None  # the key whose eager call kept every leaf
+        self.key = None  # the key the graph was captured under
+        self.graph = None
+        self.static = None  # (xb, yb, loss): the graph's input buffers and its loss
+        self.launches = None  # per-entry launches of one replay
+        self.refused = set()  # keys whose capture failed
+        self._side = None
+        self._lock = threading.Lock()
+
+    def __call__(self, params, opt_state, xb, yb):
+        if not self._engages(xb):
+            return self.step(params, opt_state, xb, yb)
+        with self._lock:
+            key = step_graph_key(params, opt_state, xb, yb)
+            if key == self.key:
+                return self._replay(params, opt_state, xb, yb)
+            if (
+                key == self.held
+                and key not in self.refused
+                and self._capture(key, params, opt_state, xb, yb)
+            ):
+                return self._replay(params, opt_state, xb, yb)
+            return self._eager(params, opt_state, xb, yb, key)
+
+    def _engages(self, xb):
+        return not any(self.aux) and self._on_card(xb)
+
+    @staticmethod
+    def _on_card(xb):
+        """On the card, and not inside another capture (which takes the
+        eager step's work into its own graph)."""
+        return xb.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    def _eager(self, params, opt_state, xb, yb, key):
+        """The eager step: drops the graph held, and holds ``key`` when the
+        step kept every leaf where it was."""
+        self._drop()
+        out = self.step(params, opt_state, xb, yb)
+        kept = step_graph_key(out[0], out[1], xb, yb) == key
+        self.held = key if kept else None
+        return out
+
+    def _drop(self):
+        if self.graph is not None and self.static[0].is_cuda:
+            # a replay may still run; its pool goes back to the allocator
+            torch.cuda.synchronize(self.static[0].device)
+        self.graph = self.key = self.static = self.launches = None
+
+    def _record(self, run, device):
+        """``run()`` captured on a side stream into a new CUDA graph with a
+        private pool: ``(graph, run's outputs)``. Other threads' work is not
+        captured (``thread_local``). The eager call's freed blocks go back to
+        the card first, so the pool takes their memory instead of holding the
+        step's working set a second time."""
+        torch.cuda.empty_cache()
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        current = torch.cuda.current_stream(device)
+        self._side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                graph, stream=self._side, capture_error_mode="thread_local"
+            ):
+                out = run()
+        finally:
+            # a capture_end that raises leaves the side stream current
+            torch.cuda.set_stream(current)
+        return graph, out
+
+    def _capture(self, key, params, opt_state, xb, yb):
+        sx = torch.empty_like(xb, memory_format=torch.contiguous_format)
+        sy = torch.empty_like(yb, memory_format=torch.contiguous_format)
+        try:
+            with cuda_ops.capture_launches() as launches:
+                graph, out = self._record(
+                    lambda: self.step(params, opt_state, sx, sy), xb.device
+                )
+        except Exception:  # noqa: BLE001 — any failed capture falls back to the eager step
+            self.refused.add(key)
+            log.warning("CUDA graph capture of the batch step failed; the step runs "
+                        "eagerly under this key", exc_info=True)
+            return False
+        self.graph, self.key, self.launches = graph, key, launches
+        self.static = (sx, sy, out[2])
+        spans.add("trainer.graph_captures")
+        return True
+
+    def _replay(self, params, opt_state, xb, yb):
+        sx, sy, loss = self.static
+        sx.copy_(xb)
+        sy.copy_(yb)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            cuda_ops.LAUNCHES[k] += n
+        spans.add("trainer.graph_replays")
+        return params, opt_state, loss
 
 
 def block_crc(a):
@@ -184,7 +354,9 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
     ``yb``: (M, mubatch, out_dim) one-hot; ``loss`` is the batch's
     global-batch-scaled MSE under the pre-update params (a 0-d tensor, left
     on the device). ``megakernel=True`` runs the whole batch as one launch
-    of the fused train kernel."""
+    of the fused train kernel. Otherwise the step is a ``StepGraph`` (its
+    ``.graph``): on the card, without aux outputs, a repeat of its key
+    replays a CUDA graph, and its loss is then valid until the next call."""
     if megakernel:
         if with_grad_norm or with_digests:
             raise ValueError(_NO_STEP_AUX)
@@ -211,7 +383,6 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
             outs += (_digest_aux(params, raw),)
         return outs
 
-    @spanned("trainer.step")
     def batch_step(params, opt_state, xb, yb):
         if fuse_mubatches:
             rows = xb.shape[1]
@@ -232,7 +403,14 @@ def _make_batch_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
                 a.add_(g)
         return finish(params, opt_state, acc, loss)
 
-    return batch_step
+    graphed = StepGraph(batch_step, aux=(with_grad_norm, with_digests))
+
+    @spanned("trainer.step")
+    def step(params, opt_state, xb, yb):
+        return graphed(params, opt_state, xb, yb)
+
+    step.graph = graphed
+    return step
 
 
 def make_train_step(spec: ModelSpec, opt, fuse_mubatches=False, clip_norm=None,
